@@ -59,8 +59,8 @@ class IlsState(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
-    """Engine hyperparameters, the JAX package's ``SolverConfig`` without the
-    noisy-selection fields (``select_topk``, ``select_temp``), not ported yet."""
+    """Engine hyperparameters, the JAX package's ``SolverConfig``.
+    ``select_topk > 1`` turns on the noisy selection (``LsParams``)."""
 
     seed: str = "42"
     local_search_max_iterations: int = 10_000
@@ -71,6 +71,8 @@ class SolverConfig:
     max_allow_no_improvement_for: int = 5
     restart_every: int = 50
     tabu_exact_filter: bool | None = None
+    select_topk: int = 0
+    select_temp: float = 1.0
 
     # Exact-filter auto threshold: candidate width x ring capacity compares.
     _EXACT_FILTER_BUDGET = 2**21
@@ -88,6 +90,8 @@ class SolverConfig:
             allow_no_improvement_for=self.max_allow_no_improvement_for,
             tabu_exact_filter=exact,
             tabu_forced=self.tabu_exact_filter is not None,
+            select_topk=self.select_topk,
+            select_temp=self.select_temp,
         )
 
     def ils_params(self) -> IlsParams:

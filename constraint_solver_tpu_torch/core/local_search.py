@@ -16,9 +16,14 @@ running, and the host asks whether any lane is still running only every
 nothing).  The retry loop of pick-then-check is masked the same way and ends when
 no lane needs another retry.
 
-Divergences: randomness comes from a ``Draws`` source; ``select_topk`` (noisy
-selection) is not ported yet, and ``fixed_trip`` is not needed: every loop here
-already has the masked form it asks for.
+Noisy selection (``select_topk > 1``) samples the applied move from the top-k
+non-tabu candidates (``ops/lex.noisy_lex_select``), on the exact-filter path
+only, as in the JAX package.
+
+Divergences: randomness comes from a ``Draws`` source (the noisy selection's
+Gumbel noise from ``draws.select_noise``, in the iteration's neighborhood
+draws), and ``fixed_trip`` is not needed: every loop here already has the
+masked form it asks for.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import torch
 
 from constraint_solver_tpu_torch.core.history import TabuRing
 from constraint_solver_tpu_torch.core.problem import Problem
-from constraint_solver_tpu_torch.ops.lex import lex_argmin, lex_less
+from constraint_solver_tpu_torch.ops.lex import lex_argmin, lex_less, noisy_lex_select
 from constraint_solver_tpu_torch.utils.tree import lane_where, tree_where
 
 _DONE_CHECK_EVERY = 8
@@ -43,6 +48,8 @@ class LsParams(NamedTuple):
     tabu_retries: int = 8
     tabu_exact_filter: bool = False
     tabu_forced: bool = False
+    select_topk: int = 0
+    select_temp: float = 1.0
 
 
 class _LsCarry(NamedTuple):
@@ -119,7 +126,11 @@ def _step(problem: Problem, params: LsParams, c: _LsCarry, draws, active) -> _Ls
             fps_all = problem.move_fp(c.state, c.fp, nb.moves, iota_w.expand(nb.valid.shape))
         ok = nb.valid & ~tabu.is_tabu(fps_all)
         found = ok.any(dim=-1)
-        idx = lex_argmin(nb.scores, ok)
+        if params.select_topk > 1:
+            noise = draws.select_noise(ok.shape[1], active)
+            idx = noisy_lex_select(nb.scores, ok, params.select_topk, params.select_temp, noise)
+        else:
+            idx = lex_argmin(nb.scores, ok)
         cand_fp = fps_all[lane, idx]
         exhausted_event = torch.zeros_like(found)
         empty_nbr = ~found

@@ -78,6 +78,11 @@ def _sum_pairs(counts: torch.Tensor) -> torch.Tensor:
     return (counts * (counts - 1)).sum(dim=-1)
 
 
+def state_conflicts(state: NQState) -> torch.Tensor:
+    """Total conflicts float32[P] from the carried counters."""
+    return _sum_pairs(state.rc) + _sum_pairs(state.dc) + _sum_pairs(state.ac)
+
+
 def total_conflicts(rows: torch.Tensor) -> torch.Tensor:
     """Total conflict count (each attacking pair twice), int32[...]."""
     rc, dc, ac = line_counts(rows)
@@ -141,7 +146,7 @@ def make_nqueens_problem(
         return build_state(draws.permutation(n))
 
     def score(state):
-        return make_score(_sum_pairs(state.rc) + _sum_pairs(state.dc) + _sum_pairs(state.ac))
+        return make_score(state_conflicts(state))
 
     def is_best(s):
         return s[..., 0] == 0
@@ -239,7 +244,7 @@ def make_nqueens_problem(
         # {ChangeSubset: 100, DoNothing: 10}; k ~ U[1, n/20] near elites,
         # else U[1, n/2]; the k positions with the smallest draws change.
         hi = torch.where(is_elite, max(1, n // 20), max(1, n // 2))
-        dr = draws.perturb(n, hi)
+        dr = draws.perturb(n, hi, n)
         do_change = dr.u_strat < (100.0 / 110.0)
         kth = torch.sort(dr.u, dim=-1).values.gather(1, (dr.n_alter - 1)[:, None])
         alter = do_change[:, None] & (dr.u <= kth)

@@ -2,16 +2,18 @@
 
 Every score is a ``float32[..., 2]`` tensor, hard channel first, minimized
 lexicographically, and every argmin or argmax breaks ties to the lowest index,
-as in the JAX package.  Two PyTorch details decide the form:
+as in the JAX package.  Three PyTorch details decide the form:
 
 - ``torch.argmax`` refuses a bool tensor, so masks are cast to ``uint8`` (it
   returns the first maximal index, as ``jnp.argmax`` does);
 - ``torch.topk`` orders ties differently from ``lax.top_k``, so ``lex_top_k``
   is two stable sorts (soft first, then hard), which is the stable two-key
-  ``lax.sort`` of the JAX package.
-
-``noisy_lex_select`` is not ported yet: the solver path runs with
-``select_topk=0``.
+  ``lax.sort`` of the JAX package;
+- ``noisy_lex_select`` takes the k-th smallest *value* (``torch.kthvalue``),
+  which does not depend on how ties are ordered, and divides by the
+  temperature held in a tensor: CUDA's division by a Python scalar multiplies
+  by its reciprocal, which is not bit-equal to a division.  Divergence: its
+  Gumbel noise is an argument (a ``Draws`` source makes it) instead of a key.
 """
 
 from __future__ import annotations
@@ -70,6 +72,28 @@ def lex_argmax(scores: torch.Tensor, valid: torch.Tensor | None = None) -> torch
     tie = hard == hard.amax(dim=-1, keepdim=True)
     soft_m = torch.where(tie, soft, -INF_SCORE)
     return first_true(tie & (soft_m == soft_m.amax(dim=-1, keepdim=True)))
+
+
+def noisy_lex_select(
+    scores: torch.Tensor,
+    valid: torch.Tensor,
+    k: int,
+    temp: float,
+    gumbel: torch.Tensor,
+    scale: float = 4096.0,
+) -> torch.Tensor:
+    """Sample an index from the lexicographic top-``k`` of ``scores`` [..., W, 2]
+    by the Gumbel-max trick: P(i) ∝ exp(-w_i / temp) over the k best valid
+    candidates, with ``w = hard * scale + soft`` (exact while hard < 2^24 / scale
+    and soft < scale are integers).  Every candidate tied at the k-th value is
+    eligible.  ``gumbel`` [..., W] is the noise."""
+    w = scores[..., 0] * scale + scores[..., 1]
+    w = torch.where(valid, w, INF_SCORE)
+    k = min(k, w.shape[-1])
+    kth = torch.kthvalue(w, k, dim=-1, keepdim=True).values
+    in_topk = valid & (w <= kth)
+    logit = torch.where(in_topk, -w / w.new_tensor(max(temp, 1e-9)) + gumbel, -INF_SCORE)
+    return torch.argmax(logit, dim=-1)
 
 
 def lex_argsort(scores: torch.Tensor) -> torch.Tensor:

@@ -35,7 +35,7 @@ from constraint_solver_tpu_torch.core.ils import (
 )
 from constraint_solver_tpu_torch.core.local_search import LsParams
 from constraint_solver_tpu_torch.core.problem import Problem
-from constraint_solver_tpu_torch.ops.lex import lex_argmin, lex_argsort, lex_top_k
+from constraint_solver_tpu_torch.ops.lex import lex_argmin, lex_argsort
 from constraint_solver_tpu_torch.utils.draws import TorchDraws
 from constraint_solver_tpu_torch.utils.tree import lane_where, tree_map, tree_where
 
@@ -70,16 +70,15 @@ def exchange_elites(
     """Insert the global top-k of the lanes' bests into every lane's archive,
     then reset the worst ``cull_frac`` of lanes to their archive best."""
     scores, fps, bests = states.elite.get_best()
-    leaves = list(bests)
-    top = lex_top_k(scores, k_exchange, fps, *leaves)
-    top_scores, top_fps, top_leaves = top[0], top[1], top[2:]
+    top = lex_argsort(scores)[:k_exchange]  # lex_top_k's order, for any state tree
+    top_scores, top_fps, top_bests = tree_map(lambda x: x[top], (scores, fps, bests))
     p = scores.shape[0]
     elite = states.elite
-    for i in range(k_exchange):
+    for i in range(top.shape[0]):
         elite = elite.insert(
             top_scores[i].expand(p, 2),
             top_fps[i].expand(p, 2),
-            type(bests)(*(leaf[i].expand(p, *leaf.shape[1:]) for leaf in top_leaves)),
+            tree_map(lambda leaf: leaf[i].expand(p, *leaf.shape[1:]), top_bests),
         )
     states = states._replace(elite=elite)
 

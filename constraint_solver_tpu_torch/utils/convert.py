@@ -8,9 +8,13 @@ state on a given device.  ``to_reference`` turns the port's state back into the
 same tree with numpy leaves in the JAX package's dtypes.  The JAX state's PRNG
 ``key`` has no counterpart (``utils/draws.py``) and is skipped.
 
-Dtype map: fingerprint fields (uint32 there, int64 in [0, 2^32) here) and boards
-(``rows``: int32 there, int64 here) convert exactly; every other leaf keeps its
-dtype.  A single JAX ``Solver``'s state has no lane axis: give it one first.
+Dtype map: fingerprint fields (uint32 there, int64 in [0, 2^32) here) and
+solutions convert exactly; every other leaf keeps its dtype.  The rule for
+solutions: N-Queens boards (``rows``) and scheduling assignments are int32 there
+and int64 here.  A scheduling state is a bare array, so an integer leaf in a
+solution's place (``current_state``, the archive's ``states``) is an
+assignment.  PMC's ``PMCState`` crosses without its key.  A single JAX
+``Solver``'s state has no lane axis: give it one first.
 """
 
 from __future__ import annotations
@@ -23,9 +27,11 @@ import torch
 from constraint_solver_tpu_torch.core.history import EliteArchive, TabuRing
 from constraint_solver_tpu_torch.core.ils import IlsState
 from constraint_solver_tpu_torch.models.nqueens import NQState
+from constraint_solver_tpu_torch.models.nqueens_parallel import PMCState
 
-_CLASSES = {cls.__name__: cls for cls in (IlsState, EliteArchive, TabuRing, NQState)}
+_CLASSES = {cls.__name__: cls for cls in (IlsState, EliteArchive, TabuRing, NQState, PMCState)}
 _FP_FIELDS = ("fps", "current_fp")
+_SOLUTION_FIELDS = ("rows", "current_state", "states")
 
 
 def _ref_dtype(field: str, x: torch.Tensor):
@@ -45,7 +51,7 @@ def from_reference(ref: Any, device) -> Any:
             cls = _CLASSES[name]
             return cls(*(conv(getattr(node, f), f) for f in cls._fields))
         a = np.asarray(node)
-        if a.dtype == np.uint32 or field == "rows":
+        if a.dtype == np.uint32 or (field in _SOLUTION_FIELDS and a.dtype == np.int32):
             a = a.astype(np.int64)
         return torch.tensor(a, device=device)
 

@@ -9,12 +9,28 @@ on some inputs, and it would cost some hundred elementwise launches per draw on
 the card.  Instead, every random choice on the solver's path goes through a
 ``Draws`` object, with one method per call site, drawing for all P lanes at once:
 
-- ``permutation(n)``: the random boards of ``init`` and the periodic restart;
+- ``permutation(n)``: the random boards of the N-Queens ``init``, the periodic
+  restart, and PMC's ``pmc_init``;
+- ``assignment(d, e)``: the random schedules of the scheduling ``init`` and
+  restart, one employee in [0, e) per day;
 - ``round_keys()``: marks the start of an ILS round (a JAX key split per lane);
-- ``perturb(n, hi)``: the perturbation's strategy, count, positions and rows;
-- ``neighborhood(n, amount, active)``: the Gumbel noise of the weighted column
-  sample and the number of columns, for the lanes still in their descent;
-- ``accept(elite_valid, weights)``: the acceptance choice and the random elite.
+- ``perturb(n, hi, values)``: the perturbation's strategy, count, positions and
+  new values in [0, values);
+- ``neighborhood(n, amount, active)``: the N-Queens Gumbel column noise and the
+  number of columns;
+- ``random_moves(w, d, e, active)``: the scheduling random window (move type,
+  first day, day offset, new employee);
+- ``dense_swaps(n_rand, n_off, d, active)``: the dense scheduling block's random
+  swap pairs and diagonal offsets;
+- ``select_noise(w, active)``: the Gumbel noise of the noisy selection, drawn
+  in the same descent iteration as, and after, the neighborhood's draws;
+- ``accept(elite_valid, weights)``: the acceptance choice and the random elite;
+- ``pmc_step(n, a, conflicted, active, sampled)``: one parallel min-conflicts
+  step (acceptance draws, the plateau kick, the column noise).
+
+The four neighborhood-time methods take the [P] mask of lanes still running:
+a source that follows JAX keys advances only their keys, as ``vmap`` of a
+``while_loop`` does.
 
 ``TorchDraws`` is the production source: one ``torch.Generator`` seeded from the
 solver's seed string.  A test-only source that follows the JAX key tree exactly
@@ -32,10 +48,23 @@ from constraint_solver_tpu_torch.utils.seeding import seed_string_to_generator
 
 
 class PerturbDraws(NamedTuple):
-    u_strat: torch.Tensor   # float32[P]    strategy draw: change the board iff < 100/110
+    u_strat: torch.Tensor   # float32[P]    strategy draw: change the solution iff < 100/110
     n_alter: torch.Tensor   # int64[P]      how many positions change, in [1, hi]
     u: torch.Tensor         # float32[P, n] position draws: the n_alter smallest change
-    new_rows: torch.Tensor  # int64[P, n]   the new rows, in [0, n)
+    new_rows: torch.Tensor  # int64[P, n]   the new values, in [0, values)
+
+
+class RandomMoveDraws(NamedTuple):
+    u_type: torch.Tensor   # float32[P, W] a move is a swap iff < 0.8
+    d1: torch.Tensor       # int64[P, W]   first day, in [0, d)
+    off: torch.Tensor      # int64[P, W]   offset of the second day, in [1, max(d, 2))
+    new_emp: torch.Tensor  # int64[P, W]   ChangeDay's new employee, in [0, e)
+
+
+class DenseSwapDraws(NamedTuple):
+    rs_d1: torch.Tensor   # int64[P, n_rand] random swaps' first day, in [0, d)
+    rs_off: torch.Tensor  # int64[P, n_rand] their offset, in [1, d)
+    delta: torch.Tensor   # int64[P, n_off]  diagonal offsets, in [14, d)
 
 
 class AcceptDraws(NamedTuple):
@@ -44,21 +73,40 @@ class AcceptDraws(NamedTuple):
     u: torch.Tensor          # float32[P] the Metropolis draw of annealing lanes
 
 
+class PMCDraws(NamedTuple):
+    u: torch.Tensor                # float32[P, A] damped acceptance draws
+    kick_col: torch.Tensor         # int64[P]      a uniformly chosen conflicted column
+    kick_row: torch.Tensor         # int64[P]      its new row, in [0, n)
+    gumbel: torch.Tensor | None    # float32[P, n] column noise (sampled columns only)
+
+
 class Draws(Protocol):
     population: int
     device: torch.device
 
     def permutation(self, n: int) -> torch.Tensor: ...
 
+    def assignment(self, d: int, e: int) -> torch.Tensor: ...
+
     def round_keys(self) -> None: ...
 
-    def perturb(self, n: int, hi: torch.Tensor) -> PerturbDraws: ...
+    def perturb(self, n: int, hi: torch.Tensor, values: int) -> PerturbDraws: ...
 
     def neighborhood(
         self, n: int, amount: torch.Tensor, active: torch.Tensor
     ) -> tuple[torch.Tensor, torch.Tensor]: ...
 
+    def random_moves(self, w: int, d: int, e: int, active: torch.Tensor) -> RandomMoveDraws: ...
+
+    def dense_swaps(self, n_rand: int, n_off: int, d: int, active: torch.Tensor) -> DenseSwapDraws: ...
+
+    def select_noise(self, w: int, active: torch.Tensor) -> torch.Tensor: ...
+
     def accept(self, elite_valid: torch.Tensor, weights: Sequence[float]) -> AcceptDraws: ...
+
+    def pmc_step(
+        self, n: int, a: int, conflicted: torch.Tensor, active: torch.Tensor, sampled: bool
+    ) -> PMCDraws: ...
 
 
 class TorchDraws:
@@ -92,6 +140,16 @@ class TorchDraws:
         pick = (self._rand(dtype=torch.float64) * span).long()
         return lo + torch.minimum(pick, span - 1)
 
+    def _ints(self, lo: int, hi: int, *shape: int) -> torch.Tensor:
+        """Integers uniform in [lo, hi), [P, *shape]."""
+        return torch.randint(
+            lo, hi, (self.population, *shape), generator=self._gen, device=self._draw_device
+        )
+
+    def _gumbel(self, n: int) -> torch.Tensor:
+        tiny = torch.finfo(torch.float32).tiny
+        return -torch.log(-torch.log(self._rand(n).clamp_min(tiny)))
+
     def _out(self, *tensors: torch.Tensor):
         return tuple(t.to(self.device) for t in tensors)
 
@@ -99,23 +157,41 @@ class TorchDraws:
         (perm,) = self._out(torch.argsort(self._rand(n), dim=-1))
         return perm
 
+    def assignment(self, d: int, e: int) -> torch.Tensor:
+        (assign,) = self._out(self._ints(0, e, d))
+        return assign
+
     def round_keys(self) -> None:
         """Nothing to do: the generator's stream carries on."""
 
-    def perturb(self, n: int, hi: torch.Tensor) -> PerturbDraws:
+    def perturb(self, n: int, hi: torch.Tensor, values: int) -> PerturbDraws:
         u_strat = self._rand()
         n_alter = self._randint(1, hi)
         u = self._rand(n)
-        new_rows = torch.randint(
-            0, n, (self.population, n), generator=self._gen, device=self._draw_device
-        )
-        return PerturbDraws(*self._out(u_strat, n_alter, u, new_rows))
+        return PerturbDraws(*self._out(u_strat, n_alter, u, self._ints(0, values, n)))
 
     def neighborhood(self, n: int, amount: torch.Tensor, active: torch.Tensor):
-        tiny = torch.finfo(torch.float32).tiny
-        gumbel = -torch.log(-torch.log(self._rand(n).clamp_min(tiny)))
+        gumbel = self._gumbel(n)
         num_cols = self._randint(1, amount)
         return self._out(gumbel, num_cols)
+
+    def random_moves(self, w: int, d: int, e: int, active: torch.Tensor) -> RandomMoveDraws:
+        return RandomMoveDraws(*self._out(
+            self._rand(w), self._ints(0, d, w), self._ints(1, max(d, 2), w), self._ints(0, e, w)
+        ))
+
+    def dense_swaps(self, n_rand: int, n_off: int, d: int, active: torch.Tensor) -> DenseSwapDraws:
+        rs_d1 = self._ints(0, d, n_rand) if n_rand else self._empty()
+        rs_off = self._ints(1, d, n_rand) if n_rand else self._empty()
+        delta = self._ints(14, d, n_off) if n_off else self._empty()
+        return DenseSwapDraws(*self._out(rs_d1, rs_off, delta))
+
+    def _empty(self) -> torch.Tensor:
+        return torch.zeros((self.population, 0), dtype=torch.int64, device=self._draw_device)
+
+    def select_noise(self, w: int, active: torch.Tensor) -> torch.Tensor:
+        (g,) = self._out(self._gumbel(w))
+        return g
 
     def accept(self, elite_valid: torch.Tensor, weights: Sequence[float]) -> AcceptDraws:
         valid = elite_valid.to(self._draw_device)
@@ -124,3 +200,11 @@ class TorchDraws:
         cum = torch.cumsum(w / w.sum(), 0)[:-1]
         choice = (self._rand(1, dtype=torch.float64) >= cum).sum(-1)
         return AcceptDraws(*self._out(elite_idx, choice, self._rand()))
+
+    def pmc_step(self, n: int, a: int, conflicted: torch.Tensor, active: torch.Tensor, sampled: bool):
+        u = self._rand(a)
+        conf = conflicted.to(self._draw_device)
+        kick_col = torch.argmax(torch.where(conf, self._rand(n), -1.0), dim=-1)
+        out = self._out(u, kick_col, self._ints(0, n))
+        gumbel = self._out(self._gumbel(n))[0] if sampled else None
+        return PMCDraws(*out, gumbel)

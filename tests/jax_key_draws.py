@@ -3,18 +3,25 @@
 It keeps one JAX key per lane and splits it exactly where the JAX package does,
 calling the same ``jax.random`` functions with the same keys and shapes:
 
-- ``ils_init``: ``key, k_init = split(key)``; ``init`` permutes with ``k_init``;
+- ``ils_init`` and ``pmc_init``: ``key, k_init = split(key)``; ``init`` permutes
+  (N-Queens) or draws ``randint(k_init, (D,), 0, E)`` (scheduling) with ``k_init``;
 - ``ils_round``: ``key, k_restart, k_perturb, k_ls, k_elite, k_accept = split(key, 6)``;
-- each descent iteration: ``key, k_nb = split(key)`` for the lanes still running,
-  then the neighborhood's ``k_gumbel, k_num = split(k_nb)``;
+- each descent iteration: ``key, k_nb = split(key)`` for the lanes still running.
+  ``k_nb`` is kept for the iteration: the proposer draws from it (N-Queens
+  ``k_gumbel, k_num = split(k_nb)``; the scheduling window's ``split(k_nb, 4)``;
+  the dense block's ``k_off, k_rs = split(k_nb)`` and ``split(k_rs)``), and the
+  noisy selection draws its Gumbel noise from ``fold_in(k_nb, 0x6E6F6973)``;
 - the perturbation's ``split(k_perturb, 4)``;
 - ``EliteArchive.get_random``'s ``categorical`` and the acceptance's ``choice``
-  and ``uniform``, both on ``k_accept``.
+  and ``uniform``, both on ``k_accept``;
+- each PMC step: ``key, k_u, k_kcol, k_krow, k_gum = split(key, 5)`` for the
+  lanes still running (a stopped lane keeps its key).
 
 So the port (``constraint_solver_tpu_torch``) and the JAX package consume identical
 draws, and whole trajectories can be compared bit for bit.  Build it from the
 per-lane keys the JAX solver starts from: ``split(seed_key, P)`` for a
-``PopulationSolver``, ``seed_key[None]`` for a ``Solver``.
+``PopulationSolver`` or a PMC population, ``seed_key[None]`` for a ``Solver`` or
+a single PMC solve.
 """
 
 from __future__ import annotations
@@ -26,11 +33,28 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from constraint_solver_tpu_torch.utils.draws import AcceptDraws, PerturbDraws
+from constraint_solver_tpu_torch.utils.draws import (
+    AcceptDraws,
+    DenseSwapDraws,
+    PerturbDraws,
+    PMCDraws,
+    RandomMoveDraws,
+)
+
+_NOISE_SALT = 0x6E6F6973  # core/local_search.py's fold_in constant
 
 
 def _t(x, device, dtype=None):
     return torch.tensor(np.asarray(x), device=device, dtype=dtype)
+
+
+def _np(x: torch.Tensor):
+    return jnp.asarray(x.cpu().numpy())
+
+
+def _keep_inactive(new_keys, keys, active):
+    data = jnp.where(active[:, None], jax.random.key_data(new_keys), jax.random.key_data(keys))
+    return jax.random.wrap_key_data(data)
 
 
 @partial(jax.jit, static_argnums=1)
@@ -38,39 +62,76 @@ def _permutation(keys, n):
     return jax.vmap(lambda k: jax.random.permutation(k, jnp.arange(n, dtype=jnp.int32)))(keys)
 
 
+@partial(jax.jit, static_argnums=(1, 2))
+def _assignment(keys, d, e):
+    return jax.vmap(lambda k: jax.random.randint(k, (d,), 0, e, jnp.int32))(keys)
+
+
 @jax.jit
 def _split6(keys):
     return jax.vmap(lambda k: jax.random.split(k, 6))(keys)
 
 
-@partial(jax.jit, static_argnums=1)
-def _perturb(keys, n, hi):
+@partial(jax.jit, static_argnums=(1, 3))
+def _perturb(keys, n, hi, values):
     def one(key, hi):
         k_strat, k_n, k_u, k_rows = jax.random.split(key, 4)
         return (
             jax.random.uniform(k_strat),
             jax.random.randint(k_n, (), 1, hi + 1),
             jax.random.uniform(k_u, (n,)),
-            jax.random.randint(k_rows, (n,), 0, n, jnp.int32),
+            jax.random.randint(k_rows, (n,), 0, values, jnp.int32),
         )
 
     return jax.vmap(one)(keys, hi)
 
 
+@jax.jit
+def _split_nb(keys, active):
+    split = jax.vmap(jax.random.split)(keys)
+    return _keep_inactive(split[:, 0], keys, active), split[:, 1]
+
+
 @partial(jax.jit, static_argnums=1)
-def _neighborhood(keys, n, amount, active):
-    def one(key, amount):
-        key2, k_nb = jax.random.split(key)
-        k_gumbel, k_num = jax.random.split(k_nb)
+def _nqueens_nb(k_nb, n, amount):
+    def one(k, amount):
+        k_gumbel, k_num = jax.random.split(k)
+        return jax.random.gumbel(k_gumbel, (n,)), jax.random.randint(k_num, (), 1, amount + 1)
+
+    return jax.vmap(one)(k_nb, amount)
+
+
+@partial(jax.jit, static_argnums=(1, 2, 3))
+def _random_moves(k_nb, w, d, e):
+    def one(k):
+        k_type, k_d1, k_off, k_emp = jax.random.split(k, 4)
         return (
-            key2,
-            jax.random.gumbel(k_gumbel, (n,)),
-            jax.random.randint(k_num, (), 1, amount + 1),
+            jax.random.uniform(k_type, (w,)),
+            jax.random.randint(k_d1, (w,), 0, d, jnp.int32),
+            jax.random.randint(k_off, (w,), 1, max(d, 2), jnp.int32),
+            jax.random.randint(k_emp, (w,), 0, e, jnp.int32),
         )
 
-    new_keys, gumbel, num = jax.vmap(one)(keys, amount)
-    data = jnp.where(active[:, None], jax.random.key_data(new_keys), jax.random.key_data(keys))
-    return jax.random.wrap_key_data(data), gumbel, num
+    return jax.vmap(one)(k_nb)
+
+
+@partial(jax.jit, static_argnums=(1, 2, 3))
+def _dense_swaps(k_nb, n_rand, n_off, d):
+    def one(k):
+        k_off, k_rs = jax.random.split(k)
+        k_rs1, k_rs2 = jax.random.split(k_rs)
+        return (
+            jax.random.randint(k_rs1, (n_rand,), 0, d, jnp.int32),
+            jax.random.randint(k_rs2, (n_rand,), 1, d, jnp.int32),
+            jax.random.randint(k_off, (n_off,), 14, d, jnp.int32),
+        )
+
+    return jax.vmap(one)(k_nb)
+
+
+@partial(jax.jit, static_argnums=1)
+def _select_noise(k_nb, w):
+    return jax.vmap(lambda k: jax.random.gumbel(jax.random.fold_in(k, _NOISE_SALT), (w,)))(k_nb)
 
 
 @jax.jit
@@ -82,6 +143,23 @@ def _accept(k_elite, k_accept, valid, w):
     return jax.vmap(one)(k_elite, k_accept, valid)
 
 
+@partial(jax.jit, static_argnums=(1, 2, 5))
+def _pmc_step(keys, n, a, conflicted, active, sampled):
+    def one(key, conf):
+        key2, k_u, k_kcol, k_krow, k_gum = jax.random.split(key, 5)
+        gum = jax.random.gumbel(k_gum, (n,)) if sampled else jnp.zeros((0,), jnp.float32)
+        return (
+            key2,
+            jax.random.uniform(k_u, (a,)),
+            jax.random.categorical(k_kcol, jnp.where(conf, 0.0, -jnp.inf)),
+            jax.random.randint(k_krow, (), 0, n, jnp.int32),
+            gum,
+        )
+
+    new_keys, u, col, row, gum = jax.vmap(one)(keys, conflicted)
+    return _keep_inactive(new_keys, keys, active), u, col, row, gum
+
+
 class JaxKeyDraws:
     """``utils/draws.py``'s interface, drawing with per-lane JAX keys."""
 
@@ -91,42 +169,59 @@ class JaxKeyDraws:
         split = jax.vmap(jax.random.split)(lane_keys)
         self._key, self._perm_key = split[:, 0], split[:, 1]
         self._perturb_key = self._ls_key = self._elite_key = self._accept_key = None
+        self._nb_key = None  # the current descent iteration's k_nb
+
+    def _i64(self, x):
+        return _t(x, self.device, torch.int64)
 
     def permutation(self, n: int) -> torch.Tensor:
-        return _t(_permutation(self._perm_key, n), self.device, torch.int64)
+        return self._i64(_permutation(self._perm_key, n))
+
+    def assignment(self, d: int, e: int) -> torch.Tensor:
+        return self._i64(_assignment(self._perm_key, d, e))
 
     def round_keys(self) -> None:
         ks = _split6(self._key)
         self._key, self._perm_key, self._perturb_key = ks[:, 0], ks[:, 1], ks[:, 2]
         self._ls_key, self._elite_key, self._accept_key = ks[:, 3], ks[:, 4], ks[:, 5]
 
-    def perturb(self, n: int, hi: torch.Tensor) -> PerturbDraws:
+    def perturb(self, n: int, hi: torch.Tensor, values: int) -> PerturbDraws:
         u_strat, n_alter, u, new_rows = _perturb(
-            self._perturb_key, n, jnp.asarray(hi.cpu().numpy(), jnp.int32)
+            self._perturb_key, n, _np(hi).astype(jnp.int32), values
         )
         return PerturbDraws(
-            _t(u_strat, self.device),
-            _t(n_alter, self.device, torch.int64),
-            _t(u, self.device),
-            _t(new_rows, self.device, torch.int64),
+            _t(u_strat, self.device), self._i64(n_alter), _t(u, self.device), self._i64(new_rows)
         )
 
+    def _next_nb(self, active: torch.Tensor) -> jax.Array:
+        self._ls_key, self._nb_key = _split_nb(self._ls_key, _np(active))
+        return self._nb_key
+
     def neighborhood(self, n: int, amount: torch.Tensor, active: torch.Tensor):
-        self._ls_key, gumbel, num = _neighborhood(
-            self._ls_key, n,
-            jnp.asarray(amount.cpu().numpy(), jnp.int32),
-            jnp.asarray(active.cpu().numpy()),
-        )
-        return _t(gumbel, self.device), _t(num, self.device, torch.int64)
+        gumbel, num = _nqueens_nb(self._next_nb(active), n, _np(amount).astype(jnp.int32))
+        return _t(gumbel, self.device), self._i64(num)
+
+    def random_moves(self, w: int, d: int, e: int, active: torch.Tensor) -> RandomMoveDraws:
+        u, d1, off, emp = _random_moves(self._next_nb(active), w, d, e)
+        return RandomMoveDraws(_t(u, self.device), self._i64(d1), self._i64(off), self._i64(emp))
+
+    def dense_swaps(self, n_rand: int, n_off: int, d: int, active: torch.Tensor) -> DenseSwapDraws:
+        return DenseSwapDraws(*map(self._i64, _dense_swaps(self._next_nb(active), n_rand, n_off, d)))
+
+    def select_noise(self, w: int, active: torch.Tensor) -> torch.Tensor:
+        return _t(_select_noise(self._nb_key, w), self.device)
 
     def accept(self, elite_valid: torch.Tensor, weights) -> AcceptDraws:
         idx, choice, u = _accept(
-            self._elite_key, self._accept_key,
-            jnp.asarray(elite_valid.cpu().numpy()),
-            jnp.asarray(weights, jnp.float32),
+            self._elite_key, self._accept_key, _np(elite_valid), jnp.asarray(weights, jnp.float32)
         )
-        return AcceptDraws(
-            _t(idx, self.device, torch.int64), _t(choice, self.device, torch.int64), _t(u, self.device)
+        return AcceptDraws(self._i64(idx), self._i64(choice), _t(u, self.device))
+
+    def pmc_step(self, n: int, a: int, conflicted, active, sampled: bool) -> PMCDraws:
+        self._key, u, col, row, gum = _pmc_step(self._key, n, a, _np(conflicted), _np(active), sampled)
+        return PMCDraws(
+            _t(u, self.device), self._i64(col), self._i64(row),
+            _t(gum, self.device) if sampled else None,
         )
 
 

@@ -7,7 +7,11 @@ They import no JAX, so they also run where JAX is not installed:
 Without a CUDA device each test skips: the CUDA kernel has no CPU mode.  The
 kernel must equal its plain PyTorch version bit for bit (every value is a small
 integer held in float32), and a solve on the card must equal the same solve on
-the CPU from the same host-side draws."""
+the CPU from the same host-side draws: N-Queens, PMC (the kernel's second
+caller) and the dense scheduling block."""
+
+import datetime
+
 
 import numpy as np
 import pytest
@@ -15,6 +19,8 @@ import torch
 
 from constraint_solver_tpu_torch.core.ils import SolverConfig
 from constraint_solver_tpu_torch.models.nqueens import build_state, make_nqueens_problem, total_conflicts
+from constraint_solver_tpu_torch.models.nqueens_parallel import pmc_solve
+from constraint_solver_tpu_torch.models.scheduling import ScheduleSpec, make_scheduling_problem
 from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
 from constraint_solver_tpu_torch.parallel.population import PopulationSolver
 from constraint_solver_tpu_torch.utils.convert import to_reference
@@ -38,7 +44,9 @@ def _inputs(rng, p, a, n, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p, a, n", [(256, 50, 1000), (4, 3, 8), (8, 5, 1003), (2, 3, 14000), (3, 1, 1)])
+@pytest.mark.parametrize(
+    "p, a, n", [(256, 50, 1000), (1, 1000, 1000), (4, 64, 64), (4, 3, 8), (8, 5, 1003), (2, 3, 14000), (3, 1, 1)]
+)
 def test_cuda_kernel_matches_plain_version(cuda, p, a, n):
     args = _inputs(np.random.default_rng(n), p, a, n, cuda)
     before = nk.nqueens_neighborhood_scores.launches
@@ -77,12 +85,45 @@ def test_cuda_solve_equals_cpu_solve(cuda, exact):
 
     (on_card, trace_card), (on_cpu, trace_cpu) = run(cuda), run("cpu")
     np.testing.assert_array_equal(trace_card, trace_cpu)
-
-    def compare(a, b):
-        if hasattr(a, "_fields"):
-            for f in a._fields:
-                compare(getattr(a, f), getattr(b, f))
-        else:
-            np.testing.assert_array_equal(a, b)
-
     compare(on_card, on_cpu)
+
+
+def compare(a, b):
+    if hasattr(a, "_fields"):
+        for f in a._fields:
+            compare(getattr(a, f), getattr(b, f))
+    else:
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sample_cols", [None, 16])
+def test_cuda_pmc_launches_the_kernel_and_equals_cpu(cuda, sample_cols):
+    def run(device):
+        draws = TorchDraws("pmc", 4, device, draw_device="cpu")
+        return pmc_solve(64, draws, max_steps=300, sample_cols=sample_cols)
+
+    before = nk.nqueens_neighborhood_scores.launches
+    on_card = run(cuda)
+    torch.cuda.synchronize()
+    assert nk.nqueens_neighborhood_scores.launches > before
+    compare(to_reference(on_card), to_reference(run("cpu")))
+    assert torch.equal(on_card.score.cpu(), total_conflicts(on_card.state.rows).cpu().float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("proposer", ["dense", "random"])
+def test_cuda_scheduling_block_equals_cpu(cuda, proposer):
+    d0 = datetime.date(2024, 1, 1)
+    hol = {e: [d0 + datetime.timedelta(days=(17 * e + 11 * k) % 365) for k in range(10)] for e in range(20)}
+    spec = ScheduleSpec.from_dates(d0, d0 + datetime.timedelta(days=364), 20, hol)
+    problem = make_scheduling_problem(spec, proposer=proposer, n_rand_swaps=256)
+
+    def block(device):
+        draws = TorchDraws("sched", 8, device, draw_device="cpu")
+        assign = problem.init(draws)
+        nb = problem.neighborhood(assign, problem.score(assign), draws, torch.ones(8, dtype=torch.bool, device=device))
+        return [x.cpu() for x in (nb.scores, nb.valid, nb.fp_deltas, *nb.moves)]
+
+    for got, want in zip(block(cuda), block("cpu")):
+        assert got.dtype == want.dtype and torch.equal(got, want)

@@ -7,6 +7,7 @@ port's batched engine is compared with the JAX engine ``vmap``ped over lanes.
 Equality is bitwise: every score and counter is an integer held in float32 and
 every fingerprint a uint32."""
 
+import dataclasses
 import functools
 
 import jax
@@ -24,11 +25,13 @@ from constraint_solver_tpu.core.ils import ils_round as j_ils_round
 from constraint_solver_tpu.core.local_search import ls_execute as j_ls_execute
 from constraint_solver_tpu.models.nqueens import build_state as j_build_state
 from constraint_solver_tpu.models.nqueens import make_nqueens_problem as j_make
+from constraint_solver_tpu.utils import presets as jpresets
 from constraint_solver_tpu.utils.seeding import seed_string_to_key
 from constraint_solver_tpu_torch.core import history as th
 from constraint_solver_tpu_torch.core.ils import Solver, SolverConfig, ils_init, ils_round
 from constraint_solver_tpu_torch.core.local_search import ls_execute
 from constraint_solver_tpu_torch.models.nqueens import make_nqueens_problem
+from constraint_solver_tpu_torch.utils import presets as tpresets
 from constraint_solver_tpu_torch.utils.convert import from_reference, to_reference
 from jax_key_draws import JaxKeyDraws, reference_log_weights
 
@@ -174,6 +177,47 @@ def test_ls_execute_matches_jax(n, exact):
     np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
     np.testing.assert_array_equal(got[4].numpy(), np.asarray(want[4]))
     assert int(got[3][2]) == 0 and int(got[3].max()) > 1
+
+
+@pytest.mark.parametrize("topk, temp", [(4, 0.5), (64, 2.0)])
+def test_ls_execute_with_noisy_selection_matches_jax(topk, temp):
+    """The exact filter samples the applied move from the top-k; the noise is
+    drawn from the descent iteration's neighborhood key on both sides."""
+    n, p = 10, 4
+    rng = np.random.default_rng(topk)
+    kw = _config(select_topk=topk, select_temp=temp)
+    jp, tp = j_make(n), make_nqueens_problem(n, log_weights=reference_log_weights(n))
+    jparams, tparams = JConfig(**kw).ls_params(jp.width), SolverConfig(**kw).ls_params(tp.width)
+    assert tparams.select_topk == jparams.select_topk == topk and tparams.tabu_exact_filter
+    jstart = jax.vmap(j_build_state)(jnp.asarray(rng.integers(0, n, size=(p, n)), jnp.int32))
+    jring = jax.vmap(lambda _: jh.TabuRing.create(16, 30))(jnp.arange(p))
+    keys = jax.random.split(jax.random.key(topk), p)
+    enabled = np.array([True, False, True, True])
+    want = jax.jit(jax.vmap(lambda s, t, k, e: j_ls_execute(jp, jparams, s, t, k, e)))(
+        jstart, jring, keys, jnp.asarray(enabled)
+    )
+    draws = JaxKeyDraws(keys)
+    draws._ls_key = keys
+    got = ls_execute(
+        tp, tparams, from_reference(jstart, "cpu"), from_reference(jring, "cpu"), draws,
+        torch.from_numpy(enabled),
+    )
+    assert_tree_equal(want[0], to_reference(got[0]), "best_state")
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert_tree_equal(want[2], to_reference(got[2]), "tabu")
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+
+
+@pytest.mark.parametrize(
+    "name", ["nqueens_cli", "scheduling_cli", "scheduling_quality", "scheduling_dense_quality", "ackley_test"]
+)
+def test_presets_match_jax_field_for_field(name):
+    want, got = getattr(jpresets, name)("s"), getattr(tpresets, name)("s")
+    fields = [f.name for f in dataclasses.fields(got)]
+    assert fields == [f.name for f in dataclasses.fields(want)]
+    for f in fields:
+        assert getattr(got, f) == getattr(want, f), f
+    assert got.ls_params(405) == SolverConfig(**{f: getattr(want, f) for f in fields}).ls_params(405)
 
 
 @functools.lru_cache(maxsize=None)

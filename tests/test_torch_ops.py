@@ -139,7 +139,7 @@ def test_torch_draws_ranges_and_determinism():
     assert torch.equal(perm, b.permutation(9))
     assert torch.equal(perm.sort(dim=-1).values, torch.arange(9).expand(6, 9))
     hi = torch.tensor([1, 2, 3, 4, 5, 6])
-    pd = a.perturb(9, hi)
+    pd = a.perturb(9, hi, 9)
     assert ((pd.n_alter >= 1) & (pd.n_alter <= hi)).all()
     assert ((pd.new_rows >= 0) & (pd.new_rows < 9)).all() and pd.u.shape == (6, 9)
     gumbel, num = a.neighborhood(9, hi, torch.ones(6, dtype=torch.bool))
@@ -165,3 +165,55 @@ def test_torch_draws_host_generator_is_device_independent():
     a = TorchDraws("x", 3, "cpu", draw_device="cpu")
     b = TorchDraws("x", 3, "cpu")
     assert torch.equal(a.permutation(5), b.permutation(5))
+
+
+@pytest.mark.parametrize("k, temp", [(1, 1.0), (4, 0.5), (8, 1e-12), (40, 2.0)])
+def test_noisy_lex_select_matches_jax(k, temp):
+    """Heavy ties, ties at the k-th value, masked rows and an all-invalid row,
+    the same Gumbel noise on both sides."""
+    rng = np.random.default_rng(k)
+    p, w = 7, 33
+    scores = _scores(rng, (p, w), 3)
+    valid = rng.random((p, w)) < 0.7
+    valid[0] = False
+    keys = jax.random.split(jax.random.key(k), p)
+    want = jax.vmap(lambda s, v, key: jlex.noisy_lex_select(s, v, k, temp, key))(
+        jnp.asarray(scores), jnp.asarray(valid), keys
+    )
+    noise = jax.vmap(lambda key: jax.random.gumbel(key, (w,)))(keys)
+    got = tlex.noisy_lex_select(
+        torch.from_numpy(scores), torch.from_numpy(valid), k, temp, torch.from_numpy(np.array(noise))
+    )
+    _eq(want, got, np.int32)
+
+
+def test_noisy_lex_select_keeps_every_tie_at_the_kth_value():
+    # k = 2: one best, then four candidates tied at the 2nd value; the last of
+    # them carries the largest noise and must win at a high temperature.
+    scores = torch.tensor([[[0.0, 1.0], [0.0, 3.0], [0.0, 3.0], [0.0, 3.0], [0.0, 3.0], [1.0, 0.0]]])
+    valid = torch.ones((1, 6), dtype=torch.bool)
+    noise = torch.tensor([[0.0, 0.0, 0.0, 0.0, 50.0, 100.0]])
+    assert int(tlex.noisy_lex_select(scores, valid, 2, 1e6, noise)) == 4
+    valid[0, 4] = False
+    assert int(tlex.noisy_lex_select(scores, valid, 2, 1e6, noise)) in (0, 1, 2, 3)
+
+
+def test_torch_draws_scheduling_and_pmc_methods():
+    draws = TorchDraws("s", 5, "cpu")
+    active = torch.ones(5, dtype=torch.bool)
+    assign = draws.assignment(31, 7)
+    assert assign.shape == (5, 31) and int(assign.min()) >= 0 and int(assign.max()) < 7
+    pd = draws.perturb(31, torch.full((5,), 15), 7)
+    assert int(pd.new_rows.max()) < 7 and pd.u.shape == (5, 31)
+    rm = draws.random_moves(100, 31, 7, active)
+    assert rm.u_type.shape == (5, 100) and int(rm.off.min()) >= 1 and int(rm.off.max()) < 31
+    assert int(rm.d1.max()) < 31 and int(rm.new_emp.max()) < 7
+    ds = draws.dense_swaps(16, 4, 31, active)
+    assert ds.rs_d1.shape == (5, 16) and int(ds.delta.min()) >= 14 and int(ds.delta.max()) < 31
+    assert draws.dense_swaps(0, 0, 1, active).delta.shape == (5, 0)
+    assert torch.isfinite(draws.select_noise(9, active)).all()
+    conflicted = torch.zeros((5, 12), dtype=torch.bool)
+    conflicted[:, 3] = conflicted[:, 7] = True
+    pm = draws.pmc_step(12, 12, conflicted, active, sampled=True)
+    assert set(pm.kick_col.tolist()) <= {3, 7} and pm.u.shape == (5, 12) and pm.gumbel.shape == (5, 12)
+    assert int(pm.kick_row.max()) < 12 and draws.pmc_step(12, 4, conflicted, active, False).gumbel is None
