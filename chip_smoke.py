@@ -34,7 +34,26 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    window quality arm (``presets.scheduling_quality``, 128 lanes, culling a
    quarter) for ``QUALITY_WALL_S``.  For both, the recorded best must equal a
    rescore by the date-based scorer below (independent of the port), and every
-   lane's carried score and fingerprint a full recomputation.
+   lane's carried score and fingerprint a full recomputation;
+8. QAP (``bench/qap_scale.py``'s configuration): (a) qap-64 with 8 lanes in the
+   dense, compact and incremental modes, card == CPU from host-side draws;
+   (b) qap-256, 64 lanes, dense and compact, 2 warm-up and 6 timed rounds, and
+   the compact winner equal to the dense one on every lane; (c) qap-1024
+   compact, 16 lanes; (d) qap-4096 incremental, 4 lanes, with the perturbation
+   (which rebuilds H) timed apart and the carried G and H exact.  For (b)-(d)
+   the recorded best must be a permutation whose carried cost is within 1e-3
+   of an int64 host cost; one more round of each runs under ``torch.profiler``;
+9. Ackley d=10, 64 lanes, the JAX CLI's configuration, until |f| <= 1e-2 or
+   ``ACKLEY_WALL_S``: the recorded best equal to the float64 function of its
+   point within 2e-5;
+10. diagram layout, 64 boxes, 96 connectors, a 32x32 grid, 64 lanes, 6 rounds:
+    the recorded best equal to the host oracle; 8 boxes on 8x8 with 4 lanes
+    card == CPU;
+11. (a) the phased solver on phase 7's instance, dense until round 8, then the
+    random window until round 16: each program runs exactly in its rounds and
+    the best equals the date-based rescore; (b) checkpoints on the card:
+    2 rounds, save, load into a fresh solver, 2 rounds == 4 rounds straight,
+    for qap-1024 compact and for the nqueens main path.
 
 Each path's kernel launches are counted from 0 just before it runs.  The line
 before the last is a JSON object with each kernel's measurements; the last line
@@ -56,6 +75,7 @@ MAIN_N, MAIN_P, MAIN_A = 1000, 256, 50
 PMC_N = 1000
 WALL_CAP_S = 300.0
 QUALITY_WALL_S = 10.0
+ACKLEY_WALL_S = 60.0
 CHECK_SHAPES = (
     (MAIN_P, MAIN_A, MAIN_N), (1, PMC_N, PMC_N), (4, 64, 64), (4, 3, 8), (8, 5, 1003), (2, 3, 14000)
 )
@@ -279,7 +299,7 @@ def phase_main(device, n=MAIN_N, population=MAIN_P, wall_cap=WALL_CAP_S) -> dict
 def sync(device) -> None:
     import torch
 
-    if torch.device(device).type == "cuda":
+    if is_cuda(device):
         torch.cuda.synchronize()
 
 
@@ -508,6 +528,503 @@ def phase_schedule_bench(device, population=64, q_population=128, rounds=40, qua
     return out
 
 
+class Counters:
+    """Lockstep descent iterations (calls of a problem's ``neighborhood``) and
+    the time spent in its ``perturb``, counted by ``instrument``."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.calls = 0
+        self.perturb_spans = []  # (start, end) CUDA events on the card
+        self.perturb_host_s = 0.0  # on the CPU, where every op is synchronous
+
+    def perturb_s(self) -> float:
+        """The summed perturbation time; read it after a sync."""
+        return self.perturb_host_s + sum(a.elapsed_time(b) for a, b in self.perturb_spans) / 1e3
+
+
+def instrument(problem, device, time_perturb=False):
+    """The same problem with its neighborhood calls counted and, optionally,
+    its perturbation timed: on the card between two CUDA events on the stream,
+    so the host never waits and the timed run has no extra sync."""
+    counters = Counters()
+    neighborhood, perturb = problem.neighborhood, problem.perturb
+
+    def counted(*args):
+        counters.calls += 1
+        return neighborhood(*args)
+
+    def timed(*args):
+        if not is_cuda(device):
+            t0 = time.perf_counter()
+            out = perturb(*args)
+            counters.perturb_host_s += time.perf_counter() - t0
+            return out
+        import torch
+
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = perturb(*args)
+        end.record()
+        counters.perturb_spans.append((start, end))
+        return out
+
+    return problem._replace(neighborhood=counted, perturb=timed if time_perturb else perturb), counters
+
+
+def profile_round(solver, counters) -> dict:
+    """One round under ``torch.profiler``: device kernels, their summed busy
+    time, memory copies and host reads (``aten::_local_scalar_dense``), per
+    lockstep descent iteration, and the profiled idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    counters.calls = 0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solver.execute_round()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = copies = reads = 0
+    busy_us = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.name.startswith(("Memcpy", "Memset")):
+                copies += 1
+            else:
+                kernels += 1
+            busy_us += e.time_range.elapsed_us()
+        elif e.name == "aten::_local_scalar_dense":
+            reads += 1
+    it = max(counters.calls, 1)
+    out = {
+        "iterations": counters.calls,
+        "wall_s": wall,
+        "kernels": kernels,
+        "copies": copies,
+        "host_reads": reads,
+        "kernels_per_iteration": kernels / it,
+        "host_reads_per_iteration": reads / it,
+        "busy_ms_per_iteration": busy_us / 1e3 / it if kernels else None,
+        "idle_share": 1.0 - busy_us / 1e6 / wall if kernels else None,
+    }
+    if not kernels:
+        log("  profile: the trace holds no device events; device busy and idle not measured")
+    return out
+
+
+QAP_MODES = {"dense": {}, "compact": {"compact": True}, "incremental": {"incremental": True}}
+
+
+def qap_config(seed="bench", capacity=8):
+    """The JAX package's ``bench/qap_scale.py`` configuration."""
+    from constraint_solver_tpu_torch.core.ils import SolverConfig
+
+    return SolverConfig(
+        seed=seed, local_search_max_iterations=50, best_solutions_capacity=capacity, all_solutions_capacity=128,
+        all_solution_iteration_expiry=1_000, iterated_local_search_max_iterations=100_000,
+        max_allow_no_improvement_for=5,
+    )
+
+
+def qap_host_cost(flow, dist, p) -> int:
+    """sum_ij F[i, j] D[p[i], p[j]] in int64 on the host."""
+    return int((flow.astype(np.int64) * dist.astype(np.int64)[np.ix_(p, p)]).sum())
+
+
+def run_qap(device, mode, n=64, population=8, rounds=4):
+    """qap-n from host-side draws; the state in the reference layout, the
+    per-round traces and the stats."""
+    from constraint_solver_tpu_torch.models.qap import QAPSpec, make_qap_problem
+    from constraint_solver_tpu_torch.parallel.population import PopulationSolver
+    from constraint_solver_tpu_torch.utils.convert import to_reference
+    from constraint_solver_tpu_torch.utils.draws import TorchDraws
+
+    config = qap_config("smoke-qap")
+    solver = PopulationSolver(
+        make_qap_problem(QAPSpec.random(n, seed=0), **QAP_MODES[mode]), config, population=population,
+        device=device, draws=TorchDraws(config.seed, population, device, draw_device="cpu"),
+    )
+    traces = [solver.execute_chunk_traced(2) for _ in range(rounds // 2)]
+    return to_reference(solver.state), np.concatenate(traces), solver.stats()
+
+
+def qap_arm(device, n, population, mode, warm, rounds, label, capacity=8):
+    """``warm`` warm-up rounds on one solver, then ``rounds`` timed rounds
+    (chunk 2) on a fresh one, the int64 cost check and one profiled round.
+    Returns the measurements and the timed solver."""
+    from constraint_solver_tpu_torch.models.qap import QAPSpec, make_qap_problem
+    from constraint_solver_tpu_torch.parallel.population import PopulationSolver
+
+    spec = QAPSpec.random(n, seed=0)
+    problem, counters = instrument(
+        make_qap_problem(spec, **QAP_MODES[mode]), device, time_perturb=mode == "incremental"
+    )
+    config = qap_config(capacity=capacity)
+    t0 = time.time()
+    PopulationSolver(problem, config, population=population, device=device).run(max_rounds=warm, chunk=2)
+    sync(device)
+    log(f"phase 8{label}: qap-{n} {mode} P={population} warm-up ({warm} rounds) {time.time() - t0:.3f} s")
+    s = PopulationSolver(problem, config, population=population, device=device)
+    counters.reset()
+    t0 = time.time()
+    s.run(max_rounds=rounds, chunk=2)
+    sync(device)
+    wall = time.time() - t0
+    stats = s.stats()
+    calls, perturb_s = counters.calls, counters.perturb_s()
+    (cost, _), best = s.get_best_solution()
+    perm = best.p if mode == "incremental" else best
+    if sorted(perm.tolist()) != list(range(n)):
+        raise AssertionError(f"phase 8{label}: the recorded best is not a permutation")
+    flow, dist = spec.arrays()
+    exact = qap_host_cost(flow, dist, perm)
+    if abs(exact - cost) > 1e-3 * max(1.0, abs(exact)):
+        raise AssertionError(f"phase 8{label}: carried cost {cost} != int64 host cost {exact}")
+    out = {
+        "n": n, "population": population, "mode": mode, "rounds": stats["rounds"], "wall_s": wall,
+        "wall_per_round_s": wall / rounds, "best_carried": cost, "best_int64": exact,
+        "lockstep_iterations": calls, "ms_per_iteration": 1e3 * wall / max(calls, 1),
+        "ls_iterations": stats["ls_iterations"], "moves_per_sec": stats["moves_evaluated"] / wall,
+    }
+    if mode == "incremental":
+        out["perturb_s"] = perturb_s
+        out["rebuild_share"] = perturb_s / wall
+    if is_cuda(device):
+        out["profile"] = profile_round(s, counters)
+    log(
+        f"phase 8{label}: qap-{n} {mode} P={population}: {rounds} rounds in {wall:.3f} s, "
+        f"{calls} lockstep iterations ({out['ms_per_iteration']:.3f} ms each), best {cost:.0f} "
+        f"(int64 host cost {exact}), moves/s {out['moves_per_sec']:.4g}"
+        + (f", perturbation with H rebuild {perturb_s:.3f} s ({out['rebuild_share']:.3f} of the wall)"
+           if mode == "incremental" else "")
+        + (f", profiled round: {out['profile']}" if "profile" in out else "")
+    )
+    return out, s
+
+
+def is_cuda(device) -> bool:
+    import torch
+
+    return torch.device(device).type == "cuda"
+
+
+def qap_winners(dense, compact, state, draws):
+    """Each lane's lexicographic winner (a, b, score) under both proposers."""
+    import torch
+
+    from constraint_solver_tpu_torch.ops.lex import lex_argmin
+
+    p, score = state.current_state, state.current_score
+    on = torch.ones(p.shape[0], dtype=torch.bool, device=p.device)
+    nb_d, nb_c = dense.neighborhood(p, score, draws, on), compact.neighborhood(p, score, draws, on)
+    wd, wc = lex_argmin(nb_d.scores, nb_d.valid), lex_argmin(nb_c.scores, nb_c.valid)
+    lane = torch.arange(p.shape[0], device=p.device)
+    n = p.shape[1]
+    return (
+        (wd // n, wd % n, nb_d.scores[lane, wd]),
+        (wc, nb_c.moves.partner[lane, wc], nb_c.scores[lane, wc]),
+    )
+
+
+def phase_qap(device, check_n=64, sizes=((256, 64, 2, 6), (1024, 16, 2, 6), (4096, 4, 1, 2))) -> dict:
+    """(a) card == CPU at check_n in three modes; (b) qap-256 dense and compact;
+    (c) qap-1024 compact; (d) qap-4096 incremental with exact G and H."""
+    import torch
+
+    from constraint_solver_tpu_torch.models.qap import QAPSpec, make_qap_problem
+    from constraint_solver_tpu_torch.utils.draws import TorchDraws
+
+    for mode in QAP_MODES:
+        on_card, trace_card, stats = run_qap(device, mode, n=check_n)
+        on_cpu, trace_cpu, _ = run_qap("cpu", mode, n=check_n)
+        assert_tree_equal(on_card, on_cpu)
+        if not np.array_equal(trace_card, trace_cpu):
+            raise AssertionError(f"card and CPU QAP traces differ ({mode})")
+        log(
+            f"phase 8a: qap-{check_n} P=8 {mode}: card == CPU after {stats['rounds']} rounds, "
+            f"{stats['ls_iterations']} descent iterations, best {trace_card[-1, 1]}"
+        )
+
+    out = {}
+    (n_b, p_b, w_b, r_b), (n_c, p_c, w_c, r_c), (n_d, p_d, w_d, r_d) = sizes
+    out["dense"], s_dense = qap_arm(device, n_b, p_b, "dense", w_b, r_b, "b")
+    out["compact"], s_comp = qap_arm(device, n_b, p_b, "compact", w_b, r_b, "b")
+    spec = QAPSpec.random(n_b, seed=0)
+    dense, compact = make_qap_problem(spec), make_qap_problem(spec, compact=True)
+    draws = TorchDraws("winners", p_b, device)
+    for s in (s_dense, s_comp):
+        (ad, bd, sd), (ac, bc, sc) = qap_winners(dense, compact, s.state, draws)
+        if not (torch.equal(ad, ac) and torch.equal(bd, bc) and torch.equal(sd, sc)):
+            raise AssertionError("phase 8b: the compact winner differs from the dense winner")
+    same = out["dense"]["best_carried"] == out["compact"]["best_carried"]
+    out["dense_best_equals_compact_best"] = same
+    log(f"phase 8b: compact winner == dense winner on every lane; 6-round bests equal: {same}")
+    out["compact_1024"], _ = qap_arm(device, n_c, p_c, "compact", w_c, r_c, "c")
+    out["incremental_4096"], s_inc = qap_arm(device, n_d, p_d, "incremental", w_d, r_d, "d")
+
+    # (d) G == D[p][:, p] (a numpy gather on the host) and H == F G (a float64
+    # product on the card, exact: every partial sum is an integer far below
+    # 2^53) on every lane.
+    flow_np, dist_np = QAPSpec.random(n_d, seed=0).arrays()
+    st = s_inc.state.current_state
+    for k, pk in enumerate(st.p.cpu().numpy()):
+        if not np.array_equal(st.g[k].cpu().numpy(), dist_np[np.ix_(pk, pk)]):
+            raise AssertionError(f"phase 8d: carried G of lane {k} differs from D[p][:, p]")
+    flow = torch.from_numpy(flow_np).to(device)
+    if not torch.equal(st.h.double(), torch.matmul(flow.double(), st.g.double())):
+        raise AssertionError("phase 8d: carried H differs from the exact F G")
+    log(f"phase 8d: carried G and H exact on all {p_d} lanes")
+    if is_cuda(device):
+        ms = time_ms(torch.matmul, (flow, st.g), 5)
+        tflops = 2 * p_d * n_d**3 / ms / 1e9
+        out["incremental_4096"].update(rebuild_matmul_ms=ms, rebuild_matmul_tflops=tflops)
+        log(f"phase 8d: F @ G for {p_d} lanes at n={n_d}: {ms:.3f} ms ({tflops:.1f} TFLOP/s FP32, CUDA events)")
+    return out
+
+
+def phase_ackley(device, d=10, population=64, wall_cap=ACKLEY_WALL_S) -> dict:
+    """Ackley d=10 with the JAX CLI's configuration until |f| <= 1e-2 or the
+    wall cap; the recorded best against the float64 host function.  The cap is
+    read between rounds, and one round (a 10,000-iteration descent) takes tens
+    of seconds on the card, so the phase may run up to a round past it."""
+    from constraint_solver_tpu_torch.core.ils import SolverConfig
+    from constraint_solver_tpu_torch.models.ackley import ackley_np, make_ackley_problem
+    from constraint_solver_tpu_torch.parallel.population import PopulationSolver
+
+    problem, counters = instrument(make_ackley_problem(d), device)
+    kw = dict(
+        seed="42", local_search_max_iterations=10_000, best_solutions_capacity=32, all_solutions_capacity=512,
+        all_solution_iteration_expiry=10_000, iterated_local_search_max_iterations=1000,
+        max_allow_no_improvement_for=10,
+    )
+    s = PopulationSolver(problem, SolverConfig(**kw), population=population, device=device)
+    timer = threading.Timer(wall_cap, s.cancel)
+    timer.start()
+    try:
+        t0 = time.time()
+        s.run(chunk=1)
+        sync(device)
+        wall = time.time() - t0
+    finally:
+        timer.cancel()
+        timer.join()
+    stats = s.stats()
+    (value, _), x = s.get_best_solution()
+    host = float(ackley_np(x))
+    if not np.isclose(value, host, rtol=2e-5, atol=2e-5):
+        raise AssertionError(f"phase 9: recorded best {value} != float64 Ackley {host} of its point")
+    out = {
+        "d": d, "population": population, "best": value, "best_float64": host, "reached": abs(value) <= 1e-2,
+        "wall_s": wall, "rounds": stats["rounds"], "lockstep_iterations": counters.calls,
+        "ms_per_iteration": 1e3 * wall / max(counters.calls, 1), "wall_per_round_s": wall / max(stats["rounds"], 1),
+        "ls_iterations": stats["ls_iterations"], "moves_per_sec": stats["moves_evaluated"] / wall,
+    }
+    if is_cuda(device):
+        # A short-descent solver for the profile: a 10,000-iteration round is
+        # too long a trace.
+        short, c_short = instrument(make_ackley_problem(d), device)
+        ps = PopulationSolver(
+            short, SolverConfig(**{**kw, "local_search_max_iterations": 40}), population=population, device=device
+        )
+        ps.execute_round()
+        out["profile_ls40"] = profile_round(ps, c_short)
+    log(
+        f"phase 9: ackley-{d}d P={population}: best {value:.6g} (float64 {host:.6g}), reached 1e-2: "
+        f"{out['reached']}, {stats['rounds']} rounds in {wall:.3f} s, {counters.calls} lockstep iterations "
+        f"({out['ms_per_iteration']:.3f} ms each), moves/s {out['moves_per_sec']:.4g}"
+        + (f", profiled round (LS max 40): {out['profile_ls40']}" if "profile_ls40" in out else "")
+    )
+    return out
+
+
+def diagram_config(seed="bench"):
+    """The JAX package's ``bench/domains_tpu.py`` diagram configuration."""
+    from constraint_solver_tpu_torch.core.ils import SolverConfig
+
+    return SolverConfig(
+        seed=seed, local_search_max_iterations=50, best_solutions_capacity=8, all_solutions_capacity=128,
+        all_solution_iteration_expiry=1_000, iterated_local_search_max_iterations=100_000,
+        max_allow_no_improvement_for=5,
+    )
+
+
+def run_diagram(device, boxes=8, edges=10, grid=8, population=4, rounds=4):
+    from constraint_solver_tpu_torch.models.diagram_layout import DiagramLayoutSpec, make_diagram_layout_problem
+    from constraint_solver_tpu_torch.parallel.population import PopulationSolver
+    from constraint_solver_tpu_torch.utils.convert import to_reference
+    from constraint_solver_tpu_torch.utils.draws import TorchDraws
+
+    config = diagram_config("smoke-diagram")
+    solver = PopulationSolver(
+        make_diagram_layout_problem(DiagramLayoutSpec.random(boxes, edges, grid, seed=3)), config,
+        population=population, exchange_every=2, device=device,
+        draws=TorchDraws(config.seed, population, device, draw_device="cpu"),
+    )
+    traces = [solver.execute_chunk_traced(2) for _ in range(rounds // 2)]
+    return to_reference(solver.state), np.concatenate(traces), solver.stats()
+
+
+def phase_diagram(device, boxes=64, edges=96, grid=32, max_size=4, population=64, rounds=6) -> dict:
+    from constraint_solver_tpu_torch.models.diagram_layout import (
+        DiagramLayoutSpec,
+        layout_score_naive,
+        make_diagram_layout_problem,
+    )
+    from constraint_solver_tpu_torch.parallel.population import PopulationSolver
+
+    on_card, trace_card, stats = run_diagram(device)
+    on_cpu, trace_cpu, _ = run_diagram("cpu")
+    assert_tree_equal(on_card, on_cpu)
+    if not np.array_equal(trace_card, trace_cpu):
+        raise AssertionError("card and CPU diagram traces differ")
+    log(f"phase 10: diagram-8b-8g P=4: card == CPU after {stats['rounds']} rounds, best {tuple(trace_card[-1, 1:])}")
+
+    spec = DiagramLayoutSpec.random(boxes, edges, grid, seed=0, max_size=max_size)
+    problem, counters = instrument(make_diagram_layout_problem(spec), device)
+    t0 = time.time()
+    PopulationSolver(problem, diagram_config(), population=population, device=device).run(max_rounds=2, chunk=2)
+    sync(device)
+    log(f"phase 10: warm-up (2 rounds) {time.time() - t0:.3f} s")
+    s = PopulationSolver(problem, diagram_config(), population=population, device=device)
+    counters.calls = 0
+    t0 = time.time()
+    s.run(max_rounds=rounds, chunk=2)
+    sync(device)
+    wall = time.time() - t0
+    stats = s.stats()
+    (hard, soft), pos = s.get_best_solution()
+    want = layout_score_naive(spec, pos)
+    if (hard, soft) != want:
+        raise AssertionError(f"phase 10: recorded best {(hard, soft)} != host oracle {want}")
+    out = {
+        "boxes": boxes, "edges": edges, "grid": grid, "population": population, "best": [hard, soft],
+        "rounds": stats["rounds"], "wall_s": wall, "wall_per_round_s": wall / rounds,
+        "lockstep_iterations": counters.calls, "ms_per_iteration": 1e3 * wall / max(counters.calls, 1),
+        "ls_iterations": stats["ls_iterations"], "moves_per_sec": stats["moves_evaluated"] / wall,
+    }
+    if is_cuda(device):
+        out["profile"] = profile_round(s, counters)
+    log(
+        f"phase 10: diagram-{boxes}b-{grid}g P={population}: best ({hard}, {soft}) == host oracle, "
+        f"{rounds} rounds in {wall:.3f} s, {out['lockstep_iterations']} lockstep iterations ({out['ms_per_iteration']:.3f} ms "
+        f"each), moves/s {out['moves_per_sec']:.4g}" + (f", profiled round: {out['profile']}" if "profile" in out else "")
+    )
+    return out
+
+
+def phase_phased(device, population=64, switch=8, total=16, chunk=3, days=365, emps=20) -> dict:
+    """(a) the 365d x 20e instance, dense until round ``switch`` then the random
+    window until ``total``, in chunks of ``chunk`` rounds: each program must run
+    in exactly the chunks of its phase, the chunk before the switch clipped to
+    end at it."""
+    from constraint_solver_tpu_torch.core.ils import SolverConfig
+    from constraint_solver_tpu_torch.models.scheduling import make_scheduling_problem
+    from constraint_solver_tpu_torch.parallel.phased import Phase, PhasedPopulationSolver
+
+    spec, d0, hols = bench_schedule(days, emps)
+    solver = {}
+
+    def tracked(problem, starts):
+        """The problem, recording the round each of its chunks starts from."""
+        inner = problem.neighborhood
+
+        def neighborhood(*args):
+            starts.add(solver["s"].get_iteration_info()["current"])
+            return inner(*args)
+
+        return problem._replace(neighborhood=neighborhood)
+
+    dense_starts, window_starts = set(), set()
+    dense = tracked(make_scheduling_problem(spec, proposer="dense", n_rand_swaps=256), dense_starts)
+    window = tracked(make_scheduling_problem(spec, proposer="random", window_size=100), window_starts)
+    kw = dict(
+        seed="phased", local_search_max_iterations=50, best_solutions_capacity=16, all_solutions_capacity=64,
+        all_solution_iteration_expiry=1_000, max_allow_no_improvement_for=20,
+    )
+    s = solver["s"] = PhasedPopulationSolver(
+        [Phase(dense, SolverConfig(**kw), until_round=switch),
+         Phase(window, SolverConfig(**kw, iterated_local_search_max_iterations=total))],
+        population=population, exchange_every=4, device=device,
+    )
+    t0 = time.time()
+    s.run(chunk=chunk)
+    sync(device)
+    wall = time.time() - t0
+    starts, r = [], 0
+    while r < total:
+        starts.append(r)
+        r = min(r + chunk, switch if r < switch else total)
+    want = ({x for x in starts if x < switch}, {x for x in starts if x >= switch})
+    if (dense_starts, window_starts) != want or s.stats()["phase"] != 1:
+        raise AssertionError(f"phase 11a: chunks from rounds {sorted(dense_starts)} (dense), "
+                             f"{sorted(window_starts)} (window); expected {[sorted(w) for w in want]}")
+    hard, soft = check_schedule(s, window, d0, hols, "phase 11a")
+    stats = s.stats()
+    log(
+        f"phase 11a: phased scheduling-{days}d-{emps}e P={population}: chunks of {chunk} from rounds "
+        f"{sorted(dense_starts)} ran the dense program, from {sorted(window_starts)} the window; switch at round "
+        f"{switch} exactly; best ({hard}, {soft}) == date-based rescore, {stats['rounds']} rounds in {wall:.3f} s, "
+        f"{stats['ls_iterations']} descent iterations, moves {stats['moves_evaluated']}"
+    )
+    return {"best": [hard, soft], "wall_s": wall, "dense_chunk_starts": sorted(dense_starts),
+            "window_chunk_starts": sorted(window_starts), **stats}
+
+
+def phase_checkpoint(device, qap_n=1024, qap_p=16, nq_n=MAIN_N, nq_p=MAIN_P) -> dict:
+    """(b) save after 2 rounds, load into a fresh solver, 2 more rounds: equal
+    to 4 rounds run straight, leaf for leaf, for qap-1024 compact and for the
+    nqueens main path (which launches the kernel)."""
+    import os
+
+    from constraint_solver_tpu_torch.models.nqueens import make_nqueens_problem
+    from constraint_solver_tpu_torch.models.qap import QAPSpec, make_qap_problem
+    from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+    from constraint_solver_tpu_torch.parallel.population import PopulationSolver
+    from constraint_solver_tpu_torch.utils.convert import to_reference
+
+    os.makedirs("build/checkpoints", exist_ok=True)
+    out = {}
+    cases = (
+        ("qap", make_qap_problem(QAPSpec.random(qap_n, seed=0), compact=True), qap_config(), qap_p, {}),
+        ("nqueens", make_nqueens_problem(nq_n), main_config(), nq_p, {"exchange_every": 2}),
+    )
+    for name, problem, config, population, kw in cases:
+        def solver():
+            return PopulationSolver(problem, config, population=population, device=device, **kw)
+
+        nk.nqueens_neighborhood_scores.launches = 0
+        t0 = time.time()
+        straight = solver()
+        for _ in range(4):
+            straight.execute_round()
+        part = solver()
+        for _ in range(2):
+            part.execute_round()
+        path = f"build/checkpoints/{name}.npz"
+        part.save(path)
+        resumed = solver()
+        resumed.load(path)
+        for _ in range(2):
+            resumed.execute_round()
+        sync(device)
+        launches = nk.nqueens_neighborhood_scores.launches
+        assert_tree_equal(to_reference(straight.state), to_reference(resumed.state))
+        size = os.path.getsize(path)
+        os.remove(path)
+        out[name] = {"launches": launches, "file_bytes": size, "wall_s": time.time() - t0}
+        log(
+            f"phase 11b: {problem.name} P={population}: 2 rounds, save ({size} bytes), load, 2 rounds == 4 rounds "
+            f"straight, leaf for leaf; kernel launches {launches}"
+        )
+    if is_cuda(device) and out["nqueens"]["launches"] == 0:
+        raise AssertionError("phase 11b: the nqueens checkpoint run never launched the kernel")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -535,10 +1052,23 @@ def main() -> None:
     pmc_run = phase_pmc(device)
     phase_schedule_cross_device(device)
     sched = phase_schedule_bench(device)
-    kernel["launches"] = main_run["launches"] + pmc_run["launches"]
-    kernel["launches_by_path"] = {"nqueens_population": main_run["launches"], "pmc": pmc_run["launches"]}
+    qap = phase_qap(device)
+    ackley = phase_ackley(device)
+    diagram = phase_diagram(device)
+    phased = phase_phased(device)
+    ckpt = phase_checkpoint(device)
+    paths = {
+        "nqueens_population": main_run["launches"],
+        "pmc": pmc_run["launches"],
+        "checkpoint_resume": ckpt["nqueens"]["launches"],
+    }
+    kernel["launches"] = sum(paths.values())
+    kernel["launches_by_path"] = paths
 
-    log(json.dumps({"main_path": main_run, "pmc": pmc_run, "scheduling": sched, "card": card}))
+    log(json.dumps({
+        "main_path": main_run, "pmc": pmc_run, "scheduling": sched, "qap": qap, "ackley": ackley,
+        "diagram": diagram, "phased": phased, "checkpoint": ckpt, "card": card,
+    }))
     log(card)
     log(json.dumps({"kernels": [kernel]}))
     log(json.dumps({

@@ -11,8 +11,7 @@ Same semantics as the JAX package, every field with a leading lane axis P:
   score is <= it, and drops duplicates.
 
 Divergences: fingerprints are int64 holding uint32 values (``ops/fingerprint.py``);
-``get_random`` takes its slot from a draw source (``EliteArchive.take``), and
-``get_best_multiple`` is not ported yet.
+``get_random`` takes its slot from a draw source (``EliteArchive.take``).
 """
 
 from __future__ import annotations
@@ -116,6 +115,20 @@ class EliteArchive(NamedTuple):
     def get_best(self):
         """(score [P, 2], fp [P, 2], state) of each lane's best entry."""
         return self.take(lex_argmin(self.scores, self.valid))
+
+    def get_best_multiple(self, k: int):
+        """Each lane's best ``min(k, capacity)`` entries, ascending, ties in
+        slot order: (scores [P, k, 2], fps [P, k, 2], states [P, k, ...],
+        valid [P, k]).  Invalid slots sort last with score +inf, and ``valid``
+        marks the real entries."""
+        p, cap = self.valid.shape
+        k = min(k, cap)
+        masked = torch.where(self.valid[..., None], self.scores, torch.inf)
+        by_soft = torch.sort(masked[..., 1], dim=-1, stable=True).indices
+        by_hard = torch.sort(masked[..., 0].gather(1, by_soft), dim=-1, stable=True).indices
+        idx = by_soft.gather(1, by_hard)[:, :k]
+        lane = torch.arange(p, device=idx.device)[:, None]
+        return tree_map(lambda x: x[lane, idx], (masked, self.fps, self.states, self.valid))
 
     def contains_fp(self, fp: torch.Tensor) -> torch.Tensor:
         """Membership of each lane's fp [P, 2] → bool[P]."""

@@ -16,14 +16,14 @@ Divergences:
   the restart is a Python ``if``, the JAX chunk program's ``lax.cond`` branch,
   without a sync;
 - ``Solver`` is one lane of the batched engine (P = 1); its state keeps the lane
-  axis, and ``get_best_solution`` drops it.  ``roofline``, ``save`` and ``load``
-  are not ported yet.
+  axis, and ``get_best_solution`` drops it.  ``save``/``load`` also carry the
+  draw source's state and the host round counter (``utils/checkpoint.py``).
+  ``roofline`` is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, NamedTuple
 
 import torch
@@ -32,6 +32,7 @@ from constraint_solver_tpu_torch.core.history import EliteArchive, TabuRing
 from constraint_solver_tpu_torch.core.local_search import LsParams, ls_execute
 from constraint_solver_tpu_torch.core.problem import Problem
 from constraint_solver_tpu_torch.ops.lex import lex_leq
+from constraint_solver_tpu_torch.utils.checkpoint import load_into, run_chunks, save_state
 from constraint_solver_tpu_torch.utils.draws import TorchDraws
 from constraint_solver_tpu_torch.utils.tree import tree_map, tree_where
 
@@ -235,21 +236,52 @@ class Solver:
     def cancel(self) -> None:
         self.cancelled = True
 
-    def run(self, max_rounds: int | None = None, chunk: int = 16) -> None:
+    def run(
+        self,
+        max_rounds: int | None = None,
+        chunk: int = 16,
+        verbose: bool = False,
+        checkpoint_path: str | None = None,
+        checkpoint_every: int = 200,
+    ) -> None:
         """Run rounds until finished, solved or cancelled; the host reads the
-        best score once per ``chunk`` rounds."""
+        best score once per ``chunk`` rounds.  ``verbose`` prints the best and
+        current scores per chunk; with ``checkpoint_path`` the solver saves
+        itself every ``checkpoint_every`` rounds and at the end."""
         total = self.config.iterated_local_search_max_iterations
         if max_rounds is not None:
             total = min(total, self._round + max_rounds)
         if self._round > 0 and self._solved():
             total = self._round
-        t0 = time.time()
-        while not self.cancelled and self._round < total:
+
+        def advance(total):
             for _ in range(min(chunk, total - self._round)):
                 self.execute_round()
-            if self._solved():
-                break
-        self._wall += time.time() - t0
+
+        def report(score):
+            cur = score_tuple(self.state.current_score[0])
+            print(
+                f"[{self.problem.name}] round {self._round}/{total} "
+                f"best score: {score_tuple(score)} current score: {cur}"
+            )
+
+        run_chunks(
+            self, total, advance, lambda: self.state.elite.get_best()[0][0].cpu(),
+            lambda score: bool(self.problem.is_best(score)), report if verbose else None,
+            checkpoint_path, checkpoint_every,
+        )
+
+    def save(self, path: str) -> None:
+        """Snapshot the state, the draw source and the round counter
+        (``utils/checkpoint.py``)."""
+        meta = {"problem": self.problem.name, "seed": self.config.seed, "population": 1}
+        save_state(path, self.state, meta, self.draws, self._round)
+
+    def load(self, path: str) -> dict:
+        """Resume from a ``save``d checkpoint of the same problem; returns its
+        metadata.  Raises ``ValueError`` for another problem or a population
+        checkpoint."""
+        return load_into(self, path, 1)
 
     def stats(self) -> dict:
         iters = int(self.state.ls_iters_total.sum())

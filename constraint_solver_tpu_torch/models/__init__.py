@@ -1,1 +1,1 @@
-"""Problem domains.  Ported so far: N-Queens."""
+"""Problem domains: N-Queens (and PMC), scheduling, QAP, Ackley and diagram layout."""

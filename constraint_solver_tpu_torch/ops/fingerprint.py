@@ -63,6 +63,12 @@ def fingerprint_i32(values: torch.Tensor) -> torch.Tensor:
     return _xor_reduce(position_hash(idx, values))
 
 
+def fingerprint_f32(values: torch.Tensor) -> torch.Tensor:
+    """Fingerprint of a float32 [..., n] vector by its bit patterns (the int32
+    view, masked to uint32 in int64 by ``position_hash_planes``)."""
+    return fingerprint_i32(values.contiguous().view(torch.int32))
+
+
 def fp_update(
     fp: torch.Tensor, idx: torch.Tensor, old_bits: torch.Tensor, new_bits: torch.Tensor
 ) -> torch.Tensor:

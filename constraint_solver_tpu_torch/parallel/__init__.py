@@ -1,1 +1,1 @@
-"""Trajectory populations with elite exchange (one device)."""
+"""Trajectory populations with elite exchange and phase schedules (one device)."""

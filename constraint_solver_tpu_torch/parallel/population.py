@@ -11,15 +11,15 @@ archive best.
 Divergences: the state carries no keys (draws come from a ``Draws`` source made
 from the seed, or given); the round number lives on the host, because lanes run
 in lockstep, so the restart and the exchange cadence are Python branches without
-a sync.  Not ported yet: the mesh (one device only), ``reseed_from_elites``,
-``save``, ``load``, ``roofline`` and ``run``'s ``verbose`` and checkpoint
-arguments.
+a sync.  ``save``/``load`` also carry the draw source's state and the host round
+counter (``utils/checkpoint.py``), and ``reseed_from_elites`` takes its archive
+slots from ``draws.reseed_pick``.  Not ported yet: the mesh (one device only,
+ROADMAP A16) and ``roofline``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -36,6 +36,7 @@ from constraint_solver_tpu_torch.core.ils import (
 from constraint_solver_tpu_torch.core.local_search import LsParams
 from constraint_solver_tpu_torch.core.problem import Problem
 from constraint_solver_tpu_torch.ops.lex import lex_argmin, lex_argsort
+from constraint_solver_tpu_torch.utils.checkpoint import load_into, run_chunks, save_state
 from constraint_solver_tpu_torch.utils.draws import TorchDraws
 from constraint_solver_tpu_torch.utils.tree import lane_where, tree_map, tree_where
 
@@ -221,23 +222,70 @@ class PopulationSolver:
     def _solved(self) -> bool:
         return bool(self.problem.is_best(best_score_of(self.state).cpu()))
 
-    def run(self, max_rounds: int | None = None, chunk: int | None = None) -> None:
+    def run(
+        self,
+        max_rounds: int | None = None,
+        chunk: int | None = None,
+        verbose: bool = False,
+        checkpoint_path: str | None = None,
+        checkpoint_every: int = 200,
+    ) -> None:
         """Run chunks of rounds until finished, solved or cancelled; the host
-        reads the best score once per chunk."""
+        reads the best score once per chunk.  ``verbose`` prints the best and
+        the lexicographically best current score per chunk; with
+        ``checkpoint_path`` the solver saves itself every ``checkpoint_every``
+        rounds and at the end."""
         chunk = chunk or self.exchange_every
         total = self.config.iterated_local_search_max_iterations
         if max_rounds is not None:
             total = min(total, self._round + max_rounds)
         if self._round > 0 and self._solved():
             total = self._round
-        t0 = time.time()
-        while not self.cancelled and self._round < total:
+
+        def advance(total):
             n = min(chunk, total - self._round)
             self.state = self.program.run(self.state, self.draws, self._round, n)
             self._round += n
-            if self._solved():
-                break
-        self._wall += time.time() - t0
+
+        def report(score):
+            cur = self.state.current_score
+            print(
+                f"[{self.problem.name} xP{self.population}] round {self._round}/{total} "
+                f"best score: {score_tuple(score)} current score: {score_tuple(cur[lex_argmin(cur)])}"
+            )
+
+        run_chunks(
+            self, total, advance, lambda: best_score_of(self.state).cpu(),
+            lambda score: bool(self.problem.is_best(score)), report if verbose else None,
+            checkpoint_path, checkpoint_every,
+        )
+
+    def reseed_from_elites(self) -> None:
+        """Restart every lane's current solution from a random entry of its
+        elite archive (lanes with an empty archive keep theirs)."""
+        st = self.state
+        score, fp, state = st.elite.take(self.draws.reseed_pick(st.elite.valid))
+        has = st.elite.valid.any(dim=-1)
+        self.state = st._replace(
+            current_state=tree_where(has, state, st.current_state),
+            current_score=lane_where(has, score, st.current_score),
+            current_fp=lane_where(has, fp, st.current_fp),
+        )
+
+    def checkpoint_meta(self) -> dict:
+        """What ``load`` checks a checkpoint against."""
+        return {"problem": self.problem.name, "seed": self.config.seed, "population": self.population}
+
+    def save(self, path: str) -> None:
+        """Snapshot every lane's state, the draw source and the round counter
+        (``utils/checkpoint.py``)."""
+        save_state(path, self.state, self.checkpoint_meta(), self.draws, self._round)
+
+    def load(self, path: str) -> dict:
+        """Resume from a ``save``d checkpoint of the same problem and
+        population; returns its metadata.  Raises ``ValueError`` for another
+        problem, another population or lanes out of lockstep."""
+        return load_into(self, path, self.population)
 
     def stats(self) -> dict:
         iters = int(self.state.ls_iters_total.sum())

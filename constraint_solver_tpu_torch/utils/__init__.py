@@ -1,1 +1,1 @@
-"""String seeding, the draw interface, state trees and state conversion from the JAX package."""
+"""String seeding, the draw interface, state trees, checkpoints and state conversion from the JAX package."""

@@ -10,11 +10,13 @@ same tree with numpy leaves in the JAX package's dtypes.  The JAX state's PRNG
 
 Dtype map: fingerprint fields (uint32 there, int64 in [0, 2^32) here) and
 solutions convert exactly; every other leaf keeps its dtype.  The rule for
-solutions: N-Queens boards (``rows``) and scheduling assignments are int32 there
-and int64 here.  A scheduling state is a bare array, so an integer leaf in a
-solution's place (``current_state``, the archive's ``states``) is an
-assignment.  PMC's ``PMCState`` crosses without its key.  A single JAX
-``Solver``'s state has no lane axis: give it one first.
+solutions: N-Queens boards (``rows``), QAP permutations (``p``, bare or in a
+``QAPState``), scheduling assignments and diagram positions are int32 there and
+int64 here.  A scheduling, dense QAP or diagram state is a bare array, so an
+integer leaf in a solution's place (``current_state``, the archive's
+``states``) is a solution; a float leaf there (an Ackley point, float32 on both
+sides) keeps its dtype.  PMC's ``PMCState`` crosses without its key.  A single
+JAX ``Solver``'s state has no lane axis: give it one first.
 """
 
 from __future__ import annotations
@@ -28,10 +30,11 @@ from constraint_solver_tpu_torch.core.history import EliteArchive, TabuRing
 from constraint_solver_tpu_torch.core.ils import IlsState
 from constraint_solver_tpu_torch.models.nqueens import NQState
 from constraint_solver_tpu_torch.models.nqueens_parallel import PMCState
+from constraint_solver_tpu_torch.models.qap import QAPState
 
-_CLASSES = {cls.__name__: cls for cls in (IlsState, EliteArchive, TabuRing, NQState, PMCState)}
+_CLASSES = {cls.__name__: cls for cls in (IlsState, EliteArchive, TabuRing, NQState, PMCState, QAPState)}
 _FP_FIELDS = ("fps", "current_fp")
-_SOLUTION_FIELDS = ("rows", "current_state", "states")
+_SOLUTION_FIELDS = ("rows", "p", "current_state", "states")
 
 
 def _ref_dtype(field: str, x: torch.Tensor):

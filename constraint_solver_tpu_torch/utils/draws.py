@@ -10,30 +10,43 @@ the card.  Instead, every random choice on the solver's path goes through a
 ``Draws`` object, with one method per call site, drawing for all P lanes at once:
 
 - ``permutation(n)``: the random boards of the N-Queens ``init``, the periodic
-  restart, and PMC's ``pmc_init``;
+  restart, and PMC's ``pmc_init``; the QAP permutations;
 - ``assignment(d, e)``: the random schedules of the scheduling ``init`` and
   restart, one employee in [0, e) per day;
+- ``uniform(shape, lo, hi)``: the Ackley points and the diagram layout's
+  cells of ``init`` and restart;
 - ``round_keys()``: marks the start of an ILS round (a JAX key split per lane);
 - ``perturb(n, hi, values)``: the perturbation's strategy, count, positions and
-  new values in [0, values);
+  new values in [0, values) (N-Queens, scheduling); QAP passes ``values=None``
+  and gets no new values;
+- ``perturb_normal(n)``: Ackley's perturbation, with the count in [0, n) and
+  standard normal noise;
+- ``perturb_cells(n, hi)``: the diagram layout's perturbation, with fresh
+  uniform [n, 2] cells;
 - ``neighborhood(n, amount, active)``: the N-Queens Gumbel column noise and the
   number of columns;
 - ``random_moves(w, d, e, active)``: the scheduling random window (move type,
   first day, day offset, new employee);
 - ``dense_swaps(n_rand, n_off, d, active)``: the dense scheduling block's random
   swap pairs and diagonal offsets;
+- ``step(lo, hi, active)``: Ackley's move size, uniform in [lo, hi);
+- ``advance(active)``: a descent iteration whose proposer draws nothing (QAP,
+  diagram layout);
 - ``select_noise(w, active)``: the Gumbel noise of the noisy selection, drawn
   in the same descent iteration as, and after, the neighborhood's draws;
 - ``accept(elite_valid, weights)``: the acceptance choice and the random elite;
+- ``reseed_pick(elite_valid)``: the archive slot ``reseed_from_elites`` takes;
 - ``pmc_step(n, a, conflicted, active, sampled)``: one parallel min-conflicts
   step (acceptance draws, the plateau kick, the column noise).
 
-The four neighborhood-time methods take the [P] mask of lanes still running:
-a source that follows JAX keys advances only their keys, as ``vmap`` of a
-``while_loop`` does.
+The neighborhood-time methods take the [P] mask of lanes still running: a
+source that follows JAX keys advances only their keys, as ``vmap`` of a
+``while_loop`` does.  Each descent iteration calls exactly one of
+``neighborhood``, ``random_moves``, ``dense_swaps``, ``step`` and ``advance``.
 
 ``TorchDraws`` is the production source: one ``torch.Generator`` seeded from the
-solver's seed string.  A test-only source that follows the JAX key tree exactly
+solver's seed string; ``state_dict``/``load_state_dict`` carry its state
+through a checkpoint.  A test-only source that follows the JAX key tree exactly
 lives with the tests, so that the port and the JAX package can be fed identical
 draws and whole trajectories compared.
 """
@@ -48,10 +61,24 @@ from constraint_solver_tpu_torch.utils.seeding import seed_string_to_generator
 
 
 class PerturbDraws(NamedTuple):
-    u_strat: torch.Tensor   # float32[P]    strategy draw: change the solution iff < 100/110
-    n_alter: torch.Tensor   # int64[P]      how many positions change, in [1, hi]
-    u: torch.Tensor         # float32[P, n] position draws: the n_alter smallest change
-    new_rows: torch.Tensor  # int64[P, n]   the new values, in [0, values)
+    u_strat: torch.Tensor          # float32[P]    strategy draw: change the solution iff < 100/110
+    n_alter: torch.Tensor          # int64[P]      how many positions change, in [1, hi]
+    u: torch.Tensor                # float32[P, n] position draws: the n_alter smallest change
+    new_rows: torch.Tensor | None  # int64[P, n]   the new values, in [0, values)
+
+
+class NormalPerturbDraws(NamedTuple):
+    u_strat: torch.Tensor  # float32[P]    change the point iff < 100/110
+    n_alter: torch.Tensor  # int64[P]      how many dimensions change, in [0, n)
+    u: torch.Tensor        # float32[P, n] the n_alter smallest draws change
+    noise: torch.Tensor    # float32[P, n] standard normal noise
+
+
+class CellPerturbDraws(NamedTuple):
+    u_strat: torch.Tensor  # float32[P]       change the layout iff < 100/110
+    n_alter: torch.Tensor  # int64[P]         how many boxes move, in [1, hi]
+    u: torch.Tensor        # float32[P, n]    the n_alter smallest draws move
+    cells: torch.Tensor    # float32[P, n, 2] uniform in [0, 1): the new cells
 
 
 class RandomMoveDraws(NamedTuple):
@@ -88,9 +115,15 @@ class Draws(Protocol):
 
     def assignment(self, d: int, e: int) -> torch.Tensor: ...
 
+    def uniform(self, shape: tuple, lo: float, hi: float) -> torch.Tensor: ...
+
     def round_keys(self) -> None: ...
 
-    def perturb(self, n: int, hi: torch.Tensor, values: int) -> PerturbDraws: ...
+    def perturb(self, n: int, hi: torch.Tensor, values: int | None) -> PerturbDraws: ...
+
+    def perturb_normal(self, n: int) -> NormalPerturbDraws: ...
+
+    def perturb_cells(self, n: int, hi: torch.Tensor) -> CellPerturbDraws: ...
 
     def neighborhood(
         self, n: int, amount: torch.Tensor, active: torch.Tensor
@@ -100,13 +133,23 @@ class Draws(Protocol):
 
     def dense_swaps(self, n_rand: int, n_off: int, d: int, active: torch.Tensor) -> DenseSwapDraws: ...
 
+    def step(self, lo: float, hi: float, active: torch.Tensor) -> torch.Tensor: ...
+
+    def advance(self, active: torch.Tensor) -> None: ...
+
     def select_noise(self, w: int, active: torch.Tensor) -> torch.Tensor: ...
 
     def accept(self, elite_valid: torch.Tensor, weights: Sequence[float]) -> AcceptDraws: ...
 
+    def reseed_pick(self, elite_valid: torch.Tensor) -> torch.Tensor: ...
+
     def pmc_step(
         self, n: int, a: int, conflicted: torch.Tensor, active: torch.Tensor, sampled: bool
     ) -> PMCDraws: ...
+
+    def state_dict(self) -> dict: ...
+
+    def load_state_dict(self, state: dict) -> None: ...
 
 
 class TorchDraws:
@@ -161,14 +204,35 @@ class TorchDraws:
         (assign,) = self._out(self._ints(0, e, d))
         return assign
 
+    def uniform(self, shape: tuple, lo: float, hi: float) -> torch.Tensor:
+        (u,) = self._out(lo + (hi - lo) * self._rand(*shape))
+        return u
+
     def round_keys(self) -> None:
         """Nothing to do: the generator's stream carries on."""
 
-    def perturb(self, n: int, hi: torch.Tensor, values: int) -> PerturbDraws:
+    def perturb(self, n: int, hi: torch.Tensor, values: int | None) -> PerturbDraws:
         u_strat = self._rand()
         n_alter = self._randint(1, hi)
         u = self._rand(n)
-        return PerturbDraws(*self._out(u_strat, n_alter, u, self._ints(0, values, n)))
+        out = self._out(u_strat, n_alter, u)
+        if values is None:
+            return PerturbDraws(*out, None)
+        return PerturbDraws(*out, *self._out(self._ints(0, values, n)))
+
+    def perturb_normal(self, n: int) -> NormalPerturbDraws:
+        u_strat = self._rand()
+        n_alter = self._ints(0, n)
+        u = self._rand(n)
+        noise = torch.randn(
+            (self.population, n), generator=self._gen, device=self._draw_device, dtype=torch.float32
+        )
+        return NormalPerturbDraws(*self._out(u_strat, n_alter, u, noise))
+
+    def perturb_cells(self, n: int, hi: torch.Tensor) -> CellPerturbDraws:
+        u_strat = self._rand()
+        n_alter = self._randint(1, hi)
+        return CellPerturbDraws(*self._out(u_strat, n_alter, self._rand(n), self._rand(n, 2)))
 
     def neighborhood(self, n: int, amount: torch.Tensor, active: torch.Tensor):
         gumbel = self._gumbel(n)
@@ -189,17 +253,31 @@ class TorchDraws:
     def _empty(self) -> torch.Tensor:
         return torch.zeros((self.population, 0), dtype=torch.int64, device=self._draw_device)
 
+    def step(self, lo: float, hi: float, active: torch.Tensor) -> torch.Tensor:
+        return self.uniform((), lo, hi)
+
+    def advance(self, active: torch.Tensor) -> None:
+        """Nothing to do: the generator's stream carries on."""
+
     def select_noise(self, w: int, active: torch.Tensor) -> torch.Tensor:
         (g,) = self._out(self._gumbel(w))
         return g
 
-    def accept(self, elite_valid: torch.Tensor, weights: Sequence[float]) -> AcceptDraws:
+    def _valid_slot(self, elite_valid: torch.Tensor) -> torch.Tensor:
+        """A uniformly chosen True slot of each lane's mask (0 if none)."""
         valid = elite_valid.to(self._draw_device)
-        elite_idx = torch.argmax(torch.where(valid, self._rand(valid.shape[-1]), -1.0), dim=-1)
+        return torch.argmax(torch.where(valid, self._rand(valid.shape[-1]), -1.0), dim=-1)
+
+    def accept(self, elite_valid: torch.Tensor, weights: Sequence[float]) -> AcceptDraws:
+        elite_idx = self._valid_slot(elite_valid)
         w = torch.tensor(weights, dtype=torch.float64, device=self._draw_device)
         cum = torch.cumsum(w / w.sum(), 0)[:-1]
         choice = (self._rand(1, dtype=torch.float64) >= cum).sum(-1)
         return AcceptDraws(*self._out(elite_idx, choice, self._rand()))
+
+    def reseed_pick(self, elite_valid: torch.Tensor) -> torch.Tensor:
+        (idx,) = self._out(self._valid_slot(elite_valid))
+        return idx
 
     def pmc_step(self, n: int, a: int, conflicted: torch.Tensor, active: torch.Tensor, sampled: bool):
         u = self._rand(a)
@@ -208,3 +286,10 @@ class TorchDraws:
         out = self._out(u, kick_col, self._ints(0, n))
         gumbel = self._out(self._gumbel(n))[0] if sampled else None
         return PMCDraws(*out, gumbel)
+
+    def state_dict(self) -> dict:
+        """The generator's state, a CPU uint8 tensor."""
+        return {"generator": self._gen.get_state()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self._gen.set_state(torch.as_tensor(state["generator"], dtype=torch.uint8).cpu())

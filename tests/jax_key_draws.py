@@ -4,16 +4,24 @@ It keeps one JAX key per lane and splits it exactly where the JAX package does,
 calling the same ``jax.random`` functions with the same keys and shapes:
 
 - ``ils_init`` and ``pmc_init``: ``key, k_init = split(key)``; ``init`` permutes
-  (N-Queens) or draws ``randint(k_init, (D,), 0, E)`` (scheduling) with ``k_init``;
+  (N-Queens, QAP), draws ``randint(k_init, (D,), 0, E)`` (scheduling) or
+  ``uniform(k_init, shape, lo, hi)`` (Ackley, diagram layout) with ``k_init``;
 - ``ils_round``: ``key, k_restart, k_perturb, k_ls, k_elite, k_accept = split(key, 6)``;
 - each descent iteration: ``key, k_nb = split(key)`` for the lanes still running.
   ``k_nb`` is kept for the iteration: the proposer draws from it (N-Queens
   ``k_gumbel, k_num = split(k_nb)``; the scheduling window's ``split(k_nb, 4)``;
-  the dense block's ``k_off, k_rs = split(k_nb)`` and ``split(k_rs)``), and the
-  noisy selection draws its Gumbel noise from ``fold_in(k_nb, 0x6E6F6973)``;
-- the perturbation's ``split(k_perturb, 4)``;
+  the dense block's ``k_off, k_rs = split(k_nb)`` and ``split(k_rs)``; Ackley's
+  step ``uniform(k_nb)`` itself; QAP and the diagram layout draw nothing, and
+  ``advance`` only splits), and the noisy selection draws its Gumbel noise from
+  ``fold_in(k_nb, 0x6E6F6973)``;
+- the perturbation's ``split(k_perturb, 4)``: N-Queens and scheduling draw
+  (uniform, randint [1, hi], uniform (n,), randint values), QAP the first three
+  of those, Ackley (uniform, randint [0, n), uniform (n,), normal (n,)) and the
+  diagram layout (uniform, randint [1, hi], uniform (n,), uniform (n, 2));
 - ``EliteArchive.get_random``'s ``categorical`` and the acceptance's ``choice``
   and ``uniform``, both on ``k_accept``;
+- ``reseed_from_elites``: ``key, k_pick = split(key)`` and ``get_random``'s
+  ``categorical`` on ``k_pick``;
 - each PMC step: ``key, k_u, k_kcol, k_krow, k_gum = split(key, 5)`` for the
   lanes still running (a stopped lane keeps its key).
 
@@ -35,7 +43,9 @@ import torch
 
 from constraint_solver_tpu_torch.utils.draws import (
     AcceptDraws,
+    CellPerturbDraws,
     DenseSwapDraws,
+    NormalPerturbDraws,
     PerturbDraws,
     PMCDraws,
     RandomMoveDraws,
@@ -72,15 +82,49 @@ def _split6(keys):
     return jax.vmap(lambda k: jax.random.split(k, 6))(keys)
 
 
+@partial(jax.jit, static_argnums=(1, 2, 3))
+def _uniform(keys, shape, lo, hi):
+    return jax.vmap(lambda k: jax.random.uniform(k, shape, jnp.float32, lo, hi))(keys)
+
+
 @partial(jax.jit, static_argnums=(1, 3))
 def _perturb(keys, n, hi, values):
     def one(key, hi):
         k_strat, k_n, k_u, k_rows = jax.random.split(key, 4)
+        rows = () if values is None else (jax.random.randint(k_rows, (n,), 0, values, jnp.int32),)
         return (
             jax.random.uniform(k_strat),
             jax.random.randint(k_n, (), 1, hi + 1),
             jax.random.uniform(k_u, (n,)),
-            jax.random.randint(k_rows, (n,), 0, values, jnp.int32),
+            *rows,
+        )
+
+    return jax.vmap(one)(keys, hi)
+
+
+@partial(jax.jit, static_argnums=1)
+def _perturb_normal(keys, n):
+    def one(key):
+        k_strat, k_n, k_u, k_noise = jax.random.split(key, 4)
+        return (
+            jax.random.uniform(k_strat),
+            jax.random.randint(k_n, (), 0, n),
+            jax.random.uniform(k_u, (n,)),
+            jax.random.normal(k_noise, (n,), jnp.float32),
+        )
+
+    return jax.vmap(one)(keys)
+
+
+@partial(jax.jit, static_argnums=1)
+def _perturb_cells(keys, n, hi):
+    def one(key, hi):
+        k_strat, k_n, k_sel, k_pos = jax.random.split(key, 4)
+        return (
+            jax.random.uniform(k_strat),
+            jax.random.randint(k_n, (), 1, hi + 1),
+            jax.random.uniform(k_sel, (n,)),
+            jax.random.uniform(k_pos, (n, 2)),
         )
 
     return jax.vmap(one)(keys, hi)
@@ -134,6 +178,20 @@ def _select_noise(k_nb, w):
     return jax.vmap(lambda k: jax.random.gumbel(jax.random.fold_in(k, _NOISE_SALT), (w,)))(k_nb)
 
 
+@partial(jax.jit, static_argnums=(1, 2))
+def _step(k_nb, lo, hi):
+    return jax.vmap(lambda k: jax.random.uniform(k, (), jnp.float32, lo, hi))(k_nb)
+
+
+@jax.jit
+def _reseed_pick(keys, valid):
+    def one(key, v):
+        key, k_pick = jax.random.split(key)
+        return key, jax.random.categorical(k_pick, jnp.where(v, 0.0, -jnp.inf))
+
+    return jax.vmap(one)(keys, valid)
+
+
 @jax.jit
 def _accept(k_elite, k_accept, valid, w):
     def one(ke, ka, v):
@@ -180,17 +238,31 @@ class JaxKeyDraws:
     def assignment(self, d: int, e: int) -> torch.Tensor:
         return self._i64(_assignment(self._perm_key, d, e))
 
+    def uniform(self, shape: tuple, lo: float, hi: float) -> torch.Tensor:
+        return _t(_uniform(self._perm_key, tuple(shape), lo, hi), self.device)
+
     def round_keys(self) -> None:
         ks = _split6(self._key)
         self._key, self._perm_key, self._perturb_key = ks[:, 0], ks[:, 1], ks[:, 2]
         self._ls_key, self._elite_key, self._accept_key = ks[:, 3], ks[:, 4], ks[:, 5]
 
-    def perturb(self, n: int, hi: torch.Tensor, values: int) -> PerturbDraws:
-        u_strat, n_alter, u, new_rows = _perturb(
-            self._perturb_key, n, _np(hi).astype(jnp.int32), values
-        )
+    def perturb(self, n: int, hi: torch.Tensor, values: int | None) -> PerturbDraws:
+        u_strat, n_alter, u, *rows = _perturb(self._perturb_key, n, _np(hi).astype(jnp.int32), values)
         return PerturbDraws(
-            _t(u_strat, self.device), self._i64(n_alter), _t(u, self.device), self._i64(new_rows)
+            _t(u_strat, self.device), self._i64(n_alter), _t(u, self.device),
+            self._i64(rows[0]) if rows else None,
+        )
+
+    def perturb_normal(self, n: int) -> NormalPerturbDraws:
+        u_strat, n_alter, u, noise = _perturb_normal(self._perturb_key, n)
+        return NormalPerturbDraws(
+            _t(u_strat, self.device), self._i64(n_alter), _t(u, self.device), _t(noise, self.device)
+        )
+
+    def perturb_cells(self, n: int, hi: torch.Tensor) -> CellPerturbDraws:
+        u_strat, n_alter, u, cells = _perturb_cells(self._perturb_key, n, _np(hi).astype(jnp.int32))
+        return CellPerturbDraws(
+            _t(u_strat, self.device), self._i64(n_alter), _t(u, self.device), _t(cells, self.device)
         )
 
     def _next_nb(self, active: torch.Tensor) -> jax.Array:
@@ -208,6 +280,12 @@ class JaxKeyDraws:
     def dense_swaps(self, n_rand: int, n_off: int, d: int, active: torch.Tensor) -> DenseSwapDraws:
         return DenseSwapDraws(*map(self._i64, _dense_swaps(self._next_nb(active), n_rand, n_off, d)))
 
+    def step(self, lo: float, hi: float, active: torch.Tensor) -> torch.Tensor:
+        return _t(_step(self._next_nb(active), lo, hi), self.device)
+
+    def advance(self, active: torch.Tensor) -> None:
+        self._next_nb(active)
+
     def select_noise(self, w: int, active: torch.Tensor) -> torch.Tensor:
         return _t(_select_noise(self._nb_key, w), self.device)
 
@@ -217,12 +295,29 @@ class JaxKeyDraws:
         )
         return AcceptDraws(self._i64(idx), self._i64(choice), _t(u, self.device))
 
+    def reseed_pick(self, elite_valid: torch.Tensor) -> torch.Tensor:
+        self._key, idx = _reseed_pick(self._key, _np(elite_valid))
+        return self._i64(idx)
+
     def pmc_step(self, n: int, a: int, conflicted, active, sampled: bool) -> PMCDraws:
         self._key, u, col, row, gum = _pmc_step(self._key, n, a, _np(conflicted), _np(active), sampled)
         return PMCDraws(
             _t(u, self.device), self._i64(col), self._i64(row),
             _t(gum, self.device) if sampled else None,
         )
+
+    _KEYS = ("_key", "_perm_key", "_perturb_key", "_ls_key", "_elite_key", "_accept_key", "_nb_key")
+
+    def state_dict(self) -> dict:
+        """The key data of every key held (a checkpoint stores numpy arrays)."""
+        return {
+            name: np.asarray(jax.random.key_data(getattr(self, name)))
+            for name in self._KEYS if getattr(self, name) is not None
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        for name in self._KEYS:
+            setattr(self, name, jax.random.wrap_key_data(jnp.asarray(state[name])) if name in state else None)
 
 
 def reference_log_weights(n: int) -> np.ndarray:

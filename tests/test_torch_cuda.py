@@ -8,18 +8,20 @@ Without a CUDA device each test skips: the CUDA kernel has no CPU mode.  The
 kernel must equal its plain PyTorch version bit for bit (every value is a small
 integer held in float32), and a solve on the card must equal the same solve on
 the CPU from the same host-side draws: N-Queens, PMC (the kernel's second
-caller) and the dense scheduling block."""
+caller), the dense scheduling block, QAP in its three modes and the diagram
+layout.  The incremental QAP state must stay exact on the card."""
 
 import datetime
-
 
 import numpy as np
 import pytest
 import torch
 
 from constraint_solver_tpu_torch.core.ils import SolverConfig
+from constraint_solver_tpu_torch.models.diagram_layout import DiagramLayoutSpec, make_diagram_layout_problem
 from constraint_solver_tpu_torch.models.nqueens import build_state, make_nqueens_problem, total_conflicts
 from constraint_solver_tpu_torch.models.nqueens_parallel import pmc_solve
+from constraint_solver_tpu_torch.models.qap import QAPSpec, make_qap_problem
 from constraint_solver_tpu_torch.models.scheduling import ScheduleSpec, make_scheduling_problem
 from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
 from constraint_solver_tpu_torch.parallel.population import PopulationSolver
@@ -127,3 +129,59 @@ def test_cuda_scheduling_block_equals_cpu(cuda, proposer):
 
     for got, want in zip(block(cuda), block("cpu")):
         assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def _qap_run(device, n, **kw):
+    config = SolverConfig(
+        seed="qap-cuda", local_search_max_iterations=30, best_solutions_capacity=4, all_solutions_capacity=64,
+        all_solution_iteration_expiry=1000, restart_every=3,
+    )
+    solver = PopulationSolver(
+        make_qap_problem(QAPSpec.random(n, seed=0), **kw), config, population=6, exchange_every=2, device=device,
+        draws=TorchDraws(config.seed, 6, device, draw_device="cpu"),
+    )
+    trace = np.concatenate([solver.execute_chunk_traced(2) for _ in range(2)])
+    return solver, trace
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [{}, {"compact": True}, {"incremental": True}], ids=["dense", "compact", "incremental"])
+def test_cuda_qap_equals_cpu(cuda, mode):
+    """QAP at n=64 from host-side draws: every score is an exact integer and
+    every product exact in FP32, so the card's run equals the CPU's."""
+    (on_card, trace_card), (on_cpu, trace_cpu) = _qap_run(cuda, 64, **mode), _qap_run("cpu", 64, **mode)
+    np.testing.assert_array_equal(trace_card, trace_cpu)
+    compare(to_reference(on_card.state), to_reference(on_cpu.state))
+
+
+@pytest.mark.cuda
+def test_cuda_qap_incremental_state_stays_exact(cuda):
+    """The carried G and H of every lane after 4 rounds at n=512 equal
+    D[p][:, p] and F G, computed apart (a host gather, a float64 product)."""
+    n = 512
+    solver, _ = _qap_run(cuda, n, incremental=True)
+    flow, dist = QAPSpec.random(n, seed=0).arrays()
+    st = solver.state.current_state
+    for k, p in enumerate(st.p.cpu().numpy()):
+        g = dist[np.ix_(p, p)]
+        np.testing.assert_array_equal(st.g[k].cpu().numpy(), g)
+        np.testing.assert_array_equal(st.h[k].cpu().numpy().astype(np.float64), flow.astype(np.float64) @ g)
+
+
+@pytest.mark.cuda
+def test_cuda_diagram_layout_equals_cpu(cuda):
+    def run(device):
+        config = SolverConfig(
+            seed="diagram-cuda", local_search_max_iterations=20, best_solutions_capacity=4,
+            all_solutions_capacity=64, restart_every=3,
+        )
+        solver = PopulationSolver(
+            make_diagram_layout_problem(DiagramLayoutSpec.random(12, 16, 10, seed=2)), config, population=4,
+            exchange_every=2, device=device, draws=TorchDraws(config.seed, 4, device, draw_device="cpu"),
+        )
+        trace = np.concatenate([solver.execute_chunk_traced(2) for _ in range(2)])
+        return to_reference(solver.state), trace
+
+    (on_card, trace_card), (on_cpu, trace_cpu) = run(cuda), run("cpu")
+    np.testing.assert_array_equal(trace_card, trace_cpu)
+    compare(on_card, on_cpu)

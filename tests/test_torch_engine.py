@@ -117,6 +117,29 @@ def test_elite_archive_matches_jax(capacity):
         )
 
 
+@pytest.mark.parametrize("k", [1, 3, 4, 7])
+def test_elite_archive_get_best_multiple_matches_jax(k):
+    """The best k entries in ascending lexicographic order with ties in slot
+    order, invalid slots last as +inf, on archives partly filled."""
+    p, n, capacity = 5, 3, 4
+    rng = np.random.default_rng(k)
+    jarch = jax.vmap(lambda s: jh.EliteArchive.create(capacity, s))(jnp.zeros((p, n), jnp.int32))
+    tarch = th.EliteArchive.create(capacity, torch.zeros((p, n), dtype=torch.int64))
+    for step in range(6):
+        score = np.stack([rng.integers(0, 3, size=p), rng.integers(0, 2, size=p)], -1).astype(np.float32)
+        fp = rng.integers(0, 5, size=(p, 2)).astype(np.uint32)
+        state = rng.integers(0, 9, size=(p, n)).astype(np.int32)
+        jarch = jax.vmap(jh.EliteArchive.insert)(jarch, jnp.asarray(score), _u32(fp), jnp.asarray(state))
+        tarch = tarch.insert(
+            torch.from_numpy(score), torch.from_numpy(fp.astype(np.int64)), torch.from_numpy(state.astype(np.int64))
+        )
+        want = jax.vmap(lambda e: e.get_best_multiple(k))(jarch)
+        got = tarch.get_best_multiple(k)
+        for w, g, dtype in zip(want, got, (np.float32, np.uint32, np.int32, np.bool_)):
+            assert g.shape == w.shape, (step, g.shape, w.shape)
+            np.testing.assert_array_equal(g.numpy().astype(dtype), np.asarray(w))
+
+
 def test_elite_archive_insert_best_worst():
     arch = th.EliteArchive.create(2, torch.zeros((1, 3), dtype=torch.int64))
 

@@ -217,3 +217,35 @@ def test_torch_draws_scheduling_and_pmc_methods():
     pm = draws.pmc_step(12, 12, conflicted, active, sampled=True)
     assert set(pm.kick_col.tolist()) <= {3, 7} and pm.u.shape == (5, 12) and pm.gumbel.shape == (5, 12)
     assert int(pm.kick_row.max()) < 12 and draws.pmc_step(12, 4, conflicted, active, False).gumbel is None
+
+
+def test_torch_draws_continuous_domain_and_checkpoint_methods():
+    draws = TorchDraws("c", 6, "cpu")
+    active = torch.ones(6, dtype=torch.bool)
+    u = draws.uniform((5,), -32.768, 32.768)
+    assert u.shape == (6, 5) and u.dtype == torch.float32 and float(u.abs().max()) <= 32.768
+    step = draws.step(1e-3, 0.5, active)
+    assert step.shape == (6,) and float(step.min()) >= 1e-3 and float(step.max()) < 0.5
+    draws.advance(active)
+    pn = draws.perturb_normal(5)
+    assert int(pn.n_alter.min()) >= 0 and int(pn.n_alter.max()) < 5 and pn.noise.shape == (6, 5)
+    hi = torch.tensor([1, 2, 3, 1, 2, 3])
+    pc = draws.perturb_cells(7, hi)
+    assert ((pc.n_alter >= 1) & (pc.n_alter <= hi)).all() and pc.cells.shape == (6, 7, 2)
+    assert float(pc.cells.min()) >= 0.0 and float(pc.cells.max()) < 1.0
+    assert draws.perturb(9, hi, None).new_rows is None
+    valid = torch.zeros((6, 4), dtype=torch.bool)
+    valid[:, 1] = valid[:, 3] = True
+    assert set(draws.reseed_pick(valid).tolist()) <= {1, 3}
+    saved = draws.state_dict()
+    want = draws.uniform((3,), 0.0, 1.0)
+    other = TorchDraws("other", 6, "cpu")
+    other.load_state_dict({k: v.numpy() for k, v in saved.items()})
+    assert torch.equal(other.uniform((3,), 0.0, 1.0), want)
+
+
+def test_fingerprint_f32_matches_jax():
+    rng = np.random.default_rng(3)
+    x = rng.uniform(-32.768, 32.768, size=(4, 7)).astype(np.float32)
+    x[0, :2] = (0.0, -0.0)  # distinct bit patterns, distinct fingerprints
+    _eq(jax.vmap(jfp.fingerprint_f32)(jnp.asarray(x)), tfp.fingerprint_f32(torch.from_numpy(x)), np.uint32)
