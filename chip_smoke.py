@@ -1,16 +1,23 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``constraint_solver_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # every phase
+    python3 chip_smoke.py --kernel-only  # phases 1 and 2, no result line
 
 Phases, each printing its own lines; any failure raises and exits nonzero:
 
 1. builds the CUDA kernel from ``constraint_solver_tpu_torch/csrc`` and prints the
    card's name and power limit (``nvidia-smi``); without a CUDA device it stops
    before printing any result;
-2. holds the kernel against its plain PyTorch version on the card at the shapes
-   the solver gives it, bit for bit, and times both at the main shape with CUDA
-   events;
+2. holds the kernel against its plain PyTorch version on the card, bit for bit,
+   at the shapes the solver gives it and at n on both sides of the staging
+   threshold; then, at the population shape (256, 50, 1000) and PMC's (1, 1000,
+   1000), it measures the kernel's device-only ms per launch (its events in a
+   ``torch.profiler`` trace), the wrapper's host us per call (``perf_counter``
+   with no sync), both over 50 calls with CUDA events, the plain version
+   likewise, and the DRAM bound (bytes over 3.35 TB/s) with the share reached;
+   and the device-only time of variants of the kernel's launch plan, each held
+   against the plain version;
 3. runs a few rounds of nqueens-64 with 8 lanes on the card and on the CPU from
    the same host-side draws, in both tabu modes: the states must be equal;
 4. drives the main path, ``PopulationSolver(make_nqueens_problem(1000), ...,
@@ -76,10 +83,15 @@ PMC_N = 1000
 WALL_CAP_S = 300.0
 QUALITY_WALL_S = 10.0
 ACKLEY_WALL_S = 60.0
+# The main and PMC shapes, small and odd ones, and n at the staging threshold
+# (11,617: the tables fill 227 KB of shared memory) and above it.
 CHECK_SHAPES = (
-    (MAIN_P, MAIN_A, MAIN_N), (1, PMC_N, PMC_N), (4, 64, 64), (4, 3, 8), (8, 5, 1003), (2, 3, 14000)
+    (MAIN_P, MAIN_A, MAIN_N), (1, PMC_N, PMC_N), (4, 64, 64), (4, 3, 8), (8, 5, 1003), (16, 50, 1001),
+    (2, 3, 11617), (2, 3, 11620), (2, 3, 14000),
 )
 TIMED_LAUNCHES = 50
+KERNEL_EVENT = "nqueens_scores"  # in the CUDA kernel's name in a profiler trace
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 
 
 def log(msg: str) -> None:
@@ -127,8 +139,96 @@ def time_ms(fn, args, launches: int) -> float:
     return start.elapsed_time(stop) / launches
 
 
+def device_ms(fn, args, launches: int) -> tuple[float, str]:
+    """The kernel's device-only ms per launch: its own events in a
+    ``torch.profiler`` trace of ``launches`` calls or, where the trace holds
+    none, the replay of a CUDA graph of the calls timed with CUDA events.
+    Returns (ms, the source of the number)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn(*args)
+        torch.cuda.synchronize()
+    us = [
+        e.time_range.elapsed_us() for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA and KERNEL_EVENT in e.name
+    ]
+    if len(us) == launches:
+        return sum(us) / 1e3 / launches, "profiler"
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn(*args)
+    graph.replay()  # warm-up
+    return time_ms(graph.replay, (), 1) / launches, "CUDA graph replay"
+
+
+def host_us(fn, args, launches: int) -> float:
+    """The wrapper's host µs per call: ``perf_counter`` over ``launches``
+    calls with no synchronise in between, so it measures the enqueue."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(launches):
+        fn(*args)
+    us = (time.perf_counter() - t0) / launches * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def kernel_bytes(p: int, a: int, n: int) -> int:
+    """Bytes the function must move: rc, dc, ac, c, r, removed and cur read
+    once, scores, row_min and row_arg written once, 4 bytes each."""
+    return 4 * (p * n + 2 * p * (2 * n - 1) + 3 * p * a + p + p * a * n + 2 * p * a)
+
+
+def kernel_bound_ms(p: int, a: int, n: int) -> float:
+    """The least time on the card: the bytes over the HBM rate.  The ~10
+    float32 operations per score (P·A·n·10 over 67 TFLOP/s) take a tenth of
+    that, so bytes bound it."""
+    return kernel_bytes(p, a, n) / HBM_BYTES_PER_S * 1e3
+
+
+def probe_plans(rng, device, shape) -> dict:
+    """Device-only ms per launch of the kernel under its launch plan and under
+    variants of it at one shape, each held against the plain version bit for
+    bit: the measurements behind the plan's choices."""
+    import torch
+
+    from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+
+    p, a, n = shape
+    args = kernel_inputs(rng, p, a, n, device)
+    want = nk.nqueens_neighborhood_scores_ref(*args)
+    plan = nk._launch_plan(p, a, n)
+    variants = {"plan": plan, "4-byte stores": plan._replace(vector=False),
+                "tables from global memory": plan._replace(staged=False, smem_bytes=0)}
+    for g in (8, 4, 2):
+        if g != plan.cols_per_block:
+            variants[f"{g} columns per block"] = plan._replace(cols_per_block=g, grid=(-(-a // g), p))
+    out = {}
+    for name, variant in variants.items():
+        got = tuple(torch.empty_like(w) for w in want)
+
+        def call(variant=variant, got=got):
+            nk._launch((*args, *got), p, a, n, variant)
+
+        call()
+        torch.cuda.synchronize()
+        if not all(torch.equal(w, g) for w, g in zip(want, got)):
+            raise AssertionError(f"kernel != plain version under {variant} at (P, A, n) = {shape}")
+        out[name], _ = device_ms(call, (), TIMED_LAUNCHES)
+        log(f"phase 2 probe: at (P, A, n) = {shape}, {name} {tuple(variant)}: device-only {out[name]:.6f} ms")
+    return out
+
+
 def phase_kernel(device) -> dict:
-    """Kernel vs plain version at every shape; times at the main shape."""
+    """Kernel vs plain version at every shape; times, bound and share, and
+    the launch-plan variants, at the population and PMC shapes."""
     import torch
 
     from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
@@ -149,30 +249,42 @@ def phase_kernel(device) -> dict:
 
     def timed(shape):
         args = kernel_inputs(rng, *shape, device)
-        for fn in (nk.nqueens_neighborhood_scores, nk.nqueens_neighborhood_scores_ref):
+        kern_fn, plain_fn = nk.nqueens_neighborhood_scores, nk.nqueens_neighborhood_scores_ref
+        for fn in (kern_fn, plain_fn):
             time_ms(fn, args, 5)  # warm-up
         # In turns (plain, kernel, kernel, plain), so drift hits both alike.
-        plain = [time_ms(nk.nqueens_neighborhood_scores_ref, args, TIMED_LAUNCHES)]
-        kern = [time_ms(nk.nqueens_neighborhood_scores, args, TIMED_LAUNCHES) for _ in range(2)]
-        plain.append(time_ms(nk.nqueens_neighborhood_scores_ref, args, TIMED_LAUNCHES))
+        plain = [time_ms(plain_fn, args, TIMED_LAUNCHES)]
+        kern = [time_ms(kern_fn, args, TIMED_LAUNCHES) for _ in range(2)]
+        plain.append(time_ms(plain_fn, args, TIMED_LAUNCHES))
+        dev, how = device_ms(kern_fn, args, TIMED_LAUNCHES)
+        host = [host_us(kern_fn, args, TIMED_LAUNCHES) for _ in range(2)]
+        bound = kernel_bound_ms(*shape)
+        out = {
+            "ms": sum(kern) / 2, "plain_ms": sum(plain) / 2, "device_ms": dev, "host_us": min(host),
+            "bound_ms": bound, "bound_share": bound / dev,
+        }
         log(
-            f"phase 2: at (P, A, n) = {shape}: kernel {kern} ms, plain {plain} ms "
-            f"(mean of {TIMED_LAUNCHES} launches each, CUDA events)"
+            f"phase 2: at (P, A, n) = {shape}: kernel {kern} ms, plain {plain} ms (mean of {TIMED_LAUNCHES} "
+            f"calls each, CUDA events); device-only {dev:.6f} ms per launch ({how}); wrapper host {host} us "
+            f"per call (perf_counter, no sync); bound {bound:.6f} ms ({kernel_bytes(*shape)} bytes at "
+            f"{HBM_BYTES_PER_S / 1e12} TB/s), share {out['bound_share']:.3f}"
         )
-        return sum(kern) / 2, sum(plain) / 2
+        return out
 
-    ms, plain_ms = timed((MAIN_P, MAIN_A, MAIN_N))
-    pmc_ms, pmc_plain_ms = timed((1, PMC_N, PMC_N))
+    main = timed((MAIN_P, MAIN_A, MAIN_N))
+    pmc = timed((1, PMC_N, PMC_N))
+    main["plan_probe_ms"] = probe_plans(rng, device, (MAIN_P, MAIN_A, MAIN_N))
+    pmc["plan_probe_ms"] = probe_plans(rng, device, (1, PMC_N, PMC_N))
     return {
         "name": "nqueens_neighborhood_scores",
         "route": "cuda",
         "source": "constraint_solver_tpu_torch/csrc/nqueens_scores.cu",
-        "replaces": "constraint_solver_tpu/ops/nqueens_pallas.py:121",
+        "replaces": "constraint_solver_tpu/ops/nqueens_pallas.py:122",
         "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "pmc_ms": pmc_ms,
-        "pmc_plain_ms": pmc_plain_ms,
+        **main,
+        "bound_by": "bytes",
+        "library_ms": None,
+        **{f"pmc_{k}": v for k, v in pmc.items()},
     }
 
 
@@ -1026,8 +1138,16 @@ def phase_checkpoint(device, qap_n=1024, qap_p=16, nq_n=MAIN_N, nq_p=MAIN_P) -> 
 
 
 def main() -> None:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--kernel-only", action="store_true",
+        help="run phases 1 and 2 only, print the kernel's measurements and stop (no result line)",
+    )
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; the port's kernels run only on the card")
     from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
@@ -1038,7 +1158,7 @@ def main() -> None:
     report = nk.build_library(force=True)
     log(f"phase 1: built {nk._LIB_PATH.name} in {time.time() - t0:.1f} s")
     for line in report.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
+        if any(k in line for k in ("Compiling entry", "registers", "spill")) or "error" in line.lower():
             log(f"  nvcc: {line.strip()}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1047,6 +1167,9 @@ def main() -> None:
     log(f"phase 1: card {card}")
 
     kernel = phase_kernel(device)
+    if args.kernel_only:
+        log(json.dumps({"kernels": [kernel]}))
+        return
     phase_cross_device(device)
     main_run = phase_main(device)
     pmc_run = phase_pmc(device)

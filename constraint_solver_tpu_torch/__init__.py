@@ -6,8 +6,10 @@ name there.  In PyTorch's idiom:
 
 - functions take tensors batched over an explicit leading lane axis P instead
   of being ``vmap``ped, and a lane that is done is masked, not skipped;
-- the device is an explicit argument, and every random choice goes through a
-  draw source (``utils/draws.py``) instead of a JAX key;
+- the solvers run on the card (``device="cuda"``) unless the caller passes
+  another device, with no check for a card and no fallback: the CPU runs only
+  when asked for (``device="cpu"``), as the tests do; every random choice goes
+  through a draw source (``utils/draws.py``) instead of a JAX key;
 - state is ``NamedTuple``s of tensors;
 - the one TPU kernel on the path, the N-Queens neighborhood scores, is a CUDA
   kernel (``csrc/nqueens_scores.cu``) with a plain PyTorch version beside it

@@ -196,9 +196,10 @@ class Solver:
     ``execute_round``, ``run``, ``is_finished``, ``get_iteration_info``,
     ``get_best_solution``, ``get_best_score``, ``cancel``, ``stats``.
 
-    ``draws`` defaults to ``TorchDraws(config.seed, 1, device)``."""
+    ``device`` defaults to the card; ``draws`` to ``TorchDraws(config.seed, 1,
+    device)``."""
 
-    def __init__(self, problem: Problem, config: SolverConfig, device="cpu", draws=None):
+    def __init__(self, problem: Problem, config: SolverConfig, device="cuda", draws=None):
         self.problem = problem
         self.config = config
         self.device = torch.device(device)

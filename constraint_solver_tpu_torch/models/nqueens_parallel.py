@@ -152,7 +152,8 @@ class ParallelMinConflictsSolver:
     """Driver with the ``Solver`` result surface: solves in the constructor and
     keeps the lane with the fewest conflicts (the first on ties).
 
-    ``draws`` defaults to ``TorchDraws(seed, population, device)``."""
+    ``device`` defaults to the card; ``draws`` to ``TorchDraws(seed,
+    population, device)``."""
 
     def __init__(
         self,
@@ -162,7 +163,7 @@ class ParallelMinConflictsSolver:
         p_accept: float = 0.7,
         population: int = 1,
         sample_cols: int | None = None,
-        device="cpu",
+        device="cuda",
         draws=None,
         log_weights=None,
     ):

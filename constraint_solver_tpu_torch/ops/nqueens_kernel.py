@@ -10,15 +10,29 @@ plus each row's minimum and its first-index argmin.  Every value is a small
 integer in float32, so both versions are exact and equal the TPU kernel bit for bit.
 
 - ``nqueens_neighborhood_scores`` is the wrapper.  It checks device, dtype, shape
-  and contiguity, then takes the plain version for tensors on the CPU, and for
-  tensors on a CUDA device launches the kernel in ``csrc/nqueens_scores.cu`` or
-  raises: there is no fallback.  ``nqueens_neighborhood_scores.launches`` counts
-  its kernel launches.
+  and contiguity in one pass, then takes the plain version for tensors on the
+  CPU, and for tensors on a CUDA device launches the kernel in
+  ``csrc/nqueens_scores.cu`` or raises: there is no fallback.
+  ``nqueens_neighborhood_scores.launches`` counts its kernel launches.
 - ``nqueens_neighborhood_scores_ref`` is the plain version: windowed gathers of
   the diagonal tables, ``amin`` and first-index ``argmin``.
 - ``build_library`` compiles the kernel with ``nvcc`` into ``build/kernels/`` at
   the checkout's root on first use (again whenever the source is newer than the
   library) and loads it with ``ctypes``.
+
+The launch plan (``_launch_plan``, a pure function of (P, A, n)): a block holds
+G ≤ 8 warps, one sampled column of one lane each, so the grid is (⌈A/G⌉, P).  G
+starts at 8 and halves while it is at least twice A or the grid has fewer blocks
+than the card's 132 SMs.  A block stages its lane's rc, dc and ac in shared
+memory (``staged``) when they fit in the 227 KB a block may use, which holds up
+to n = 11,617; above that it reads them from global memory.  Where n % 4 == 0
+(``vector``) every row of scores starts on 16 bytes and goes out in 16-byte
+stores.
+
+The alignment rule: none beyond the dtype's.  The kernel stages a table from the
+16-byte-aligned address at or below its start and reads the scalars one by one,
+so inputs that are contiguous views with a storage offset are taken as they are
+and give the plain version's bits.  The outputs are allocated here.
 
 Divergences from the TPU kernel: one call covers all P lanes (the JAX package
 calls its kernel per lane under ``vmap``); ``cur`` is float32[P]; the unused
@@ -28,10 +42,12 @@ calls its kernel per lane under ``vmap``); ``cur`` is float32[P]; the unused
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -43,8 +59,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 _MAX_LANES = 65535  # the grid's y dimension
+_MAX_WARPS = 8  # columns per block; csrc kMaxWarps
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+_SMEM_LIMIT = 232_448  # the 227 KB of shared memory one block may use on Hopper
 
-_lib: ctypes.CDLL | None = None
+_launch_fn = None
 
 
 def _nvcc() -> str:
@@ -74,17 +93,42 @@ def build_library(force: bool = False) -> str:
     return proc.stdout + proc.stderr
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
+def _launcher():
+    """The C entry ``nqueens_scores_launch``, built and resolved once."""
+    global _launch_fn
+    if _launch_fn is None:
         build_library()
-        lib = ctypes.CDLL(str(_LIB_PATH))
-        lib.nqueens_scores_launch.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p
-        ]
-        lib.nqueens_scores_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        fn = ctypes.CDLL(str(_LIB_PATH)).nqueens_scores_launch
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _launch_fn = fn
+    return _launch_fn
+
+
+def _staged_floats(length: int) -> int:
+    """Floats of shared memory one staged table of ``length`` floats takes
+    (csrc ``staged_floats``): a 0–3 float head, the table and 4 floats of
+    room for the second 16-byte load, rounded to 16 bytes."""
+    return (length + 10) // 4 * 4
+
+
+class LaunchPlan(NamedTuple):
+    cols_per_block: int  # G: warps per block, one sampled column each
+    grid: tuple[int, int]  # (⌈A/G⌉, P)
+    smem_bytes: int  # dynamic shared memory per block; 0 unless staged
+    staged: bool  # the lane's tables in shared memory, else read from global memory
+    vector: bool  # 16-byte score stores (n % 4 == 0)
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_plan(p: int, a: int, n: int) -> LaunchPlan:
+    """The kernel's launch for P lanes, A sampled columns and n rows (P, A ≥ 1)."""
+    g = _MAX_WARPS
+    while g > 1 and (g >= 2 * a or -(-a // g) * p < _SMS):
+        g //= 2
+    smem = 4 * (_staged_floats(n) + 2 * _staged_floats(2 * n - 1))
+    staged = smem <= _SMEM_LIMIT
+    return LaunchPlan(g, (-(-a // g), p), smem if staged else 0, staged, n % 4 == 0)
 
 
 def _check(rc, dc, ac, c, r, removed, cur) -> tuple[int, int, int]:
@@ -92,24 +136,21 @@ def _check(rc, dc, ac, c, r, removed, cur) -> tuple[int, int, int]:
         raise ValueError(f"rc must be [P, n] and c [P, A], got {tuple(rc.shape)} and {tuple(c.shape)}")
     p, n = rc.shape
     a = c.shape[1]
-    want = {
-        "rc": (rc, torch.float32, (p, n)),
-        "dc": (dc, torch.float32, (p, 2 * n - 1)),
-        "ac": (ac, torch.float32, (p, 2 * n - 1)),
-        "c": (c, torch.int32, (p, a)),
-        "r": (r, torch.int32, (p, a)),
-        "removed": (removed, torch.float32, (p, a)),
-        "cur": (cur, torch.float32, (p,)),
-    }
-    for name, (t, dtype, shape) in want.items():
-        if t.device != rc.device:
-            raise ValueError(f"{name} is on {t.device}, rc on {rc.device}")
+    table = 2 * n - 1
+    device = rc.device
+    f32, i32 = torch.float32, torch.int32
+    for name, t, dtype, shape in (
+        ("rc", rc, f32, (p, n)), ("dc", dc, f32, (p, table)), ("ac", ac, f32, (p, table)),
+        ("c", c, i32, (p, a)), ("r", r, i32, (p, a)), ("removed", removed, f32, (p, a)),
+        ("cur", cur, f32, (p,)),
+    ):
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        if t.shape != shape or t.device != device or not t.is_contiguous():
+            raise ValueError(
+                f"{name} must be contiguous with shape {shape} on {device}, got shape "
+                f"{tuple(t.shape)} on {t.device}, contiguous={t.is_contiguous()}"
+            )
     return p, a, n
 
 
@@ -128,6 +169,26 @@ def nqueens_neighborhood_scores_ref(rc, dc, ac, c, r, removed, cur):
     return scores, scores.amin(dim=-1), scores.argmin(dim=-1).to(torch.int32)
 
 
+def _launch(tensors, p: int, a: int, n: int, plan: LaunchPlan) -> None:
+    """Launch the kernel on the tensors' device and its current stream:
+    (rc, dc, ac, c, r, removed, cur, scores, row_min, row_arg)."""
+    fn = _launcher()
+    index = tensors[0].device.index
+    ptrs = [t.data_ptr() for t in tensors]
+    g, (grid_x, _), smem, staged, vector = plan
+    # The raw handle of the current stream, as PyTorch's own kernel launchers
+    # read it: ``torch.cuda.current_stream(index).cuda_stream`` builds a Stream
+    # object first and costs some 20 times as much host time.
+    if index == torch.cuda.current_device():
+        err = fn(*ptrs, p, a, n, g, grid_x, smem, staged, vector, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*ptrs, p, a, n, g, grid_x, smem, staged, vector, torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"nqueens_scores_launch failed: cudaError_t {err} for {plan}")
+    nqueens_neighborhood_scores.launches += 1
+
+
 def nqueens_neighborhood_scores(rc, dc, ac, c, r, removed, cur):
     """The candidate block of every lane.  Inputs: rc float32[P, n], dc/ac
     float32[P, 2n−1], c/r int32[P, A], removed float32[P, A], cur float32[P],
@@ -141,21 +202,13 @@ def nqueens_neighborhood_scores(rc, dc, ac, c, r, removed, cur):
         raise ValueError(f"no kernel for device {device}")
     if p > _MAX_LANES:
         raise ValueError(f"at most {_MAX_LANES} lanes per launch, got {p}")
-    scores = torch.empty((p, a, n), dtype=torch.float32, device=device)
-    row_min = torch.empty((p, a), dtype=torch.float32, device=device)
-    row_arg = torch.empty((p, a), dtype=torch.int32, device=device)
-    if p * a == 0:
-        return scores, row_min, row_arg
-    lib = _library()
-    with torch.cuda.device(device):
-        err = lib.nqueens_scores_launch(
-            rc.data_ptr(), dc.data_ptr(), ac.data_ptr(), c.data_ptr(), r.data_ptr(),
-            removed.data_ptr(), cur.data_ptr(), scores.data_ptr(), row_min.data_ptr(),
-            row_arg.data_ptr(), p, a, n, torch.cuda.current_stream(device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"nqueens_scores_launch failed: cudaGetLastError() = {err}")
-    nqueens_neighborhood_scores.launches += 1
+    # ``new_empty`` takes dtype and device from its tensor: less host time than
+    # ``torch.empty`` with both spelled out.
+    scores = rc.new_empty((p, a, n))
+    row_min = rc.new_empty((p, a))
+    row_arg = c.new_empty((p, a))
+    if p * a:
+        _launch((rc, dc, ac, c, r, removed, cur, scores, row_min, row_arg), p, a, n, _launch_plan(p, a, n))
     return scores, row_min, row_arg
 
 

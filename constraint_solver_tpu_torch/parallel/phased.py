@@ -43,7 +43,8 @@ class PhasedPopulationSolver:
 
     The total round budget is the last phase's
     ``iterated_local_search_max_iterations``; earlier phases end at their
-    ``until_round``.  ``draws`` defaults to phase 0's seed."""
+    ``until_round``.  ``device`` defaults to the card; ``draws`` to phase 0's
+    seed."""
 
     def __init__(
         self,
@@ -54,7 +55,7 @@ class PhasedPopulationSolver:
         portfolio: str = "reference",
         cull_frac: float = 0.0,
         cull_rank: str = "lex",
-        device="cpu",
+        device="cuda",
         draws=None,
     ):
         if not phases:

@@ -154,7 +154,8 @@ class ChunkProgram:
 class PopulationSolver:
     """The ``Solver`` driver API over P parallel trajectories.
 
-    ``draws`` defaults to ``TorchDraws(config.seed, population, device)``."""
+    ``device`` defaults to the card; ``draws`` to ``TorchDraws(config.seed,
+    population, device)``."""
 
     def __init__(
         self,
@@ -166,7 +167,7 @@ class PopulationSolver:
         portfolio: str = "reference",
         cull_frac: float = 0.0,
         cull_rank: str = "lex",
-        device="cpu",
+        device="cuda",
         draws=None,
     ):
         self.problem = problem

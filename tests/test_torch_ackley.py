@@ -108,7 +108,7 @@ def test_population_trajectory_matches_jax():
     jsolver = jpop.PopulationSolver(ja.make_ackley_problem(d), JConfig(**kw), population=p, exchange_every=2)
     tsolver = tpop.PopulationSolver(
         ta.make_ackley_problem(d), SolverConfig(**kw), population=p, exchange_every=2,
-        draws=JaxKeyDraws(jax.random.split(seed_string_to_key(seed), p)),
+        draws=JaxKeyDraws(jax.random.split(seed_string_to_key(seed), p)), device="cpu",
     )
     assert tsolver.program.ls_params.tabu_exact_filter
     assert_tree_close(jsolver.state, to_reference(tsolver.state))
@@ -132,7 +132,7 @@ def test_torch_draws_reach_the_optimum():
     solver = tpop.PopulationSolver(
         ta.make_ackley_problem(2),
         SolverConfig(seed="42", local_search_max_iterations=2_000, max_allow_no_improvement_for=10),
-        population=8, exchange_every=2,
+        population=8, exchange_every=2, device="cpu",
     )
     solver.run(max_rounds=40, chunk=2)
     (value, _), x = solver.get_best_solution()

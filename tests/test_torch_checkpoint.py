@@ -42,11 +42,11 @@ def assert_states_equal(a, b):
 
 def test_solver_checkpoint_roundtrip(tmp_path):
     problem = make_nqueens_problem(10)
-    a = Solver(problem, _cfg())
+    a = Solver(problem, _cfg(), device="cpu")
     a.run(max_rounds=7, chunk=7)
     path = str(tmp_path / "ck.npz")
     a.save(path)
-    b = Solver(problem, _cfg())
+    b = Solver(problem, _cfg(), device="cpu")
     b.load(path)
     assert_states_equal(a.state, b.state)
     assert b.get_iteration_info() == a.get_iteration_info() == {"current": 7, "total": 30}
@@ -67,7 +67,7 @@ def test_population_checkpoint_resumes_bit_for_bit(tmp_path, domain):
 
     def solver():
         config = _cfg(local_search_max_iterations=6, restart_every=3)
-        return PopulationSolver(problem, config, population=4, exchange_every=2)
+        return PopulationSolver(problem, config, population=4, exchange_every=2, device="cpu")
 
     straight = solver()
     straight.run(max_rounds=8, chunk=2)
@@ -95,7 +95,7 @@ def test_population_resume_from_jax_keys_equals_jax_run(tmp_path):
     def solver():
         return PopulationSolver(
             make_nqueens_problem(n, log_weights=reference_log_weights(n)), SolverConfig(**kw), population=p,
-            exchange_every=2, draws=JaxKeyDraws(jax.random.split(seed_string_to_key(seed), p)),
+            exchange_every=2, draws=JaxKeyDraws(jax.random.split(seed_string_to_key(seed), p)), device="cpu",
         )
 
     a = solver()
@@ -114,10 +114,10 @@ def test_population_resume_from_jax_keys_equals_jax_run(tmp_path):
 
 
 def test_checkpoint_rejects_wrong_problem(tmp_path):
-    a = Solver(make_nqueens_problem(8), _cfg())
+    a = Solver(make_nqueens_problem(8), _cfg(), device="cpu")
     path = str(tmp_path / "x.npz")
     a.save(path)
-    b = Solver(make_nqueens_problem(8, sample_cols=2), _cfg())
+    b = Solver(make_nqueens_problem(8, sample_cols=2), _cfg(), device="cpu")
     b.problem = b.problem._replace(name="other")
     with pytest.raises(ValueError, match="checkpoint is for"):
         b.load(path)
@@ -125,28 +125,28 @@ def test_checkpoint_rejects_wrong_problem(tmp_path):
 
 def test_checkpoint_rejects_population_mode_mismatch(tmp_path):
     problem = make_nqueens_problem(8)
-    pop = PopulationSolver(problem, _cfg(), population=4)
+    pop = PopulationSolver(problem, _cfg(), population=4, device="cpu")
     pop.run(max_rounds=2, chunk=2)
     path = str(tmp_path / "pop.npz")
     pop.save(path)
     with pytest.raises(ValueError, match="population-mode"):
-        Solver(problem, _cfg()).load(path)
+        Solver(problem, _cfg(), device="cpu").load(path)
     with pytest.raises(ValueError, match="population"):
-        PopulationSolver(problem, _cfg(), population=8).load(path)
+        PopulationSolver(problem, _cfg(), population=8, device="cpu").load(path)
     pop.state = pop.state._replace(round=pop.state.round + torch.tensor([0, 0, 1, 0], dtype=torch.int32))
     pop.save(path)
     with pytest.raises(ValueError, match="lockstep"):
-        PopulationSolver(problem, _cfg(), population=4).load(path)
+        PopulationSolver(problem, _cfg(), population=4, device="cpu").load(path)
 
 
 def test_checkpoint_path_without_npz_extension(tmp_path):
     problem = make_nqueens_problem(8)
-    a = Solver(problem, _cfg())
+    a = Solver(problem, _cfg(), device="cpu")
     a.run(max_rounds=3, chunk=3, checkpoint_path=str(tmp_path / "bare_path"), checkpoint_every=1)
     path = str(tmp_path / "bare_path")  # no .npz
     assert checkpoint_exists(path) and (tmp_path / "bare_path.npz").exists()
     assert sorted(p.name for p in tmp_path.iterdir()) == ["bare_path.npz"]  # no temporary file left
-    b = Solver(problem, _cfg())
+    b = Solver(problem, _cfg(), device="cpu")
     b.load(path)
     assert a.get_best_score() == b.get_best_score()
 
@@ -157,7 +157,7 @@ def test_reseed_from_elites_matches_jax():
     jsolver = jpop.PopulationSolver(j_make(n), JConfig(**kw), population=p, exchange_every=2)
     tsolver = PopulationSolver(
         make_nqueens_problem(n, log_weights=reference_log_weights(n)), SolverConfig(**kw), population=p,
-        exchange_every=2, draws=JaxKeyDraws(jax.random.split(seed_string_to_key(seed), p)),
+        exchange_every=2, draws=JaxKeyDraws(jax.random.split(seed_string_to_key(seed), p)), device="cpu",
     )
     tsolver.reseed_from_elites()  # empty archives: every lane keeps its solution
     jsolver.reseed_from_elites()

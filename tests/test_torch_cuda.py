@@ -6,7 +6,9 @@ They import no JAX, so they also run where JAX is not installed:
 
 Without a CUDA device each test skips: the CUDA kernel has no CPU mode.  The
 kernel must equal its plain PyTorch version bit for bit (every value is a small
-integer held in float32), and a solve on the card must equal the same solve on
+integer held in float32) at every launch plan (columns per block, staged or
+not, 16- or 4-byte stores) and for inputs that are views with a storage
+offset, and a solve on the card must equal the same solve on
 the CPU from the same host-side draws: N-Queens, PMC (the kernel's second
 caller), the dense scheduling block, QAP in its three modes and the diagram
 layout.  The incremental QAP state must stay exact on the card."""
@@ -45,9 +47,21 @@ def _inputs(rng, p, a, n, device):
     return st.rc, st.dc, st.ac, c.to(torch.int32), r.to(torch.int32), removed, cur
 
 
+STAGED_MAX_N = 11_617  # the largest n whose tables fit in a block's shared memory
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "p, a, n", [(256, 50, 1000), (1, 1000, 1000), (4, 64, 64), (4, 3, 8), (8, 5, 1003), (2, 3, 14000), (3, 1, 1)]
+    "p, a, n",
+    [
+        (256, 50, 1000), (1, 1000, 1000), (4, 64, 64), (4, 3, 8), (8, 5, 1003), (2, 3, 14000), (3, 1, 1),
+        # A not a multiple of the plan's columns per block (1, 2, 4 and 8 warps)
+        (3, 13, 1000), (32, 13, 1000), (16, 50, 1000), (128, 50, 1000),
+        # n % 4 != 0 at a large A: 4-byte stores
+        (16, 50, 1001),
+        # n just below and just above the staging threshold, with and without 16-byte stores
+        (2, 3, STAGED_MAX_N - 1), (2, 3, STAGED_MAX_N), (2, 3, STAGED_MAX_N + 1), (2, 3, STAGED_MAX_N + 3),
+    ],
 )
 def test_cuda_kernel_matches_plain_version(cuda, p, a, n):
     args = _inputs(np.random.default_rng(n), p, a, n, cuda)
@@ -55,6 +69,27 @@ def test_cuda_kernel_matches_plain_version(cuda, p, a, n):
     got = nk.nqueens_neighborhood_scores(*args)
     torch.cuda.synchronize()
     assert nk.nqueens_neighborhood_scores.launches == before + 1
+    for want, g in zip(nk.nqueens_neighborhood_scores_ref(*args), got):
+        assert want.dtype == g.dtype and torch.equal(want, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("p, a, n", [(256, 50, 1000), (16, 50, 1001), (2, 3, 14000)])
+def test_cuda_kernel_takes_views_with_a_storage_offset(cuda, p, a, n, offset):
+    """Contiguous views that start ``offset`` elements into their storage, so
+    no table row is on 16 bytes: the wrapper documents that it takes them, and
+    the kernel gives the plain version's bits."""
+    args = _inputs(np.random.default_rng(offset), p, a, n, cuda)
+
+    def shifted(t):
+        view = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)[offset:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.storage_offset() == offset
+        return view
+
+    got = nk.nqueens_neighborhood_scores(*(shifted(t) for t in args))
+    torch.cuda.synchronize()
     for want, g in zip(nk.nqueens_neighborhood_scores_ref(*args), got):
         assert want.dtype == g.dtype and torch.equal(want, g)
 

@@ -114,7 +114,7 @@ def test_population_trajectory_matches_jax():
     jsolver = jpop.PopulationSolver(jp, JConfig(**kw), population=p, exchange_every=2, cull_frac=0.25)
     tsolver = tpop.PopulationSolver(
         tp, SolverConfig(**kw), population=p, exchange_every=2, cull_frac=0.25,
-        draws=JaxKeyDraws(jax.random.split(seed_string_to_key(seed), p)),
+        draws=JaxKeyDraws(jax.random.split(seed_string_to_key(seed), p)), device="cpu",
     )
     assert tsolver.program.ls_params.tabu_exact_filter
     assert_tree_equal(jsolver.state, to_reference(tsolver.state))
@@ -139,7 +139,7 @@ def test_torch_draws_reach_zero_overlaps():
             seed="42", local_search_max_iterations=100, best_solutions_capacity=8, all_solutions_capacity=64,
             all_solution_iteration_expiry=1_000, max_allow_no_improvement_for=5,
         ),
-        population=4, exchange_every=2,
+        population=4, exchange_every=2, device="cpu",
     )
     solver.run(max_rounds=6, chunk=2)
     (hard, soft), pos = solver.get_best_solution()

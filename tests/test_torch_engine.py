@@ -297,7 +297,7 @@ def test_solver_matches_jax_solver():
     jsolver = JSolver(j_make(n), JConfig(**kw))
     tsolver = Solver(
         make_nqueens_problem(n, log_weights=reference_log_weights(n)), SolverConfig(**kw),
-        draws=JaxKeyDraws(seed_string_to_key("single")[None]),
+        draws=JaxKeyDraws(seed_string_to_key("single")[None]), device="cpu",
     )
     def with_lane_axis(st):  # the JAX Solver's state has none
         return jax.tree.map(lambda x: x[None], st)
@@ -316,7 +316,7 @@ def test_solver_matches_jax_solver():
 
 
 def test_solver_solves_nqueens_8_with_torch_draws():
-    solver = Solver(make_nqueens_problem(8), SolverConfig(seed="42", local_search_max_iterations=50))
+    solver = Solver(make_nqueens_problem(8), SolverConfig(seed="42", local_search_max_iterations=50), device="cpu")
     solver.run(chunk=4)
     (hard, soft), state = solver.get_best_solution()
     assert (hard, soft) == (0.0, 0.0)

@@ -54,7 +54,8 @@ def _pair(swaps, bounds, **kw):
     seed = _kw(**kw)["seed"]
     jsolver = jph.PhasedPopulationSolver(jphases, population=P, exchange_every=2)
     tsolver = tph.PhasedPopulationSolver(
-        tphases, population=P, exchange_every=2, draws=JaxKeyDraws(jax.random.split(seed_string_to_key(seed), P))
+        tphases, population=P, exchange_every=2, draws=JaxKeyDraws(jax.random.split(seed_string_to_key(seed), P)),
+        device="cpu",
     )
     return jsolver, tsolver
 
@@ -66,7 +67,7 @@ def test_identical_phases_match_plain_population_and_jax():
     assert_tree_equal(jsolver.state, to_reference(tsolver.state))
     plain = PopulationSolver(
         ts.make_scheduling_problem(_spec(ts), proposer="dense", n_rand_swaps=8), SolverConfig(**_kw()),
-        population=P, exchange_every=2, draws=JaxKeyDraws(jax.random.split(seed_string_to_key("ph"), P)),
+        population=P, exchange_every=2, draws=JaxKeyDraws(jax.random.split(seed_string_to_key("ph"), P)), device="cpu",
     )
     plain.run(chunk=2)
     assert plain.get_best_score() == tsolver.get_best_score() == jsolver.get_best_score()
@@ -112,15 +113,18 @@ def test_phase_validation():
     p = ts.make_scheduling_problem(_spec(ts), proposer="dense", n_rand_swaps=4)
     cfg = SolverConfig(**_kw())
     with pytest.raises(ValueError, match="at least one"):
-        tph.PhasedPopulationSolver([], population=2)
+        tph.PhasedPopulationSolver([], population=2, device="cpu")
     bad_caps = SolverConfig(seed="x", best_solutions_capacity=4, all_solutions_capacity=64, all_solution_iteration_expiry=200)
     with pytest.raises(ValueError, match="capacities"):
-        tph.PhasedPopulationSolver([tph.Phase(p, cfg, until_round=4), tph.Phase(p, bad_caps)], population=2)
+        tph.PhasedPopulationSolver(
+            [tph.Phase(p, cfg, until_round=4), tph.Phase(p, bad_caps)], population=2, device="cpu"
+        )
     with pytest.raises(ValueError, match="until_round"):
-        tph.PhasedPopulationSolver([tph.Phase(p, cfg), tph.Phase(p, cfg)], population=2)
+        tph.PhasedPopulationSolver([tph.Phase(p, cfg), tph.Phase(p, cfg)], population=2, device="cpu")
     with pytest.raises(ValueError, match="increase"):
         tph.PhasedPopulationSolver(
-            [tph.Phase(p, cfg, until_round=8), tph.Phase(p, cfg, until_round=4), tph.Phase(p, cfg)], population=2
+            [tph.Phase(p, cfg, until_round=8), tph.Phase(p, cfg, until_round=4), tph.Phase(p, cfg)], population=2,
+            device="cpu",
         )
 
 

@@ -82,7 +82,7 @@ def test_chunked_run_equals_one_run_and_matches_jax():
 def test_solver_wrapper_matches_jax():
     want = jpmc.ParallelMinConflictsSolver(16, seed="7", population=4)
     got = tpmc.ParallelMinConflictsSolver(
-        16, seed="7", population=4, draws=JaxKeyDraws(jax.random.split(seed_string_to_key("7"), 4))
+        16, seed="7", population=4, draws=JaxKeyDraws(jax.random.split(seed_string_to_key("7"), 4)), device="cpu"
     )
     (w_score, _), w_state = want.get_best_solution()
     (g_score, _), g_state = got.get_best_solution()
@@ -109,8 +109,8 @@ def test_pmc_goes_through_the_kernel_wrapper(monkeypatch):
 
 
 def test_torch_draws_solve_and_are_deterministic():
-    a = tpmc.ParallelMinConflictsSolver(40, seed="x", population=2)
-    b = tpmc.ParallelMinConflictsSolver(40, seed="x", population=2)
+    a = tpmc.ParallelMinConflictsSolver(40, seed="x", population=2, device="cpu")
+    b = tpmc.ParallelMinConflictsSolver(40, seed="x", population=2, device="cpu")
     (score, _), state = a.get_best_solution()
     assert score == 0.0 and sorted(state.rows.tolist()) == list(range(40))
     np.testing.assert_array_equal(state.rows, b.get_best_solution()[1].rows)

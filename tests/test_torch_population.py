@@ -54,7 +54,7 @@ def _solvers(n, seed, exact):
     tsolver = tpop.PopulationSolver(
         make_nqueens_problem(n, log_weights=reference_log_weights(n)), SolverConfig(**kw),
         population=P, exchange_every=2,
-        draws=JaxKeyDraws(jax.random.split(seed_string_to_key(seed), P)),
+        draws=JaxKeyDraws(jax.random.split(seed_string_to_key(seed), P)), device="cpu",
     )
     return jsolver, tsolver
 
@@ -121,7 +121,7 @@ def test_state_round_trips_through_reference_layout():
 def test_torch_draws_solve_nqueens_8():
     solver = tpop.PopulationSolver(
         make_nqueens_problem(8), SolverConfig(seed="42", local_search_max_iterations=50),
-        population=4, exchange_every=2,
+        population=4, exchange_every=2, device="cpu",
     )
     solver.run(chunk=2)
     (hard, soft), state = solver.get_best_solution()

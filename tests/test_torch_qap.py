@@ -224,7 +224,7 @@ def test_population_finds_brute_force_optimum_n7(mode):
             all_solution_iteration_expiry=200, iterated_local_search_max_iterations=12,
             max_allow_no_improvement_for=5,
         ),
-        population=8, exchange_every=4,
+        population=8, exchange_every=4, device="cpu",
     )
     solver.run(chunk=4)
     (cost, _), state = solver.get_best_solution()
@@ -259,7 +259,7 @@ def test_population_trajectory_matches_jax(mode, extra):
     jsolver = jpop.PopulationSolver(jp, JConfig(**kw), population=p, exchange_every=2, cull_frac=0.25)
     tsolver = tpop.PopulationSolver(
         tp, SolverConfig(**kw), population=p, exchange_every=2, cull_frac=0.25,
-        draws=JaxKeyDraws(jax.random.split(seed_string_to_key(seed), p)),
+        draws=JaxKeyDraws(jax.random.split(seed_string_to_key(seed), p)), device="cpu",
     )
     assert tsolver.program.ls_params.tabu_exact_filter == ("tabu_exact_filter" not in extra)
     assert_tree_equal(jsolver.state, to_reference(tsolver.state))

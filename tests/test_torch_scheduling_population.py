@@ -48,7 +48,7 @@ def test_population_trajectory_matches_jax(proposer, extra):
     tsolver = tpop.PopulationSolver(
         ts.make_scheduling_problem(tspec, proposer=proposer, **pkw), SolverConfig(**kw),
         population=p, exchange_every=2, cull_frac=0.25,
-        draws=JaxKeyDraws(jax.random.split(seed_string_to_key(seed), p)),
+        draws=JaxKeyDraws(jax.random.split(seed_string_to_key(seed), p)), device="cpu",
     )
     assert tsolver.program.ls_params.tabu_exact_filter
     assert_tree_equal(jsolver.state, to_reference(tsolver.state))
