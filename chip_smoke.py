@@ -60,7 +60,21 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
     random window until round 16: each program runs exactly in its rounds and
     the best equals the date-based rescore; (b) checkpoints on the card:
     2 rounds, save, load into a fresh solver, 2 rounds == 4 rounds straight,
-    for qap-1024 compact and for the nqueens main path.
+    for qap-1024 compact and for the nqueens main path;
+12. the user surface on the card: the five CLIs run in this process with
+    ``--device cuda``, each printed result checked apart (the nqueens board at
+    n = 1000, P = 256 and PMC's board by the numpy attacking-pair count, the
+    31 d x 7 e schedule at P = 64 by the date-based scorer, qap-4096's
+    permutation by an int64 cost, the 64-box diagram's SVG with every
+    connector routed, Ackley d = 10's value finite); the HTTP service on a
+    thread, where an nqueens-1000 client and the web page's scheduling
+    request step their solvers at the same time (checked likewise), then a
+    64-box diagram and its SVG; one main-path round under
+    ``utils/profiling.trace``, whose Chrome trace must hold the kernel's
+    events; and ``roofline()`` of the main path's solver, of a main-path
+    solver after one round and of qap-4096 incremental with 4 lanes: every
+    share at most 1.05, the state unchanged, the kernel's counted bytes
+    ``kernel_bytes`` times its launches.
 
 Each path's kernel launches are counted from 0 just before it runs.  The line
 before the last is a JSON object with each kernel's measurements; the last line
@@ -191,6 +205,27 @@ def kernel_bound_ms(p: int, a: int, n: int) -> float:
     float32 operations per score (P·A·n·10 over 67 TFLOP/s) take a tenth of
     that, so bytes bound it."""
     return kernel_bytes(p, a, n) / HBM_BYTES_PER_S * 1e3
+
+
+def probe_kernel_bytes(p=MAIN_P, a=MAIN_A, n=MAIN_N) -> dict:
+    """Bytes each TPU probe kernel of ``bench/kernel_iso.py`` must move at its
+    default shape (P lanes, A columns, n rows padded to a multiple of 128),
+    each input read once and each output written once: the scores [A, n_pad]
+    in float32, the rc, dc and ac tables (float32 or int16; the packed probe
+    holds dc and ac in one int32 table), c, r and removed, cur, and the row
+    min and argmin where the probe writes them.  Those probes stay with the
+    benchmark folder; this gives their bounds."""
+    n_pad = -(-n // 128) * 128
+    scores, scalars, row_min = 4 * a * n_pad, 4 * (3 * a + 1), 8 * a
+    f32_tables, i16_tables = 4 * (n_pad + 4 * n_pad), 2 * (n_pad + 4 * n_pad)
+    per_lane = {
+        "_kern_packed": scores + 4 * n_pad + 4 * 2 * n_pad + scalars + row_min,
+        "_kern_base": scores + f32_tables + scalars,
+        "_kern_noroll": scores + f32_tables + scalars,
+        "_kern_i16": scores + i16_tables + scalars,
+        "_kern_i16min": scores + i16_tables + scalars + row_min,
+    }
+    return {name: p * b for name, b in per_lane.items()}
 
 
 def probe_plans(rng, device, shape) -> dict:
@@ -351,7 +386,8 @@ def attacking_pairs(rows: np.ndarray) -> int:
     return int(sum((c * (c - 1) / 2).sum() for c in (rc, dc, ac)))
 
 
-def phase_main(device, n=MAIN_N, population=MAIN_P, wall_cap=WALL_CAP_S) -> dict:
+def phase_main(device, n=MAIN_N, population=MAIN_P, wall_cap=WALL_CAP_S):
+    """Returns the measurements and the solved solver."""
     import torch
 
     from constraint_solver_tpu_torch.models.nqueens import make_nqueens_problem
@@ -405,7 +441,7 @@ def phase_main(device, n=MAIN_N, population=MAIN_P, wall_cap=WALL_CAP_S) -> dict
         f"{stats['rounds']} rounds, {stats['ls_iterations']} descent iterations, "
         f"moves/s {stats.get('moves_per_sec')}, kernel launches {launches}"
     )
-    return {"ttz_s": ttz, "launches": launches, **stats}
+    return {"ttz_s": ttz, "launches": launches, **stats}, s
 
 
 def sync(device) -> None:
@@ -1137,6 +1173,352 @@ def phase_checkpoint(device, qap_n=1024, qap_p=16, nq_n=MAIN_N, nq_p=MAIN_P) -> 
     return out
 
 
+SURFACE_DIR = "build/surface"  # the diagram CLI's SVG and the profiler's trace
+WEB_PAGE_PAYLOAD = {  # the index page's default request: 7 employees over 31 days
+    "startDate": "2022-05-09", "endDate": "2022-06-08",
+    "employees": [{"id": i} for i in range(7)], "employeeHolidays": [[] for _ in range(7)],
+}
+
+
+def run_cli(module, argv, device) -> tuple:
+    """``module.main(argv + ["--device", device])`` in this process with its
+    standard output captured; returns (return value, output, wall s, kernel
+    launches)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+
+    buf = io.StringIO()
+    nk.nqueens_neighborhood_scores.launches = 0
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main([*argv, "--device", str(torch.device(device).type)])
+    sync(device)
+    return rc, buf.getvalue(), time.time() - t0, nk.nqueens_neighborhood_scores.launches
+
+
+def printed(text: str, prefix: str) -> str:
+    """The rest of the output line that starts with ``prefix``."""
+    for line in text.splitlines():
+        if line.startswith(prefix):
+            return line[len(prefix):].strip()
+    raise AssertionError(f"no line starting {prefix!r} in the output")
+
+
+def parse_board(text: str, n: int) -> np.ndarray:
+    """The board the CLI printed (``format_board``): rows[c] = r for the Q in
+    column c of row r."""
+    lines = text.splitlines()
+    top = lines.index("-" * (4 * n + 1))
+    grid = np.array([list(lines[top + 1 + 2 * r]) for r in range(n)])  # [n, 4n + 1]
+    queens = grid[:, 2::4] == "Q"  # [row, column]
+    if not (queens.sum(axis=0) == 1).all():
+        raise AssertionError("the printed board does not hold one queen per column")
+    return queens.argmax(axis=0)
+
+
+def cli_nqueens(device, argv, n, label) -> dict:
+    from constraint_solver_tpu_torch.cli import nqueens
+
+    rc, text, wall, launches = run_cli(nqueens, argv, device)
+    rows = parse_board(text, n)
+    score = int(printed(text, "result.score:"))
+    pairs = attacking_pairs(rows)
+    if score != 2 * pairs or rc != score:
+        raise AssertionError(f"phase 12 {label}: printed score {score} (rc {rc}) != 2 x {pairs} attacking pairs")
+    if is_cuda(device) and launches == 0:
+        raise AssertionError(f"phase 12 {label}: the CLI never launched the kernel")
+    log(f"phase 12 {label}: {' '.join(argv)}: score {score} == 2 x numpy attacking pairs; wall {wall:.3f} s; "
+        f"kernel launches {launches}; {printed(text, 'stats:')}")
+    return {"score": score, "wall_s": wall, "launches": launches, "stats": printed(text, "stats:")}
+
+
+def cli_scheduling(device, days=31, emps=7, population=64, rounds=5) -> dict:
+    from constraint_solver_tpu_torch.cli import scheduling
+
+    argv = ["--days", str(days), "--employees", str(emps), "--population", str(population), "--rounds", str(rounds)]
+    _, text, wall, _ = run_cli(scheduling, argv, device)
+    start = datetime.date(2022, 5, 9)
+    lines = text.split("result.solution:\n", 1)[1].split("\n---\n", 1)[0].splitlines()
+    assign = [int(line.rsplit("employee ", 1)[1]) for line in lines]
+    hard, soft = (float(x) for x in printed(text, "result.score: hard").split(" soft "))
+    want = oracle_schedule_score(start, assign, {})
+    if len(assign) != days or (hard, soft) != want:
+        raise AssertionError(f"phase 12 scheduling CLI: printed ({hard}, {soft}) != date-based rescore {want}")
+    log(f"phase 12 scheduling CLI: {' '.join(argv)}: best ({hard}, {soft}) == date-based rescore; wall {wall:.3f} s; "
+        f"{printed(text, 'stats:')}")
+    return {"best": [hard, soft], "wall_s": wall, "stats": printed(text, "stats:")}
+
+
+def cli_qap(device, n=4096, rounds=6) -> dict:
+    from constraint_solver_tpu_torch.cli import qap
+    from constraint_solver_tpu_torch.models.qap import QAPSpec
+
+    argv = ["--size", str(n), "--rounds", str(rounds)]
+    rc, text, wall, _ = run_cli(qap, argv, device)  # the CLI asserts its best against its host oracle
+    perm = np.array(json.loads(printed(text, "result.permutation:")))
+    cost = float(printed(text, "result.cost:"))
+    flow, dist = QAPSpec.random(n, seed=0).arrays()
+    exact = qap_host_cost(flow, dist, perm)
+    if rc != 0 or sorted(perm.tolist()) != list(range(n)) or abs(exact - cost) > 1e-3 * max(1.0, exact):
+        raise AssertionError(f"phase 12 qap CLI: printed cost {cost} != int64 host cost {exact} (rc {rc})")
+    log(f"phase 12 qap CLI: {' '.join(argv)}: cost {cost:.0f}, int64 host cost {exact}; wall {wall:.3f} s; "
+        f"{printed(text, 'stats:')}")
+    return {"cost": cost, "cost_int64": exact, "wall_s": wall, "stats": printed(text, "stats:")}
+
+
+def cli_diagram(device, boxes=64, edges=96, grid=32, max_size=4, population=64, rounds=6) -> dict:
+    import os
+
+    from constraint_solver_tpu_torch.cli import diagram
+    from constraint_solver_tpu_torch.diagram import route
+
+    svg_path = os.path.join(SURFACE_DIR, "layout.svg")
+    argv = ["--boxes", str(boxes), "--edges", str(edges), "--grid", str(grid), "--max-size", str(max_size),
+            "--population", str(population), "--rounds", str(rounds), "--svg", svg_path]
+    routed = []
+    inner = route.route_connectors
+
+    def recorded(boxes_, edges_, *args):
+        routes = inner(boxes_, edges_, *args)
+        routed.append((boxes_, routes))
+        return routes
+
+    route.route_connectors = recorded
+    try:
+        _, text, wall, _ = run_cli(diagram, argv, device)
+    finally:
+        route.route_connectors = inner
+    with open(svg_path) as f:
+        svg = f.read()
+    (geom, routes), = routed
+    if len(routes) != edges or any(r is None for r in routes) or svg.count("<polyline") != edges:
+        raise AssertionError(f"phase 12 diagram CLI: {sum(r is None for r in routes)} connectors not routed")
+    crossings = route.route_crossings(routes, geom)  # reported: the router does not promise 0
+    log(f"phase 12 diagram CLI: {' '.join(argv)}: {printed(text, 'result.score:')}; all {edges} connectors routed, "
+        f"{crossings} box crossings, SVG {len(svg)} bytes; wall {wall:.3f} s; {printed(text, 'stats:')}")
+    return {"score": printed(text, "result.score:"), "svg_bytes": len(svg), "wall_s": wall,
+            "stats": printed(text, "stats:")}
+
+
+def cli_ackley(device, d=10, population=64, rounds=1) -> dict:
+    from constraint_solver_tpu_torch.cli import ackley
+
+    argv = ["--dims", str(d), "--population", str(population), "--rounds", str(rounds)]
+    rc, text, wall, _ = run_cli(ackley, argv, device)
+    value = float(printed(text, "result.value:"))
+    x = json.loads(printed(text, "result.x:"))
+    if not np.isfinite(value) or len(x) != d or rc != (0 if abs(value) <= 1e-2 else 1):
+        raise AssertionError(f"phase 12 ackley CLI: value {value}, rc {rc}, point {x}")
+    log(f"phase 12 ackley CLI: {' '.join(argv)}: value {value} (finite, rc {rc}); wall {wall:.3f} s; "
+        f"{printed(text, 'stats:')}")
+    return {"value": value, "wall_s": wall, "stats": printed(text, "stats:")}
+
+
+def http(url, method="GET", body=None):
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(url, data=data, method=method, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        raw = resp.read()
+        return json.loads(raw) if resp.headers["Content-Type"] == "application/json" else raw.decode()
+
+
+def phase_serve(device, nq_n=MAIN_N, rounds=3, boxes=64, edges=96, grid=32, max_size=4) -> dict:
+    """The service on the card, in this process on a thread, driven over
+    HTTP: an N-Queens client and a scheduling client (the web page's request)
+    step their solvers at the same time; then a 64-box diagram and its SVG."""
+    from constraint_solver_tpu_torch.models.diagram_layout import DiagramLayoutSpec, layout_score_naive
+    from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+    from constraint_solver_tpu_torch.serve.server import SolverService, run_server
+
+    server = run_server("127.0.0.1", 0, SolverService(device))
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/api/solvers"
+    out = {}
+    try:
+        clients = {
+            "nqueens": {"problem": "nqueens", "boardSize": nq_n, "seed": "serve"},
+            "scheduling": WEB_PAGE_PAYLOAD,
+        }
+        results, errors, times = {}, [], {}
+
+        def client(name, payload):
+            try:
+                sid = http(url, "POST", payload)["solverId"]
+                spans = []
+                for _ in range(rounds):
+                    t0 = time.time()
+                    results[name] = http(f"{url}/{sid}/round", "POST")
+                    spans.append(time.time() - t0)
+                times[name] = spans
+                http(f"{url}/{sid}", "DELETE")
+            except Exception as e:  # noqa: BLE001 — re-raised on the main thread below
+                errors.append((name, e))
+
+        nk.nqueens_neighborhood_scores.launches = 0
+        threads = [threading.Thread(target=client, args=item) for item in clients.items()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        sync(device)
+        launches = nk.nqueens_neighborhood_scores.launches
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"phase 12 serve: client failed: {errors}")
+        nq = results["nqueens"]["result"]
+        rows = np.array(nq["rows"])
+        if nq["score"]["hard_score"] != 2 * attacking_pairs(rows) or rows.shape != (nq_n,):
+            raise AssertionError(f"phase 12 serve: nqueens best {nq['score']} != 2 x numpy attacking pairs")
+        sched = results["scheduling"]["result"]
+        assign = [e["id"] for _, e in sched["days_to_employees"]]
+        want = oracle_schedule_score(datetime.date(2022, 5, 9), assign, {})
+        if (sched["score"]["hard_score"], sched["score"]["soft_score"]) != want:
+            raise AssertionError(f"phase 12 serve: scheduling best {sched['score']} != date-based rescore {want}")
+        if is_cuda(device) and launches == 0:
+            raise AssertionError("phase 12 serve: the nqueens solver never launched the kernel")
+        out.update(launches=launches, round_s=times, nqueens_best=nq["score"], scheduling_best=list(want))
+        log(f"phase 12 serve: nqueens-{nq_n} and the web page's scheduling request, {rounds} rounds each from two "
+            f"clients at once: nqueens {nq['score']} == 2 x numpy attacking pairs, scheduling {want} == date-based "
+            f"rescore; round seconds {times}; kernel launches {launches}")
+
+        sid = http(url, "POST", {"problem": "diagram", "boxes": boxes, "edges": edges, "grid": grid,
+                                 "maxSize": max_size, "iterated_local_search_max_iterations": 2})["solverId"]
+        t0 = time.time()
+        r = http(f"{url}/{sid}/round", "POST")["result"]
+        round_s = time.time() - t0
+        t0 = time.time()
+        svg = http(f"{url}/{sid}/svg")
+        svg_s = time.time() - t0
+        spec = DiagramLayoutSpec.random(boxes, edges, grid, seed=0, max_size=max_size)
+        want = layout_score_naive(spec, np.array(r["positions"]))
+        if (r["score"]["hard_score"], r["score"]["soft_score"]) != want or svg.count("<polyline") != edges:
+            raise AssertionError(f"phase 12 serve: diagram best {r['score']} vs host oracle {want}")
+        out["diagram"] = {"best": list(want), "round_s": round_s, "svg_s": svg_s, "svg_bytes": len(svg)}
+        log(f"phase 12 serve: diagram-{boxes}b-{grid}g: one round {round_s:.3f} s, best {want} == host oracle; "
+            f"/svg {len(svg)} bytes with {edges} connectors in {svg_s:.3f} s")
+    finally:
+        server.shutdown()
+        server.server_close()
+        serving.join(timeout=60)
+    return out
+
+
+def phase_trace(device, n=MAIN_N, population=MAIN_P) -> dict:
+    """One nqueens-n round under ``utils/profiling.trace``: the Chrome trace
+    holds the kernel's events and the ``annotate`` span."""
+    import glob
+    import os
+
+    from constraint_solver_tpu_torch.models.nqueens import make_nqueens_problem
+    from constraint_solver_tpu_torch.parallel.population import PopulationSolver
+    from constraint_solver_tpu_torch.utils.profiling import annotate, trace
+
+    logdir = os.path.join(SURFACE_DIR, "trace")
+    s = PopulationSolver(make_nqueens_problem(n), main_config(), population=population, exchange_every=2,
+                         device=device)
+    before = set(glob.glob(os.path.join(logdir, "*.json")))
+    t0 = time.time()
+    with trace(logdir):
+        with annotate("smoke-round"):
+            s.execute_round()
+    wall = time.time() - t0
+    (path,) = set(glob.glob(os.path.join(logdir, "*.json"))) - before
+    with open(path) as f:
+        names = Counter(e.get("name", "") for e in json.load(f)["traceEvents"])
+    size = os.path.getsize(path)
+    os.remove(path)  # some 200 MB for a main-path round
+    kernel_events = sum(c for name, c in names.items() if KERNEL_EVENT in name)
+    if (is_cuda(device) and kernel_events == 0) or names["smoke-round"] == 0:
+        raise AssertionError(f"phase 12 trace: {kernel_events} kernel events, {names['smoke-round']} spans in {path}")
+    log(f"phase 12 trace: one nqueens-{n} P={population} round traced in {wall:.3f} s: {kernel_events} "
+        f"{KERNEL_EVENT} events, {sum(names.values())} events in all, {size} bytes")
+    return {"kernel_events": kernel_events, "events": sum(names.values()), "wall_s": wall}
+
+
+def checked_roofline(solver, label, kernel_shape=None) -> dict:
+    """``solver.roofline()`` with every share at most 1.05, the solver's state
+    unchanged, and the kernel's counted calls equal to its launches in the
+    chunk and its counted bytes to ``kernel_bytes(*kernel_shape)`` times them."""
+    from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+    from constraint_solver_tpu_torch.utils.convert import to_reference
+    from constraint_solver_tpu_torch.utils.roofline import format_roofline
+
+    before = to_reference(solver.state)
+    nk.nqueens_neighborhood_scores.launches = 0
+    r = solver.roofline()
+    launches = nk.nqueens_neighborhood_scores.launches
+    assert_tree_equal(before, to_reference(solver.state))
+    shares = {k: r[k] for k in ("mfu_bf16", "mfu_f32", "hbm_frac")}
+    if not all(0.0 <= v <= 1.05 for v in shares.values()):
+        raise AssertionError(f"phase 12 roofline {label}: a share above 1.05: {shares}")
+    kern = r["kernels"].get(nk.KERNEL_NAME, {"calls": 0, "bytes": 0})
+    if is_cuda(solver.device) and kern["calls"] != launches:
+        raise AssertionError(f"phase 12 roofline {label}: {kern['calls']} kernel calls counted, {launches} launched")
+    if kern["calls"]:
+        want = kernel_bytes(*kernel_shape) * kern["calls"]
+        if kern["bytes"] != want:
+            raise AssertionError(f"phase 12 roofline {label}: kernel bytes {kern['bytes']} != {want}")
+    log(f"phase 12 roofline {label}: {format_roofline(r)}; per round {r['flops_per_round']:.4g} operations, "
+        f"{r['hbm_bytes_per_round']:.4g} bytes; kernel {kern}; state unchanged")
+    return r
+
+
+def phase_roofline(device, main_solver, n=MAIN_N, population=MAIN_P, qap_n=4096) -> dict:
+    """``roofline()`` of the main path's solved solver, of a main-path solver
+    after one round (its chunk descends, so the kernel runs), and of qap-4096
+    incremental with 4 lanes after 2 rounds."""
+    from constraint_solver_tpu_torch.models.nqueens import make_nqueens_problem
+    from constraint_solver_tpu_torch.models.qap import QAPSpec, make_qap_problem
+    from constraint_solver_tpu_torch.parallel.population import PopulationSolver
+
+    shape = (population, main_solver.program.problem.width // n, n)
+    out = {"main_path_solved": checked_roofline(main_solver, "main path (solved)", shape)}
+    fresh = PopulationSolver(make_nqueens_problem(n), main_config(), population=population, exchange_every=2,
+                             device=device)
+    fresh.run(max_rounds=1, chunk=1)
+    out["main_path_round_1"] = checked_roofline(fresh, "main path after round 1", shape)
+    if out["main_path_round_1"]["kernels"].get("nqueens_neighborhood_scores", {}).get("calls", 0) == 0:
+        raise AssertionError("phase 12 roofline: the main path's chunk after round 1 never ran the kernel")
+    qap = PopulationSolver(make_qap_problem(QAPSpec.random(qap_n, seed=0), incremental=True), qap_config(),
+                           population=4, device=device)
+    qap.run(max_rounds=2, chunk=2)
+    out[f"qap_{qap_n}_incremental"] = checked_roofline(qap, f"qap-{qap_n} incremental P=4")
+    return out
+
+
+def phase_surface(device, main_solver, n=MAIN_N, population=MAIN_P, pmc_n=PMC_N, qap_n=4096, sizes=None) -> dict:
+    """12. The user surface on the card: the five CLIs in this process, the
+    HTTP service, a profiler trace and the roofline.  ``sizes`` overrides the
+    keyword arguments of each part (``cli_scheduling``, ``cli_diagram``,
+    ``cli_ackley``, ``serve``), for a rehearsal on the CPU."""
+    import os
+
+    sizes = sizes or {}
+    os.makedirs(SURFACE_DIR, exist_ok=True)
+    t0 = time.time()
+    out = {
+        "cli_nqueens": cli_nqueens(device, ["--board-size", str(n), "--population", str(population)], n,
+                                   "nqueens CLI"),
+        "cli_pmc": cli_nqueens(device, ["--algo", "pmc", "--board-size", str(pmc_n)], pmc_n, "PMC CLI"),
+        "cli_scheduling": cli_scheduling(device, **sizes.get("cli_scheduling", {})),
+        "cli_qap": cli_qap(device, qap_n),
+        "cli_diagram": cli_diagram(device, **sizes.get("cli_diagram", {})),
+        "cli_ackley": cli_ackley(device, **sizes.get("cli_ackley", {})),
+        "serve": phase_serve(device, **sizes.get("serve", {"nq_n": n})),
+        "trace": phase_trace(device, n, population),
+        "roofline": phase_roofline(device, main_solver, n, population, qap_n),
+    }
+    out["wall_s"] = time.time() - t0
+    log(f"phase 12: the user surface in {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     import argparse
 
@@ -1165,13 +1547,16 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     log(f"phase 1: card {card}")
+    for name, nbytes in probe_kernel_bytes().items():
+        log(f"phase 1: TPU probe {name} (bench/kernel_iso.py, not ported) at (P, A, n) = {(MAIN_P, MAIN_A, MAIN_N)}: "
+            f"{nbytes} bytes, bound {nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms")
 
     kernel = phase_kernel(device)
     if args.kernel_only:
         log(json.dumps({"kernels": [kernel]}))
         return
     phase_cross_device(device)
-    main_run = phase_main(device)
+    main_run, main_solver = phase_main(device)
     pmc_run = phase_pmc(device)
     phase_schedule_cross_device(device)
     sched = phase_schedule_bench(device)
@@ -1180,17 +1565,21 @@ def main() -> None:
     diagram = phase_diagram(device)
     phased = phase_phased(device)
     ckpt = phase_checkpoint(device)
+    surface = phase_surface(device, main_solver)
     paths = {
         "nqueens_population": main_run["launches"],
         "pmc": pmc_run["launches"],
         "checkpoint_resume": ckpt["nqueens"]["launches"],
+        "cli_nqueens": surface["cli_nqueens"]["launches"],
+        "cli_pmc": surface["cli_pmc"]["launches"],
+        "serve_nqueens": surface["serve"]["launches"],
     }
     kernel["launches"] = sum(paths.values())
     kernel["launches_by_path"] = paths
 
     log(json.dumps({
         "main_path": main_run, "pmc": pmc_run, "scheduling": sched, "qap": qap, "ackley": ackley,
-        "diagram": diagram, "phased": phased, "checkpoint": ckpt, "card": card,
+        "diagram": diagram, "phased": phased, "checkpoint": ckpt, "surface": surface, "card": card,
     }))
     log(card)
     log(json.dumps({"kernels": [kernel]}))

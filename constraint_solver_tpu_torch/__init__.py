@@ -1,8 +1,9 @@
 """constraint_solver_tpu_torch — the PyTorch and CUDA port of ``constraint_solver_tpu``.
 
 It mirrors the JAX package module for module (``core``, ``models``, ``ops``,
-``parallel``, ``utils``), so each module's reference is the file of the same
-name there.  In PyTorch's idiom:
+``parallel``, ``utils``, ``diagram``, and the user surface ``cli`` and
+``serve``), so each module's reference is the file of the same name there.
+In PyTorch's idiom:
 
 - functions take tensors batched over an explicit leading lane axis P instead
   of being ``vmap``ped, and a lane that is done is masked, not skipped;

@@ -18,7 +18,8 @@ Divergences:
 - ``Solver`` is one lane of the batched engine (P = 1); its state keeps the lane
   axis, and ``get_best_solution`` drops it.  ``save``/``load`` also carry the
   draw source's state and the host round counter (``utils/checkpoint.py``).
-  ``roofline`` is not ported yet.
+  ``roofline`` counts one chunk of rounds run on a copy of the state
+  (``utils/roofline.py``) instead of cost-analysing a compiled program.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from constraint_solver_tpu_torch.core.problem import Problem
 from constraint_solver_tpu_torch.ops.lex import lex_leq
 from constraint_solver_tpu_torch.utils.checkpoint import load_into, run_chunks, save_state
 from constraint_solver_tpu_torch.utils.draws import TorchDraws
+from constraint_solver_tpu_torch.utils.roofline import solver_roofline
 from constraint_solver_tpu_torch.utils.tree import tree_map, tree_where
 
 
@@ -297,3 +299,17 @@ class Solver:
             out["moves_per_sec"] = round(moves / self._wall)
         return out
 
+    def roofline(self, chunk: int = 2) -> dict:
+        """FLOP/s and memory rate of the measured solve against the card's
+        peaks (``utils/roofline.py``): the work of ``chunk`` rounds, counted on
+        a copy of the state, scaled by the rounds run over the solve's wall.
+        The solver's state and draw source are left as they were."""
+
+        def advance(state, base, n):
+            for i in range(n):
+                state = ils_round(
+                    self.problem, self._ls_params, self._ils_params, state, self.draws, base + 1 + i
+                )
+            return state
+
+        return solver_roofline(self, advance, chunk)

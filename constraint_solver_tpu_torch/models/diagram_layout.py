@@ -23,8 +23,6 @@ Divergences from the JAX package:
   ``torch.einsum`` in float32 over 0/1 and small-integer operands: exact in
   any summation order, as on the TPU.
 - **Draws** come from a ``Draws`` source (``utils/draws.py``).
-- ``layout_to_boxes`` and the ``diagram`` subpackage (geometry, routing, PNG)
-  are not ported yet.
 """
 
 from __future__ import annotations
@@ -234,3 +232,22 @@ def make_diagram_layout_problem(spec: DiagramLayoutSpec) -> Problem:
         perturb=perturb,
         width=n_boxes * grid * grid,
     )
+
+
+def layout_to_boxes(spec: DiagramLayoutSpec, pos, cell: float = 60.0, pad: float = 10.0):
+    """Grid layout ``pos`` [B, 2] (host numpy, as ``get_best_solution`` returns
+    it, or a tensor) → ``GeomBox`` list for the C++ visibility-graph pipeline."""
+    from constraint_solver_tpu_torch.diagram.geometry import GeomBox, Padding, Ports
+
+    sizes, _ = spec.arrays()
+    pos = pos.cpu().numpy() if isinstance(pos, torch.Tensor) else np.asarray(pos)
+    return [
+        GeomBox(
+            rect=(
+                float(x) * cell + pad, float(y) * cell + pad, float(x + w) * cell - pad, float(y + h) * cell - pad
+            ),
+            padding=Padding.uniform(pad / 2.0),
+            ports=Ports(1, 1, 1, 1),
+        )
+        for (x, y), (w, h) in zip(pos, sizes)
+    ]

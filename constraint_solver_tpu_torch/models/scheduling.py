@@ -11,7 +11,7 @@ employee``), score (hard, soft) with
   and S4 the max–min spreads of total and weekend days over employees with at
   least one day;
 
-and three proposers:
+and four proposers:
 
 - ``"random"``: a window of W random ChangeDay / SwapDays moves (1 : 4), each
   scored exactly by the 27-day region deltas (``exact_move_deltas``);
@@ -20,7 +20,11 @@ and three proposers:
 - ``"dense"``: every ChangeDay move as one [D, E] block, ``n_rand_swaps``
   unrestricted random swaps through ``exact_move_deltas``, and
   ``n_swap_offsets`` window-disjoint swap diagonals (days d and d + δ, δ ≥ 14),
-  concatenated in that order (the flat index decides first-index ties).
+  concatenated in that order (the flat index decides first-index ties);
+- ``"systematic"``: the reference's unused proposer, every day rotated through
+  its E − 1 successor employees, D·(E − 1) full candidate states [P, D(E−1), D],
+  each scored by ``score``; a move is its candidate state (``move_fp`` is the
+  candidate's fingerprint, ``apply_move`` takes the candidate).
 
 Every function takes lane-batched tensors: an assignment is int64[P, D], a
 move batch is ``SchedMoves`` of [P, W] tensors.
@@ -39,7 +43,8 @@ Divergences from the JAX package:
   does.
 - **Draws** come from a ``Draws`` source (``random_moves``, ``dense_swaps``,
   ``assignment``, ``perturb``).
-- ``proposer="systematic"`` (the reference's unused proposer) is not ported.
+- **The systematic proposer draws nothing** and calls ``draws.advance``, as
+  the other draw-free proposers do.
 """
 
 from __future__ import annotations
@@ -282,8 +287,8 @@ def make_scheduling_problem(
     """The scheduling problem of ``spec`` with the given proposer (see the module
     docstring).  Cached on its arguments; the per-device tables are built at
     first use on each device."""
-    if proposer not in ("dense", "random", "rescore"):
-        raise ValueError(f"unknown or unported proposer {proposer!r}")
+    if proposer not in ("dense", "random", "rescore", "systematic"):
+        raise ValueError(f"unknown proposer {proposer!r}")
     d_days, n_emp, w_size = spec.num_days, spec.num_employees, window_size
     f32 = torch.float32
     n_off = n_swap_offsets if d_days >= 15 else 0
@@ -675,7 +680,39 @@ def make_scheduling_problem(
         iota = torch.arange(d_days, device=assign.device)
         return torch.where(iota == d1[:, None], n1[:, None], torch.where(iota == d2[:, None], n2[:, None], assign))
 
-    if proposer == "dense":
+    def neighborhood_systematic(assign, _cur_score, draws, active):
+        """Every day rotated through its E − 1 successor employees: D·(E − 1)
+        candidate assignments per lane, each fully scored."""
+        draws.advance(active)
+        p = assign.shape[0]
+        iota_d = torch.arange(d_days, device=assign.device)
+        new_vals = (assign[:, :, None] + torch.arange(1, n_emp, device=assign.device)) % n_emp  # [P, D, E-1]
+        cands = torch.where(
+            iota_d[:, None, None] == iota_d, new_vals[..., None], assign[:, None, None, :]
+        ).reshape(p, -1, d_days)  # [P, D(E-1), D]
+        w = cands.shape[1]
+        return Neighborhood(
+            scores=score(cands.reshape(p * w, d_days)).view(p, w, 2),
+            moves=cands,
+            valid=torch.ones((p, w), dtype=torch.bool, device=assign.device),
+        )
+
+    def take_states(moves, idx):
+        """The candidate states at ``idx`` [P, ...]: [P, ..., D]."""
+        flat = idx.reshape(idx.shape[0], -1)
+        return moves.gather(1, flat[..., None].expand(-1, -1, d_days)).view(*idx.shape, d_days)
+
+    def move_fp_states(_assign, _cur_fp, moves, idx):
+        return fingerprint_i32(take_states(moves, idx))
+
+    def apply_move_states(_assign, moves, idx):
+        return take_states(moves, idx)
+
+    fp_fn, apply_fn = move_fp, apply_move
+    if proposer == "systematic":
+        nbr_fn, width = neighborhood_systematic, d_days * (n_emp - 1)
+        fp_fn, apply_fn = move_fp_states, apply_move_states
+    elif proposer == "dense":
         nbr_fn, width = neighborhood_dense, d_days * n_emp + n_off * d_days + n_rand
     else:
         nbr_fn = neighborhood if proposer == "random" else neighborhood_rescore
@@ -688,8 +725,8 @@ def make_scheduling_problem(
         is_best=is_best,
         fingerprint=fingerprint_i32,
         neighborhood=nbr_fn,
-        move_fp=move_fp,
-        apply_move=apply_move,
+        move_fp=fp_fn,
+        apply_move=apply_fn,
         perturb=_make_perturb(d_days, n_emp),
         width=width,
     )

@@ -18,7 +18,14 @@ integer in float32, so both versions are exact and equal the TPU kernel bit for 
   the diagonal tables, ``amin`` and first-index ``argmin``.
 - ``build_library`` compiles the kernel with ``nvcc`` into ``build/kernels/`` at
   the checkout's root on first use (again whenever the source is newer than the
-  library) and loads it with ``ctypes``.
+  library) and loads it with ``ctypes``.  One lock covers the build and the
+  load, so threads that reach the kernel's first use together (the server's
+  handler threads) build it once, and the temporary file is named by process
+  and thread.
+- ``kernel_work(p, a, n)`` is the work one call does by formula, (operations,
+  bytes): what ``utils/roofline.py`` counts for the call, whatever computes it
+  (the kernel's ``ctypes`` launch is invisible to a dispatch mode, and the
+  plain version's gathers are not the kernel's work).
 
 The launch plan (``_launch_plan``, a pure function of (P, A, n)): a block holds
 G ≤ 8 warps, one sampled column of one lane each, so the grid is (⌈A/G⌉, P).  G
@@ -46,10 +53,13 @@ import functools
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import NamedTuple
 
 import torch
+
+from constraint_solver_tpu_torch.utils import roofline
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "nqueens_scores.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -64,6 +74,8 @@ _SMS = 132  # streaming multiprocessors of an H100 SXM
 _SMEM_LIMIT = 232_448  # the 227 KB of shared memory one block may use on Hopper
 
 _launch_fn = None
+KERNEL_NAME = "nqueens_neighborhood_scores"
+_BUILD_LOCK = threading.Lock()  # the lazy build and load of the library
 
 
 def _nvcc() -> str:
@@ -80,10 +92,15 @@ def build_library(force: bool = False) -> str:
     is missing, older than its source, or ``force`` is set.  Returns the
     compiler's report (``-Xptxas=-v``: registers, shared memory, spills), or ""
     when the library was up to date."""
+    with _BUILD_LOCK:
+        return _build(force)
+
+
+def _build(force: bool) -> str:
     if not force and _LIB_PATH.exists() and _LIB_PATH.stat().st_mtime >= _SRC.stat().st_mtime:
         return ""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _LIB_PATH.with_name(f"{_LIB_PATH.name}.{os.getpid()}.tmp")
+    tmp = _LIB_PATH.with_name(f"{_LIB_PATH.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     proc = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)], capture_output=True, text=True
     )
@@ -97,12 +114,24 @@ def _launcher():
     """The C entry ``nqueens_scores_launch``, built and resolved once."""
     global _launch_fn
     if _launch_fn is None:
-        build_library()
-        fn = ctypes.CDLL(str(_LIB_PATH)).nqueens_scores_launch
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _launch_fn = fn
+        with _BUILD_LOCK:
+            if _launch_fn is None:
+                _build(force=False)
+                fn = ctypes.CDLL(str(_LIB_PATH)).nqueens_scores_launch
+                fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                _launch_fn = fn
     return _launch_fn
+
+
+def kernel_work(p: int, a: int, n: int) -> tuple[int, int]:
+    """(operations, bytes) of one call.  Operations: 8 float32 operations to
+    form each of the P·A·n scores (three subtractions of the own-row term, two
+    additions, the removed term, the doubling, the current total) and one
+    comparison for its row minimum.  Bytes: rc, dc, ac, c, r, removed and cur
+    read once, scores, row_min and row_arg written once, 4 bytes each."""
+    nbytes = 4 * (p * n + 2 * p * (2 * n - 1) + 3 * p * a + p + p * a * n + 2 * p * a)
+    return 9 * p * a * n, nbytes
 
 
 def _staged_floats(length: int) -> int:
@@ -195,6 +224,15 @@ def nqueens_neighborhood_scores(rc, dc, ac, c, r, removed, cur):
     all contiguous and on one device.  Returns (scores float32[P, A, n],
     row_min float32[P, A], row_arg int32[P, A])."""
     p, a, n = _check(rc, dc, ac, c, r, removed, cur)
+    count = roofline.active_count()
+    if count is not None:
+        # Counted by formula; the ops issued below are not counted.
+        with count.kernel(KERNEL_NAME, *kernel_work(p, a, n)):
+            return _scores(rc, dc, ac, c, r, removed, cur, p, a, n)
+    return _scores(rc, dc, ac, c, r, removed, cur, p, a, n)
+
+
+def _scores(rc, dc, ac, c, r, removed, cur, p: int, a: int, n: int):
     device = rc.device
     if device.type == "cpu":
         return nqueens_neighborhood_scores_ref(rc, dc, ac, c, r, removed, cur)

@@ -13,8 +13,9 @@ from the seed, or given); the round number lives on the host, because lanes run
 in lockstep, so the restart and the exchange cadence are Python branches without
 a sync.  ``save``/``load`` also carry the draw source's state and the host round
 counter (``utils/checkpoint.py``), and ``reseed_from_elites`` takes its archive
-slots from ``draws.reseed_pick``.  Not ported yet: the mesh (one device only,
-ROADMAP A16) and ``roofline``.
+slots from ``draws.reseed_pick``.  ``roofline`` counts one chunk run on a copy
+of the state (``utils/roofline.py``).  Not ported yet: the mesh (one device
+only, ROADMAP A16).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from constraint_solver_tpu_torch.core.problem import Problem
 from constraint_solver_tpu_torch.ops.lex import lex_argmin, lex_argsort
 from constraint_solver_tpu_torch.utils.checkpoint import load_into, run_chunks, save_state
 from constraint_solver_tpu_torch.utils.draws import TorchDraws
+from constraint_solver_tpu_torch.utils.roofline import solver_roofline
 from constraint_solver_tpu_torch.utils.tree import lane_where, tree_map, tree_where
 
 
@@ -260,6 +262,16 @@ class PopulationSolver:
             lambda score: bool(self.problem.is_best(score)), report if verbose else None,
             checkpoint_path, checkpoint_every,
         )
+
+    def roofline(self, chunk: int = 2) -> dict:
+        """FLOP/s and memory rate of the measured solve against the card's
+        peaks, all lanes and the gated exchange included: see
+        ``Solver.roofline``."""
+
+        def advance(state, base, n):
+            return self.program.run(state, self.draws, base, n)
+
+        return solver_roofline(self, advance, chunk)
 
     def reseed_from_elites(self) -> None:
         """Restart every lane's current solution from a random entry of its

@@ -170,5 +170,10 @@ def test_region_deltas_match_jax():
 
 
 def test_unported_proposer_raises():
-    with pytest.raises(ValueError, match="systematic"):
-        ts.make_scheduling_problem(_specs("31d7e")[1], proposer="systematic")
+    """Every proposer of the JAX package is ported (``systematic`` is held
+    against it in ``tests/test_torch_scheduling_systematic.py``); a name it does
+    not have raises."""
+    spec = _specs("31d7e")[1]
+    assert ts.make_scheduling_problem(spec, proposer="systematic").width == 31 * 6
+    with pytest.raises(ValueError, match="tabu"):
+        ts.make_scheduling_problem(spec, proposer="tabu")
