@@ -10,9 +10,10 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    card's name and power limit (``nvidia-smi``); without a CUDA device it stops
    before printing any result;
 2. holds the kernel against its plain PyTorch version on the card, bit for bit,
-   at the shapes the solver gives it and at n on both sides of the staging
-   threshold; then, at the population shape (256, 50, 1000) and PMC's (1, 1000,
-   1000), it measures the kernel's device-only ms per launch (its events in a
+   at the shapes the solvers give it (phase 13's sharded (128, 25, 1000) and
+   (64, 50, 1000) included) and at n on both sides of the staging threshold;
+   then, at the population shape (256, 50, 1000), PMC's (1, 1000, 1000) and
+   the two sharded shapes, it measures the kernel's device-only ms per launch (its events in a
    ``torch.profiler`` trace), the wrapper's host us per call (``perf_counter``
    with no sync), both over 50 calls with CUDA events, the plain version
    likewise, and the DRAM bound (bytes over 3.35 TB/s) with the share reached;
@@ -74,7 +75,30 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
     events; and ``roofline()`` of the main path's solver, of a main-path
     solver after one round and of qap-4096 incremental with 4 lanes: every
     share at most 1.05, the state unchanged, the kernel's counted bytes
-    ``kernel_bytes`` times its launches.
+    ``kernel_bytes`` times its launches;
+13. multi-device solving (``parallel/``): four ranks, spawned processes on the
+    one card with the gloo backend, every mesh over all four, each sub-phase
+    timed on every rank with its kernel launches (per shape), collectives and
+    descent iterations: (a) ``ShardedPopulationSolver`` over 2 x 2 (pop, nbr),
+    nqueens-1000 at P = 256 with ``nbr_keep=64`` (the kernel at (128, 25,
+    1000) on every rank), until zero conflicts (cancelled at ``WALL_CAP_S``):
+    the board by the numpy count, every lane's counters and fingerprints
+    rebuilt, and for a few descent iterations every gathered candidate against
+    a full rescore of its move; (b) ``PopulationSolver(mesh=)`` over pop 4, 4
+    rounds from host-side draws: every lane equal to the one-device run (the
+    kernel at (64, 50, 1000)); (c) ``SeqShardedSolver`` over 2 x 2 (pop, seq)
+    on phase 7's instance, P = 64, the window of 100, 8 rounds: the state equal
+    to the one-device random proposer's, the best equal to the date-based
+    rescore; then the sharded scorer over 4 ranks on 730 days x 40 employees
+    equal to the one-device scorer; (d) qap-1024 with ``nbr_axis``, P = 16, 4
+    rounds: the best a permutation whose carried cost is the int64 cost within
+    1e-3; (e) (a)'s configuration: 2 rounds, save (rank 0 writes), load into
+    fresh solvers, 2 more == 4 straight, and the file loaded by the one-device
+    solver gives the same best; (f) ``roofline()`` of (a)'s solved solver:
+    counted on every rank, the kernel's bytes ``kernel_bytes`` times the
+    launches summed over ranks, every share at most 1.05.  It prints the
+    backend, each rank's device and which collectives gloo takes on CUDA
+    tensors.
 
 Each path's kernel launches are counted from 0 just before it runs.  The line
 before the last is a JSON object with each kernel's measurements; the last line
@@ -99,9 +123,12 @@ QUALITY_WALL_S = 10.0
 ACKLEY_WALL_S = 60.0
 # The main and PMC shapes, small and odd ones, and n at the staging threshold
 # (11,617: the tables fill 227 KB of shared memory) and above it.
+# The shapes of phase 13's sharded paths: a rank of the 2 x 2 (pop, nbr) mesh
+# scores (P/2, A/2, n), a rank of the pop-4 mesh (P/4, A, n).
+SHARD_SHAPES = ((MAIN_P // 2, MAIN_A // 2, MAIN_N), (MAIN_P // 4, MAIN_A, MAIN_N))
 CHECK_SHAPES = (
-    (MAIN_P, MAIN_A, MAIN_N), (1, PMC_N, PMC_N), (4, 64, 64), (4, 3, 8), (8, 5, 1003), (16, 50, 1001),
-    (2, 3, 11617), (2, 3, 11620), (2, 3, 14000),
+    (MAIN_P, MAIN_A, MAIN_N), (1, PMC_N, PMC_N), *SHARD_SHAPES, (4, 64, 64), (4, 3, 8), (8, 5, 1003),
+    (16, 50, 1001), (2, 3, 11617), (2, 3, 11620), (2, 3, 14000),
 )
 TIMED_LAUNCHES = 50
 KERNEL_EVENT = "nqueens_scores"  # in the CUDA kernel's name in a profiler trace
@@ -308,6 +335,10 @@ def phase_kernel(device) -> dict:
 
     main = timed((MAIN_P, MAIN_A, MAIN_N))
     pmc = timed((1, PMC_N, PMC_N))
+    sharded = {}
+    for shape in SHARD_SHAPES:
+        sharded["x".join(map(str, shape))] = {**timed(shape), "launch_plan": list(nk._launch_plan(*shape))}
+        log(f"phase 2: launch plan at (P, A, n) = {shape}: {nk._launch_plan(*shape)}")
     main["plan_probe_ms"] = probe_plans(rng, device, (MAIN_P, MAIN_A, MAIN_N))
     pmc["plan_probe_ms"] = probe_plans(rng, device, (1, PMC_N, PMC_N))
     return {
@@ -320,6 +351,7 @@ def phase_kernel(device) -> dict:
         "bound_by": "bytes",
         "library_ms": None,
         **{f"pmc_{k}": v for k, v in pmc.items()},
+        "sharded_shapes": sharded,
     }
 
 
@@ -1519,6 +1551,339 @@ def phase_surface(device, main_solver, n=MAIN_N, population=MAIN_P, pmc_n=PMC_N,
     return out
 
 
+MULTI_WORLD = 4
+# Phase 13's sizes: the main path's width on a 2 x 2 mesh, and the other
+# sub-phases' instances (a CPU rehearsal passes smaller ones).
+MULTI_SIZES = {
+    "n": MAIN_N, "population": MAIN_P, "nbr_keep": 64, "wall_cap": WALL_CAP_S, "check_iterations": 3,
+    "pop4_rounds": 4, "seq_days": 365, "seq_emps": 20, "seq_population": 64, "seq_window": 100, "seq_rounds": 8,
+    "score_days": 730, "score_emps": 40, "score_assignments": 8, "qap_n": 1024, "qap_population": 16,
+    "qap_rounds": 4, "ckpt_rounds": 2,
+}
+MULTI_TRANSPORT = ("all_gather and ppermute travel as all_reduce SUM of zero-filled buffers "
+                   "(constraint_solver_tpu_torch/parallel/mesh.py): PyTorch lists gloo's CUDA collectives as "
+                   "broadcast and all_reduce")
+
+
+def _gloo_cuda_probe(device) -> dict:
+    """Which collectives gloo takes on this rank's device: each is tried once on
+    a small tensor (every rank the same, so a refusal is everyone's)."""
+    import torch
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    out = {}
+    x = torch.full((4,), float(dist.get_rank()), device=device)
+    for name, call in (
+        ("broadcast", lambda: dist.broadcast(x.clone(), src=0)),
+        ("all_reduce", lambda: dist.all_reduce(x.clone())),
+        ("all_gather", lambda: dist.all_gather([torch.empty_like(x) for _ in range(world)], x)),
+    ):
+        try:
+            call()
+            torch.cuda.synchronize(device)
+            out[name] = "ok"
+        except (RuntimeError, ValueError) as e:
+            out[name] = f"refused: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+def multi_rank(rank: int, world: int, sizes: dict, device: str, ckpt_path: str) -> dict:
+    """One rank of phase 13: sub-phases (a)-(f) on the meshes over all four
+    ranks; returns each sub-phase's wall, kernel launches (per shape),
+    collectives and descent iterations, and what the parent checks."""
+    import torch
+
+    from constraint_solver_tpu_torch.models.nqueens import build_state, make_nqueens_problem, total_conflicts
+    from constraint_solver_tpu_torch.models.qap import QAPSpec, make_qap_problem
+    from constraint_solver_tpu_torch.models.scheduling import make_scheduling_problem
+    from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+    from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32
+    from constraint_solver_tpu_torch.ops.lex import lex_argmin
+    from constraint_solver_tpu_torch.parallel.mesh import all_reduce, collective_calls, make_mesh, use_mesh
+    from constraint_solver_tpu_torch.parallel.population import PopulationSolver
+    from constraint_solver_tpu_torch.parallel.seq_shard import make_sharded_schedule_score
+    from constraint_solver_tpu_torch.parallel.seq_solver import SeqShardedSolver
+    from constraint_solver_tpu_torch.parallel.sharded import ShardedPopulationSolver
+    from constraint_solver_tpu_torch.utils import presets
+    from constraint_solver_tpu_torch.utils.convert import to_reference
+    from constraint_solver_tpu_torch.utils.draws import TorchDraws
+    from constraint_solver_tpu_torch.utils.tree import tree_leaves
+
+    import dataclasses
+
+    z = sizes
+    n, pop_size = z["n"], z["population"]
+    grid = make_mesh(2, 2)                      # (pop, nbr)
+    pop4 = make_mesh(4, 1)                      # (pop)
+    popseq = make_mesh(2, 2, ("pop", "seq"))
+    seq4 = make_mesh(1, 4, ("pop", "seq"))
+    out = {"rank": rank, "device": str(torch.device(device)), "card": torch.cuda.get_device_name(device)
+           if is_cuda(device) else "cpu", "sub": {}}
+
+    def sub(name, counters, fn):
+        nk.nqueens_neighborhood_scores.launches = 0
+        nk.nqueens_neighborhood_scores.shapes.clear()
+        if counters is not None:
+            counters.reset()
+        calls0 = collective_calls()
+        t0 = time.time()
+        result = fn()
+        sync(device)
+        rec = {
+            "wall_s": time.time() - t0,
+            "launches": nk.nqueens_neighborhood_scores.launches,
+            "launch_shapes": {str(k): v for k, v in nk.nqueens_neighborhood_scores.shapes.items()},
+            "collectives": collective_calls() - calls0,
+        }
+        if counters is not None:
+            rec["iterations"] = counters.calls
+            rec["collectives_per_iteration"] = rec["collectives"] / max(counters.calls, 1)
+        out["sub"][name] = rec
+        return result
+
+    def sharded_nqueens():
+        return instrument(make_nqueens_problem(n, nbr_axis="nbr", nbr_shards=2, nbr_keep=z["nbr_keep"]), device)
+
+    # (a) pop 2 x nbr 2 at the main path's width, until zero conflicts.
+    problem_a, counters_a = sharded_nqueens()
+    s = ShardedPopulationSolver(problem_a, main_config(), population=pop_size, mesh=grid, exchange_every=2,
+                                device=device)
+
+    def solve():
+        timer = threading.Timer(z["wall_cap"], s.cancel)
+        timer.start()
+        try:
+            s.run(chunk=2)
+        finally:
+            timer.cancel()
+            timer.join()
+
+    sub("a", counters_a, solve)
+    (hard, soft), best = s.get_best_solution()
+    if hard != 0:
+        raise AssertionError(f"phase 13a: not solved within {z['wall_cap']} s: best ({hard}, {soft})")
+    if rank == 0 and (attacking_pairs(best.rows) != 0 or sorted(best.rows.tolist()) != list(range(n))):
+        raise AssertionError("phase 13a: the best board has attacking queens by an independent count")
+    cur = s.state.current_state
+    for name, want in zip(("rc", "dc", "ac", "cs"), numpy_counts(cur.rows.cpu().numpy())):
+        if not np.array_equal(getattr(cur, name).cpu().numpy(), want):
+            raise AssertionError(f"phase 13a: rank {rank}: carried {name} differs from a rebuild from the boards")
+    if not torch.equal(s.state.current_fp, fingerprint_i32(cur.rows)):
+        raise AssertionError(f"phase 13a: rank {rank}: carried fingerprints differ from a full recomputation")
+    out["a"] = {"best": [hard, soft], "stats": s.stats(), "rounds": s.get_iteration_info()["current"]}
+
+    # Every gathered candidate against a full rescore of its move, along a
+    # few greedy descent iterations from random boards.
+    problem = make_nqueens_problem(n, nbr_axis="nbr", nbr_shards=2, nbr_keep=z["nbr_keep"])
+    local = s.local_population
+    draws = TorchDraws("phase13-candidates", local, device)
+    state = build_state(draws.permutation(n))
+    score = problem.score(state)
+    lane = torch.arange(local, device=state.rows.device)
+    checked = 0
+    with use_mesh(grid):
+        for _ in range(z["check_iterations"]):
+            nb = problem.neighborhood(state, score, draws, torch.ones(local, dtype=torch.bool, device=device))
+            boards = state.rows[:, None, :].repeat(1, nb.valid.shape[1], 1)
+            boards.scatter_(2, nb.moves.cols[..., None], nb.moves.rows[..., None])
+            rescored = total_conflicts(boards).to(torch.float32)
+            if not torch.equal(torch.where(nb.valid, nb.scores[..., 0], 0.0), torch.where(nb.valid, rescored, 0.0)):
+                raise AssertionError(f"phase 13a: rank {rank}: a gathered candidate's score differs from its rescore")
+            checked += int(nb.valid.sum())
+            win = lex_argmin(nb.scores, nb.valid)
+            state, score = problem.apply_move(state, nb.moves, win), nb.scores[lane, win]
+    out["a"]["candidates_checked"] = checked
+
+    # (f) roofline of (a)'s solved solver: the chunk counted on every rank.
+    before = to_reference(s.state)
+    nk.nqueens_neighborhood_scores.launches = 0
+    r = s.roofline()
+    launched = int(all_reduce(torch.tensor([nk.nqueens_neighborhood_scores.launches], device=grid.device),
+                              grid.world).item())
+    assert_tree_equal(before, to_reference(s.state))
+    kern = r["kernels"].get(nk.KERNEL_NAME, {"calls": 0, "bytes": 0})
+    shares = {k: r[k] for k in ("mfu_bf16", "mfu_f32", "hbm_frac")}
+    if not all(0.0 <= v <= 1.05 for v in shares.values()):
+        raise AssertionError(f"phase 13f: a share above 1.05: {shares}")
+    if is_cuda(device) and kern["calls"] != launched:
+        raise AssertionError(f"phase 13f: {kern['calls']} kernel calls counted, {launched} launched on the ranks")
+    shape_a = (local, problem.width // n // 2, n)
+    if kern["calls"] == 0 or kern["bytes"] != kernel_bytes(*shape_a) * kern["calls"]:
+        raise AssertionError(f"phase 13f: kernel {kern} != {kernel_bytes(*shape_a)} bytes x calls")
+    out["f"] = {k: r[k] for k in ("chip", "flops_per_sec", "hbm_bytes_per_sec", "mfu_bf16", "mfu_f32", "hbm_frac",
+                                  "flops_per_round", "hbm_bytes_per_round", "counted_from", "ranks", "cards")}
+    out["f"]["kernel"] = kern
+    out["f"]["launched"] = launched
+
+    # (b) pop 4: the one-device problem, lanes over four ranks, host draws.
+    problem_b, counters_b = instrument(make_nqueens_problem(n), device)
+    b = PopulationSolver(problem_b, main_config(), population=pop_size, exchange_every=2, mesh=pop4, device=device,
+                         draws=TorchDraws(main_config().seed, pop_size, device, draw_device="cpu"))
+    sub("b", counters_b, lambda: b.run(max_rounds=z["pop4_rounds"], chunk=2))
+    out["b"] = {"state": to_reference(b.state), "rounds": b.get_iteration_info()["current"]}
+
+    # (c) pop 2 x seq 2: the random-window scheduling solver over dated days.
+    spec, d0, hols = bench_schedule(z["seq_days"], z["seq_emps"])
+    c = SeqShardedSolver(spec, presets.scheduling_quality("phase13"), popseq, window_size=z["seq_window"],
+                         population=z["seq_population"], exchange_every=4, device=device,
+                         draws=TorchDraws("phase13", z["seq_population"], device, draw_device="cpu"))
+    problem_c, counters_c = instrument(c.problem, device)
+    c.program = dataclasses.replace(c.program, problem=problem_c)
+    sub("c", counters_c, lambda: c.run(max_rounds=z["seq_rounds"], chunk=4))
+    (hard, soft), assign = c.get_best_solution()
+    want = oracle_schedule_score(d0, assign.tolist(), hols)
+    if (hard, soft) != want:
+        raise AssertionError(f"phase 13c: best ({hard}, {soft}) != date-based rescore {want}")
+    whole = to_reference(c._dense_state(c.state))  # a collective: every rank gathers, rank 0 returns it
+    out["c"] = {"best": [hard, soft], "state": whole if rank == 0 else None}
+    spec2, _, _ = bench_schedule(z["score_days"], z["score_emps"])
+    score_fn = make_sharded_schedule_score(spec2, seq4)
+    assigns = torch.as_tensor(np.random.default_rng(13).integers(
+        0, z["score_emps"], (z["score_assignments"], z["score_days"])), device=device)
+    got = sub("c_scorer", None, lambda: score_fn(assigns))
+    if not torch.equal(got, make_scheduling_problem(spec2).score(assigns)):
+        raise AssertionError("phase 13c: the 4-rank sharded scorer differs from the one-device scorer")
+    out["c"]["scorer_scores"] = got.cpu().numpy()
+
+    # (d) QAP with its neighborhood over nbr.
+    qspec = QAPSpec.random(z["qap_n"], seed=0)
+    problem_d, counters_d = instrument(make_qap_problem(qspec, nbr_axis="nbr", nbr_shards=2), device)
+    d = ShardedPopulationSolver(problem_d, qap_config(), population=z["qap_population"], mesh=grid, device=device)
+    sub("d", counters_d, lambda: d.run(max_rounds=z["qap_rounds"], chunk=2))
+    (cost, _), perm = d.get_best_solution()
+    if sorted(perm.tolist()) != list(range(z["qap_n"])):
+        raise AssertionError("phase 13d: the recorded best is not a permutation")
+    exact = qap_host_cost(*qspec.arrays(), perm)
+    if abs(exact - cost) > 1e-3 * max(1.0, abs(exact)):
+        raise AssertionError(f"phase 13d: carried cost {cost} != int64 host cost {exact}")
+    out["d"] = {"best_carried": cost, "best_int64": exact}
+
+    # (e) (a)'s configuration: 2 rounds, save (rank 0 writes), load into a
+    # fresh solver, 2 more == 4 rounds straight.
+    problem_e, counters_e = sharded_nqueens()
+
+    def sharded():
+        return ShardedPopulationSolver(problem_e, main_config(), population=pop_size, mesh=grid, exchange_every=2,
+                                       device=device)
+
+    def resume():
+        k = z["ckpt_rounds"]
+        straight = sharded()
+        for _ in range(2 * k):
+            straight.execute_round()
+        part = sharded()
+        for _ in range(k):
+            part.execute_round()
+        part.save(ckpt_path)
+        saved_best = part.get_best_solution()
+        resumed = sharded()
+        resumed.load(ckpt_path)
+        for _ in range(k):
+            resumed.execute_round()
+        return straight, resumed, saved_best
+
+    straight, resumed, saved_best = sub("e", counters_e, resume)
+    for x, y in zip(tree_leaves(straight.state), tree_leaves(resumed.state)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"phase 13e: rank {rank}: the resumed run differs from the straight run")
+    out["e"] = {"saved_best": saved_best[0], "saved_rows": saved_best[1].rows}
+    if is_cuda(device):
+        out["gloo_cuda_ops"] = _gloo_cuda_probe(device)
+    return out
+
+
+def phase_multi(device, sizes=None) -> dict:
+    """13. Four ranks (spawned processes, gloo, every one on ``device``) run
+    ``multi_rank``; this process holds (b) and (c) against the one-device
+    solver from the same host-side draws and (e)'s file against a one-device
+    load."""
+    import os
+
+    import torch
+
+    from constraint_solver_tpu_torch.models.nqueens import make_nqueens_problem
+    from constraint_solver_tpu_torch.models.scheduling import make_scheduling_problem
+    from constraint_solver_tpu_torch.parallel import distributed
+    from constraint_solver_tpu_torch.parallel.population import PopulationSolver
+    from constraint_solver_tpu_torch.utils import presets
+    from constraint_solver_tpu_torch.utils.convert import to_reference
+    from constraint_solver_tpu_torch.utils.draws import TorchDraws
+    from constraint_solver_tpu_torch.utils.tree import tree_map
+
+    z = {**MULTI_SIZES, **(sizes or {})}
+    os.makedirs("build/checkpoints", exist_ok=True)
+    ckpt = os.path.abspath("build/checkpoints/sharded_nqueens.npz")
+    dev = str(torch.device(device))
+    log(f"phase 13: {MULTI_WORLD} ranks, backend gloo, every rank on {dev}; {MULTI_TRANSPORT}")
+    t0 = time.time()
+    # The host's cores shared out, so the ranks' host-side draws do not oversubscribe them.
+    ranks = distributed.run_ranks(multi_rank, MULTI_WORLD, (z, dev, ckpt), backend="gloo", device=dev,
+                                  timeout_s=900, threads=max(1, os.cpu_count() // MULTI_WORLD))
+    wall = time.time() - t0
+    n, p = z["n"], z["population"]
+
+    # (b): every rank's lanes == the one-device run's.
+    dense = PopulationSolver(make_nqueens_problem(n), main_config(), population=p, exchange_every=2, device=device,
+                             draws=TorchDraws(main_config().seed, p, device, draw_device="cpu"))
+    dense.run(max_rounds=z["pop4_rounds"], chunk=2)
+    want = to_reference(dense.state)
+    for r in ranks:
+        lanes = slice(r["rank"] * p // MULTI_WORLD, (r["rank"] + 1) * p // MULTI_WORLD)
+        assert_tree_equal(tree_map(lambda x: x[lanes], want), r["b"]["state"])
+    # (c): the whole (gathered) state == the one-device random-window run's.
+    spec, _, _ = bench_schedule(z["seq_days"], z["seq_emps"])
+    dense_c = PopulationSolver(make_scheduling_problem(spec, window_size=z["seq_window"], proposer="random"),
+                               presets.scheduling_quality("phase13"), population=z["seq_population"],
+                               exchange_every=4, device=device,
+                               draws=TorchDraws("phase13", z["seq_population"], device, draw_device="cpu"))
+    dense_c.run(max_rounds=z["seq_rounds"], chunk=4)
+    assert_tree_equal(to_reference(dense_c.state), ranks[0]["c"]["state"])
+    # (e): the sharded file in a one-device load gives the same global best.
+    loaded = PopulationSolver(make_nqueens_problem(n), main_config(), population=p, exchange_every=2, device=device)
+    loaded.load(ckpt)
+    (score, best) = loaded.get_best_solution()
+    if score != ranks[0]["e"]["saved_best"] or not np.array_equal(best.rows, ranks[0]["e"]["saved_rows"]):
+        raise AssertionError("phase 13e: a one-device load of the sharded file gives another best")
+
+    shapes = {"a": (p // 2, -(-(n // 20) // 2), n), "b": (p // 4, n // 20, n), "e": (p // 2, -(-(n // 20) // 2), n)}
+    for r in ranks:
+        for name, shape in shapes.items():
+            rec = r["sub"][name]
+            if is_cuda(device) and rec["launch_shapes"].get(str(shape), 0) == 0:
+                raise AssertionError(f"phase 13{name}: rank {r['rank']} never launched the kernel at {shape}: "
+                                     f"{rec['launch_shapes']}")
+    out = {"backend": "gloo", "world": MULTI_WORLD, "devices": [r["device"] for r in ranks], "wall_s": wall,
+           "transport": MULTI_TRANSPORT, "gloo_cuda_ops": ranks[0].get("gloo_cuda_ops"),
+           "sub": {name: {"wall_s": [r["sub"][name]["wall_s"] for r in ranks],
+                          "launches": [r["sub"][name]["launches"] for r in ranks],
+                          "launch_shapes": ranks[0]["sub"][name]["launch_shapes"],
+                          "collectives": [r["sub"][name]["collectives"] for r in ranks],
+                          "iterations": ranks[0]["sub"][name].get("iterations"),
+                          "collectives_per_iteration": ranks[0]["sub"][name].get("collectives_per_iteration")}
+                   for name in ranks[0]["sub"]},
+           "a": ranks[0]["a"], "c_best": ranks[0]["c"]["best"], "d": ranks[0]["d"], "f": ranks[0]["f"]}
+    for name, rec in out["sub"].items():
+        log(f"phase 13{name}: wall per rank {[round(w, 3) for w in rec['wall_s']]} s; kernel launches per rank "
+            f"{rec['launches']} at {rec['launch_shapes']}; collectives per rank {rec['collectives']}"
+            + (f"; {rec['iterations']} descent iterations, {rec['collectives_per_iteration']:.3f} collectives each"
+               if rec["iterations"] else ""))
+    log(f"phase 13a: nqueens-{n} P={p} on 2 x 2 (pop, nbr) solved {out['a']['best']} in {out['a']['rounds']} rounds; "
+        f"{out['a']['candidates_checked']} gathered candidates == full rescores; counters and fingerprints rebuilt")
+    log(f"phase 13b: pop 4 lanes == one-device run after {z['pop4_rounds']} rounds, every leaf")
+    log(f"phase 13c: pop 2 x seq 2 state == one-device random window; best {out['c_best']} == date-based rescore; "
+        f"4-rank scorer == one-device scorer on {z['score_assignments']} schedules of {z['score_days']} days")
+    log(f"phase 13d: qap-{z['qap_n']} over nbr: best {out['d']['best_carried']} (int64 {out['d']['best_int64']})")
+    log(f"phase 13e: 2 + save + load + 2 rounds == 4 straight on every rank; one-device load best {score}")
+    log(f"phase 13f: roofline of (a)'s solver over {out['f']['ranks']} ranks on {out['f']['cards']} card(s), counted "
+        f"from the {out['f']['counted_from']} state: kernel {out['f']['kernel']} (launched {out['f']['launched']}); "
+        f"mfu_f32 {out['f']['mfu_f32']:.4g}, hbm_frac {out['f']['hbm_frac']:.4g}")
+    if out["gloo_cuda_ops"]:
+        log(f"phase 13: gloo on CUDA tensors: {out['gloo_cuda_ops']}")
+    log(f"phase 13: {MULTI_WORLD} ranks (gloo, {', '.join(out['devices'])}) in {wall:.1f} s")
+    return out
+
+
 def main() -> None:
     import argparse
 
@@ -1566,6 +1931,7 @@ def main() -> None:
     phased = phase_phased(device)
     ckpt = phase_checkpoint(device)
     surface = phase_surface(device, main_solver)
+    multi = phase_multi(device)
     paths = {
         "nqueens_population": main_run["launches"],
         "pmc": pmc_run["launches"],
@@ -1573,14 +1939,18 @@ def main() -> None:
         "cli_nqueens": surface["cli_nqueens"]["launches"],
         "cli_pmc": surface["cli_pmc"]["launches"],
         "serve_nqueens": surface["serve"]["launches"],
+        "sharded_nbr": sum(multi["sub"]["a"]["launches"]),
+        "pop_sharded": sum(multi["sub"]["b"]["launches"]),
+        "sharded_checkpoint": sum(multi["sub"]["e"]["launches"]),
     }
     kernel["launches"] = sum(paths.values())
     kernel["launches_by_path"] = paths
 
     log(json.dumps({
         "main_path": main_run, "pmc": pmc_run, "scheduling": sched, "qap": qap, "ackley": ackley,
-        "diagram": diagram, "phased": phased, "checkpoint": ckpt, "surface": surface, "card": card,
-    }))
+        "diagram": diagram, "phased": phased, "checkpoint": ckpt, "surface": surface, "multi_device": multi,
+        "card": card,
+    }, default=str))
     log(card)
     log(json.dumps({"kernels": [kernel]}))
     log(json.dumps({

@@ -18,8 +18,9 @@ Divergences:
 - ``Solver`` is one lane of the batched engine (P = 1); its state keeps the lane
   axis, and ``get_best_solution`` drops it.  ``save``/``load`` also carry the
   draw source's state and the host round counter (``utils/checkpoint.py``).
-  ``roofline`` counts one chunk of rounds run on a copy of the state
-  (``utils/roofline.py``) instead of cost-analysing a compiled program.
+  ``roofline`` counts one chunk of rounds run on a copy of the state, or on a
+  fresh initial state once the lane has converged (``utils/roofline.py``),
+  instead of cost-analysing a compiled program.
 """
 
 from __future__ import annotations
@@ -302,8 +303,9 @@ class Solver:
     def roofline(self, chunk: int = 2) -> dict:
         """FLOP/s and memory rate of the measured solve against the card's
         peaks (``utils/roofline.py``): the work of ``chunk`` rounds, counted on
-        a copy of the state, scaled by the rounds run over the solve's wall.
-        The solver's state and draw source are left as they were."""
+        a copy of the state (on a fresh initial state once the lane has
+        converged), scaled by the rounds run over the solve's wall.  The
+        solver's state and draw source are left as they were."""
 
         def advance(state, base, n):
             for i in range(n):
@@ -312,4 +314,4 @@ class Solver:
                 )
             return state
 
-        return solver_roofline(self, advance, chunk)
+        return solver_roofline(self, advance, chunk, lambda: ils_init(self.problem, self.config, self.draws, -1.0))

@@ -23,7 +23,12 @@ only, as in the JAX package.
 Divergences: randomness comes from a ``Draws`` source (the noisy selection's
 Gumbel noise from ``draws.select_noise``, in the iteration's neighborhood
 draws), and ``fixed_trip`` is not needed: every loop here already has the
-masked form it asks for.
+masked form it asks for.  Under a mesh (``parallel/mesh.py``) the done check is
+world-agreed (``world_any``), the port's form of ``fixed_trip``: every rank runs
+the same number of iterations, so the neighborhood's collectives and draws stay
+matched.  The retry loop of pick-then-check needs no agreement: it draws
+nothing, and the problems that shard a neighborhood hand the engine moves that
+``move_fp`` resolves without a collective.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch
 from constraint_solver_tpu_torch.core.history import TabuRing
 from constraint_solver_tpu_torch.core.problem import Problem
 from constraint_solver_tpu_torch.ops.lex import lex_argmin, lex_less, noisy_lex_select
+from constraint_solver_tpu_torch.parallel.mesh import world_any
 from constraint_solver_tpu_torch.utils.tree import lane_where, tree_where
 
 _DONE_CHECK_EVERY = 8
@@ -182,7 +188,7 @@ def ls_execute(problem: Problem, params: LsParams, start_state, tabu: TabuRing, 
     )
     for i in range(params.max_iterations):
         active = ~c.done
-        if i % _DONE_CHECK_EVERY == 0 and not bool(active.any()):
+        if i % _DONE_CHECK_EVERY == 0 and not world_any(active):
             break
         c = tree_where(active, _step(problem, params, c, draws, active), c)
     return c.best_state, c.best_score, c.tabu, c.it, c.exhausted

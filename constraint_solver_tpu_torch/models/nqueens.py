@@ -24,9 +24,22 @@ Divergences from the JAX package:
   1.0 are exact in any order), not the TPU's one-hot reduction.
 - **Boards are int64**, PyTorch's index type (int32 in the JAX package).
 - **The block** always goes through ``ops/nqueens_kernel.py``: the CUDA kernel
-  for a CUDA tensor, its plain version on the CPU.  The JAX package's
-  ``block_impl="mxu_conv"/"mxu_toeplitz"``, ``col_sampling="approx"`` and
-  ``nbr_axis`` are not ported yet.
+  for a CUDA tensor, its plain version on the CPU, so ``use_pallas`` is
+  accepted and ignored (the tensors' device picks the kernel).  The JAX
+  package's ``col_sampling="approx"`` (``jax.lax.approx_max_k``) and
+  ``block_impl="mxu_conv"``/``"mxu_toeplitz"`` (TPU matrix-unit A/Bs of the
+  block) raise ``NotImplementedError``; an unknown ``block_impl`` raises
+  ``ValueError``, as there.
+
+The sharded neighborhood (``nbr_axis``, ``nbr_shards``, ``nbr_keep``), as in the
+JAX package: A pads up to a multiple of the shard count, every rank of the
+active mesh's ``nbr_axis`` draws the same column sample and scores its A/shards
+slice of it through the kernel, keeps its ``nbr_keep`` best flat candidates
+(``lax.top_k``'s order: the lowest index first among ties, invalid candidates
+last) and gathers (score, column, row, valid) over the axis in one collective.
+The engine gets that small list with no ``hint_idx`` or ``n_valid``, and its
+moves are explicit (``NQPairs``), so ``move_fp`` and ``apply_move`` need no
+collective.  ``width`` stays A·n.
 """
 
 from __future__ import annotations
@@ -39,6 +52,7 @@ from constraint_solver_tpu_torch.core.problem import Neighborhood, Problem
 from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32, fp_update
 from constraint_solver_tpu_torch.ops.lex import first_true, make_score
 from constraint_solver_tpu_torch.ops.nqueens_kernel import nqueens_neighborhood_scores
+from constraint_solver_tpu_torch.parallel.mesh import active_axis, gather_best
 
 
 class NQState(NamedTuple):
@@ -57,6 +71,14 @@ class NQMoves(NamedTuple):
 
     cols: torch.Tensor  # int64[P, A] sampled columns
     n: int
+
+
+class NQPairs(NamedTuple):
+    """Explicit candidate moves (the sharded neighborhood's gathered list):
+    ``idx`` moves column ``cols[idx]`` to row ``rows[idx]``."""
+
+    cols: torch.Tensor  # int64[P, W]
+    rows: torch.Tensor  # int64[P, W]
 
 
 def line_counts(rows: torch.Tensor):
@@ -120,14 +142,40 @@ def default_log_weights(board_size: int) -> torch.Tensor:
 def make_nqueens_problem(
     board_size: int,
     sample_cols: int | None = None,
+    use_pallas: bool | str = False,
+    nbr_axis: str | None = None,
+    nbr_shards: int = 1,
+    nbr_keep: int = 64,
+    col_sampling: str = "exact",
+    block_impl: str = "slice",
     log_weights=None,
 ) -> Problem:
     """Build the N-Queens problem.  ``sample_cols`` (A) is the number of
     conflicted columns sampled per proposal, ``max(1, n // 20)`` by default.
-    ``log_weights``: float32[3n] table of log(k + 1e-4), by default
-    ``default_log_weights(n)`` (see the module docstring)."""
+    ``use_pallas`` is ignored; ``col_sampling`` and ``block_impl`` take the
+    JAX package's defaults only; ``nbr_axis``/``nbr_shards``/``nbr_keep``
+    shard the neighborhood over that axis of the active mesh (see the module
+    docstring).  ``log_weights``: float32[3n] table of log(k + 1e-4), by
+    default ``default_log_weights(n)``."""
+    del use_pallas  # the tensors' device picks the kernel
+    if col_sampling == "approx":
+        raise NotImplementedError(
+            "col_sampling='approx' is jax.lax.approx_max_k, a TPU partial reduction; the port samples exactly"
+        )
+    if col_sampling != "exact":
+        raise ValueError(f"unknown col_sampling {col_sampling!r}")
+    if block_impl in ("mxu_conv", "mxu_toeplitz"):
+        raise NotImplementedError(
+            f"block_impl={block_impl!r} is a TPU matrix-unit form of the block; the port scores it with its kernel"
+        )
+    if block_impl != "slice":
+        raise ValueError(f"unknown block_impl {block_impl!r}")
     n = board_size
     a_max = sample_cols if sample_cols is not None else max(1, n // 20)
+    if nbr_axis is not None:
+        # Pad A up so every shard gets an equal slice.
+        a_max = -(-a_max // nbr_shards) * nbr_shards
+    a_local = a_max // nbr_shards
     table_cpu = (
         default_log_weights(n)
         if log_weights is None
@@ -170,14 +218,9 @@ def make_nqueens_problem(
         c = torch.sort(logits + gumbel, dim=-1, descending=True, stable=True).indices[:, :a_max]
         col_valid = torch.arange(a_max, device=device) < torch.minimum(num_cols, n_conflicted)[:, None]
 
-        r = rows.gather(1, c)
-        d = r - c + (n - 1)
-        a = r + c
-        removed = (rc.gather(1, r) - 1) + (dc.gather(1, d) - 1) + (ac.gather(1, a) - 1)
-        cand_hard, row_min, row_arg = nqueens_neighborhood_scores(
-            rc, dc, ac, c.to(torch.int32), r.to(torch.int32), removed,
-            cur_score[:, 0].contiguous(),
-        )
+        if nbr_axis is not None:
+            return sharded(state, cur_score, c, col_valid)
+        cand_hard, row_min, row_arg = block(state, cur_score, c)
 
         # First pick (Neighborhood.hint_idx): the flat first-index argmin of the
         # valid block, from the per-row minima.
@@ -194,12 +237,38 @@ def make_nqueens_problem(
             n_valid=col_valid.sum(dim=-1) * n,
         )
 
+    def block(state, cur_score, c):
+        """The kernel's (scores [P, A', n], row_min, row_arg) for sampled columns c [P, A']."""
+        rows, rc, dc, ac, _ = state
+        r = rows.gather(1, c)
+        removed = (rc.gather(1, r) - 1) + (dc.gather(1, r - c + (n - 1)) - 1) + (ac.gather(1, r + c) - 1)
+        return nqueens_neighborhood_scores(
+            rc, dc, ac, c.to(torch.int32), r.to(torch.int32), removed, cur_score[:, 0].contiguous()
+        )
+
+    def sharded(state, cur_score, c, col_valid):
+        """This rank's A/shards columns, its ``nbr_keep`` best candidates, and
+        every rank's gathered over the axis."""
+        axis = active_axis(nbr_axis, nbr_shards)
+        p = c.shape[0]
+        mine = slice(axis.index * a_local, (axis.index + 1) * a_local)
+        c, col_valid = c[:, mine].contiguous(), col_valid[:, mine]
+        hard = block(state, cur_score, c)[0].reshape(p, a_local * n)
+        valid = col_valid[:, :, None].expand(p, a_local, n).reshape(p, a_local * n)
+        hard, valid, cols, new_rows = gather_best(
+            hard, valid, min(nbr_keep, a_local * n), lambda keep: (c.gather(1, keep // n), keep % n), axis
+        )
+        return Neighborhood(scores=make_score(hard), moves=NQPairs(cols, new_rows), valid=valid)
+
     def _decode(state, moves, idx):
         """(column, old row, new row) of flat candidates idx[P, ...]."""
         flat = idx.reshape(idx.shape[0], -1)
-        col = moves.cols.gather(1, flat // moves.n)
+        if isinstance(moves, NQPairs):
+            col, new = moves.cols.gather(1, flat), moves.rows.gather(1, flat)
+        else:
+            col, new = moves.cols.gather(1, flat // moves.n), flat % moves.n
         old = state.rows.gather(1, col)
-        return col.view(idx.shape), old.view(idx.shape), idx % moves.n
+        return col.view(idx.shape), old.view(idx.shape), new.view(idx.shape)
 
     def move_fp(state, cur_fp, moves, idx):
         col, old, new = _decode(state, moves, idx)

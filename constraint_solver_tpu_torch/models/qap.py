@@ -49,9 +49,15 @@ Divergences from the JAX package:
 - ``QAPSpec`` holds numpy arrays or nested tuples; the JAX package's tuples
   exist to be hashable for its ``lru_cache`` and take seconds to build at
   n = 4096.
-- ``nbr_axis`` (the sharded neighborhood) is ROADMAP A16 and raises
-  ``NotImplementedError``; its ``nbr_shards`` and ``nbr_keep`` come with it, so
-  ``compact`` and ``incremental`` are keyword-only.
+
+The sharded neighborhood (``nbr_axis``, ``nbr_shards``, ``nbr_keep``), as in the
+JAX package: each rank of the active mesh's ``nbr_axis`` scores its n/shards
+row block of the swap-delta matrix (two [n/S, n] x [n, n] products per lane,
+the rows of H and of Hᵀ = G F), gathers the [n] diagonal of H over the axis,
+keeps its ``nbr_keep`` best swaps a < b in ``lax.top_k`` order and gathers
+(score, a, b, valid) over the axis in one collective; the moves are explicit
+(``QAPPairs``).  n must divide over the shards, and ``incremental`` excludes
+``nbr_axis`` (both ``ValueError``, as there).
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ import torch
 from constraint_solver_tpu_torch.core.problem import Neighborhood, Problem
 from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32, fp_update
 from constraint_solver_tpu_torch.ops.lex import make_score
+from constraint_solver_tpu_torch.parallel.mesh import active_axis, all_gather, gather_best
 
 
 class QAPSpec(NamedTuple):
@@ -109,6 +116,14 @@ class QAPMoves(NamedTuple):
     n: int
 
 
+class QAPPairs(NamedTuple):
+    """Explicit swaps (the sharded neighborhood's gathered list): ``idx``
+    swaps facilities ``a[idx]`` and ``b[idx]``."""
+
+    a: torch.Tensor  # int64[P, W]
+    b: torch.Tensor  # int64[P, W]
+
+
 def _check_symmetric(name: str, m: np.ndarray) -> None:
     if not np.array_equal(m, m.T) or np.any(np.diagonal(m) != 0):
         raise ValueError(f"QAP {name} matrix must be symmetric with a zero diagonal")
@@ -117,17 +132,22 @@ def _check_symmetric(name: str, m: np.ndarray) -> None:
 def make_qap_problem(
     spec: QAPSpec,
     nbr_axis: str | None = None,
-    *,
+    nbr_shards: int = 1,
+    nbr_keep: int = 64,
     compact: bool = False,
     incremental: bool = False,
 ) -> Problem:
-    """Build the QAP problem (see the module docstring for the proposers)."""
-    if nbr_axis is not None:
-        raise NotImplementedError("the sharded QAP neighborhood (nbr_axis) is not ported yet (ROADMAP A16)")
+    """Build the QAP problem (see the module docstring for the proposers and
+    the sharded neighborhood)."""
     flow_np, dist_np = spec.arrays()
     _check_symmetric("flow", flow_np)
     _check_symmetric("dist", dist_np)
     n = flow_np.shape[0]
+    if nbr_axis is not None and n % nbr_shards != 0:
+        raise ValueError(f"n={n} must divide over {nbr_shards} nbr shards")
+    if incremental and nbr_axis is not None:
+        raise ValueError("incremental excludes nbr_axis sharding")
+    rows_per = n // nbr_shards
     tables: dict[torch.device, tuple] = {}
 
     def mats(device: torch.device):
@@ -195,8 +215,35 @@ def make_qap_problem(
         g, h = gh_from_p(p)
         return row_min(cur_score, swap_deltas(h, g))
 
-    def decode(moves: QAPMoves, idx):
+    def neighborhood_sharded(p, cur_score, draws, active):
+        draws.advance(active)
+        axis = active_axis(nbr_axis, nbr_shards)
+        flow = mats(p.device)[0]
+        g = permuted_dist(p)
+        r0 = axis.index * rows_per
+        f_rows = flow[r0 : r0 + rows_per]                   # [R, n]
+        g_rows = g[:, r0 : r0 + rows_per]                   # [P, R, n]
+        h_rows = torch.matmul(f_rows, g)                    # H's rows
+        ht_rows = torch.matmul(g_rows, flow)                # Hᵀ's rows: G F, F and G symmetric
+        hd_local = (f_rows * g_rows).sum(-1)                # H[a, a] of my rows
+        hd = all_gather(hd_local, axis, dim=1)              # [P, n]
+        delta = 2.0 * (h_rows + ht_rows - hd_local[:, :, None] - hd[:, None, :] + 2.0 * f_rows * g_rows)
+        lanes = p.shape[0]
+        cand = (cur_score[:, 0, None, None] + delta).reshape(lanes, rows_per * n)
+        iota = torch.arange(n, device=p.device)
+        a_idx = (r0 + torch.arange(rows_per, device=p.device))[:, None].expand(rows_per, n).reshape(-1)
+        b_idx = iota.repeat(rows_per)
+        valid = (a_idx < b_idx).expand(lanes, -1)
+        cand, valid, a_g, b_g = gather_best(
+            cand, valid, min(nbr_keep, rows_per * n), lambda keep: (a_idx[keep], b_idx[keep]), axis
+        )
+        return Neighborhood(scores=make_score(cand), moves=QAPPairs(a_g, b_g), valid=valid)
+
+    def decode(moves, idx):
         """Facility pairs (a, b) of flat candidates idx[P, ...]."""
+        if isinstance(moves, QAPPairs):
+            flat = idx.reshape(idx.shape[0], -1)
+            return moves.a.gather(1, flat).view(idx.shape), moves.b.gather(1, flat).view(idx.shape)
         if moves.partner is None:
             return idx // n, idx % n
         flat = idx.reshape(idx.shape[0], -1)
@@ -291,13 +338,17 @@ def make_qap_problem(
             width=n * n,
         )
 
+    if nbr_axis is not None:
+        nbr_fn = neighborhood_sharded
+    else:
+        nbr_fn = neighborhood_compact if compact else neighborhood
     return Problem(
-        name=f"qap-{n}" + ("-compact" if compact else ""),
+        name=f"qap-{n}" + ("-compact" if compact and nbr_axis is None else ""),
         init=init,
         score=score,
         is_best=is_best,
         fingerprint=fingerprint_i32,
-        neighborhood=neighborhood_compact if compact else neighborhood,
+        neighborhood=nbr_fn,
         move_fp=swap_fp,
         apply_move=apply_move,
         perturb=perturb,

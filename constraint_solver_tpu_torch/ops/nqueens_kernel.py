@@ -13,7 +13,8 @@ integer in float32, so both versions are exact and equal the TPU kernel bit for 
   and contiguity in one pass, then takes the plain version for tensors on the
   CPU, and for tensors on a CUDA device launches the kernel in
   ``csrc/nqueens_scores.cu`` or raises: there is no fallback.
-  ``nqueens_neighborhood_scores.launches`` counts its kernel launches.
+  ``nqueens_neighborhood_scores.launches`` counts its kernel launches, and
+  ``.shapes`` them per (P, A, n).
 - ``nqueens_neighborhood_scores_ref`` is the plain version: windowed gathers of
   the diagonal tables, ``amin`` and first-index ``argmin``.
 - ``build_library`` compiles the kernel with ``nvcc`` into ``build/kernels/`` at
@@ -54,6 +55,7 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
 from typing import NamedTuple
 
@@ -216,6 +218,7 @@ def _launch(tensors, p: int, a: int, n: int, plan: LaunchPlan) -> None:
     if err != 0:
         raise RuntimeError(f"nqueens_scores_launch failed: cudaError_t {err} for {plan}")
     nqueens_neighborhood_scores.launches += 1
+    nqueens_neighborhood_scores.shapes[(p, a, n)] += 1
 
 
 def nqueens_neighborhood_scores(rc, dc, ac, c, r, removed, cur):
@@ -251,3 +254,4 @@ def _scores(rc, dc, ac, c, r, removed, cur, p: int, a: int, n: int):
 
 
 nqueens_neighborhood_scores.launches = 0
+nqueens_neighborhood_scores.shapes = Counter()  # launches per (P, A, n)

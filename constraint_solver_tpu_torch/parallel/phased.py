@@ -16,7 +16,10 @@ between phases; here the draws and the round counter live on the solver, so all
 phases share **one** draw source and one host round counter (a fresh source per
 phase would restart the stream from the seed at every boundary).  The state is
 made once, by phase 0's problem and configuration, as the JAX solver uses phase
-0's initial state.  ``mesh`` is not ported (ROADMAP A16).
+0's initial state.  ``mesh`` shards the lanes over its ``pop`` axis for every
+phase, as ``PopulationSolver(mesh=)`` does: the handoff passes each rank's
+share of the state from one program to the next, and every count and best is
+global.
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ from typing import NamedTuple
 
 from constraint_solver_tpu_torch.core.ils import SolverConfig, score_tuple
 from constraint_solver_tpu_torch.core.problem import Problem
-from constraint_solver_tpu_torch.parallel.population import ChunkProgram, PopulationSolver, best_score_of
-from constraint_solver_tpu_torch.utils.checkpoint import run_chunks, save_state
+from constraint_solver_tpu_torch.parallel.mesh import Mesh, use_mesh
+from constraint_solver_tpu_torch.parallel.population import ChunkProgram, PopulationSolver
+from constraint_solver_tpu_torch.utils.checkpoint import run_chunks
 
 
 class Phase(NamedTuple):
@@ -57,6 +61,7 @@ class PhasedPopulationSolver:
         cull_rank: str = "lex",
         device="cuda",
         draws=None,
+        mesh: Mesh | None = None,
     ):
         if not phases:
             raise ValueError("need at least one phase")
@@ -80,12 +85,13 @@ class PhasedPopulationSolver:
         self._base = PopulationSolver(
             phases[0].problem, phases[0].config, population, exchange_every=exchange_every,
             k_exchange=k_exchange, portfolio=portfolio, cull_frac=cull_frac, cull_rank=cull_rank,
-            device=device, draws=draws,
+            device=device, draws=draws, mesh=mesh,
         )
+        self.mesh = mesh
         self._programs = [
             ChunkProgram(
                 p.problem, p.config.ls_params(p.problem.width), p.config.ils_params(),
-                k_exchange, cull_frac, exchange_every, cull_rank,
+                k_exchange, cull_frac, exchange_every, cull_rank, mesh,
             )
             for p in phases
         ]
@@ -114,7 +120,7 @@ class PhasedPopulationSolver:
         return len(self.phases) - 1
 
     def _iters(self) -> int:
-        return int(self.state.ls_iters_total.sum())
+        return self._base.stats()["ls_iterations"]
 
     def _advance(self, n: int) -> None:
         """Run ``n`` rounds of the current phase's program; if they end the
@@ -172,11 +178,12 @@ class PhasedPopulationSolver:
                 f"phase {self._phase_index(self._round)} best score: {score_tuple(score)}"
             )
 
-        run_chunks(
-            self, total, advance, lambda: best_score_of(self.state).cpu(),
-            lambda score: bool(self.phases[self._phase_index(self._round)].problem.is_best(score)),
-            report if verbose else None, checkpoint_path, checkpoint_every,
-        )
+        with use_mesh(self.mesh):
+            run_chunks(
+                self, total, advance, lambda: self._base._best_score().cpu(),
+                lambda score: bool(self.phases[self._phase_index(self._round)].problem.is_best(score)),
+                report if verbose else None, checkpoint_path, checkpoint_every,
+            )
 
     def stats(self) -> dict:
         rounds = self._round
@@ -189,19 +196,22 @@ class PhasedPopulationSolver:
             "phase": pi,
             "ls_iterations": iters,
             "moves_evaluated": moves,
-            "tabu_retry_exhausted": int(self.state.tabu_exhausted_total.sum()),
+            "tabu_retry_exhausted": self._base.stats()["tabu_retry_exhausted"],
         }
         if self._wall > 0:
             out["moves_per_sec"] = round(moves / self._wall)
         return out
 
     def save(self, path: str) -> None:
+        """The base solver's checkpoint (rank 0 writes under a mesh) with the
+        per-phase move accounting in its metadata."""
+        base = self._base
         meta = {
-            **self._base.checkpoint_meta(),
+            **base.checkpoint_meta(),
             "phased_moves_done": self._moves_done,
             "phased_iters_at_entry": self._iters_at_entry,
         }
-        save_state(path, self.state, meta, self.draws, self._round)
+        base.save(path, meta)
 
     def load(self, path: str) -> dict:
         """Resume a ``save``d run: the phase follows from the round counter,

@@ -14,8 +14,20 @@ in lockstep, so the restart and the exchange cadence are Python branches without
 a sync.  ``save``/``load`` also carry the draw source's state and the host round
 counter (``utils/checkpoint.py``), and ``reseed_from_elites`` takes its archive
 slots from ``draws.reseed_pick``.  ``roofline`` counts one chunk run on a copy
-of the state (``utils/roofline.py``).  Not ported yet: the mesh (one device
-only, ROADMAP A16).
+of the state (``utils/roofline.py``).
+
+Under a mesh (``PopulationSolver(..., mesh=)``, ``parallel/mesh.py``) each rank
+holds ``population / n_pop`` lanes, the ones at its ``pop`` coordinate, and
+draws from a ``LaneSlice`` of the whole population's source, so a sharded run
+equals the one-device run on the same seed bit for bit.  The exchange gathers
+the lane bests and current scores over ``pop`` (one collective), takes the
+global top-k with ties to the lower global lane, gathers the k winning states
+from their owners (a second collective) and ranks the cull globally, as the
+JAX ``exchange_elites(axis=)`` does.  ``get_best_score``, ``get_best_solution``
+and ``stats`` return global values on every rank; ``save`` gathers every lane
+to rank 0, which alone writes the file, in the one-device layout, and ``load``
+reads it on every rank and keeps its lanes, so a checkpoint moves between a
+sharded and a one-device solver of the same population.
 """
 
 from __future__ import annotations
@@ -37,8 +49,17 @@ from constraint_solver_tpu_torch.core.ils import (
 from constraint_solver_tpu_torch.core.local_search import LsParams
 from constraint_solver_tpu_torch.core.problem import Problem
 from constraint_solver_tpu_torch.ops.lex import lex_argmin, lex_argsort
+from constraint_solver_tpu_torch.parallel.mesh import (
+    Axis,
+    Mesh,
+    all_gather,
+    all_gather_tree,
+    all_reduce,
+    all_reduce_tree,
+    use_mesh,
+)
 from constraint_solver_tpu_torch.utils.checkpoint import load_into, run_chunks, save_state
-from constraint_solver_tpu_torch.utils.draws import TorchDraws
+from constraint_solver_tpu_torch.utils.draws import LaneSlice, TorchDraws
 from constraint_solver_tpu_torch.utils.roofline import solver_roofline
 from constraint_solver_tpu_torch.utils.tree import lane_where, tree_map, tree_where
 
@@ -68,14 +89,27 @@ def population_init(
 
 
 def exchange_elites(
-    states: IlsState, k_exchange: int, cull_frac: float = 0.0, cull_rank: str = "lex"
+    states: IlsState, k_exchange: int, cull_frac: float = 0.0, cull_rank: str = "lex", axis: Axis | None = None
 ) -> IlsState:
     """Insert the global top-k of the lanes' bests into every lane's archive,
-    then reset the worst ``cull_frac`` of lanes to their archive best."""
+    then reset the worst ``cull_frac`` of lanes to their archive best.  With
+    ``axis`` the lanes are this rank's share of a population sharded over that
+    mesh axis: the top-k and the cull ranks are taken over every rank's lanes."""
     scores, fps, bests = states.elite.get_best()
-    top = lex_argsort(scores)[:k_exchange]  # lex_top_k's order, for any state tree
-    top_scores, top_fps, top_bests = tree_map(lambda x: x[top], (scores, fps, bests))
     p = scores.shape[0]
+    cur = states.current_score
+    index = 0
+    if axis is not None:  # every rank's lanes, in rank order
+        scores, fps, cur = all_gather_tree((scores, fps, cur), axis)
+        index = axis.index
+    top = lex_argsort(scores)[:k_exchange]  # lex_top_k's order, for any state tree
+    top_scores, top_fps = scores[top], fps[top]
+    # Each winner's state from the rank that holds its lane, zeros elsewhere.
+    mine = (top // p) == index
+    local = torch.where(mine, top % p, 0)
+    top_bests = tree_map(lambda x: lane_where(mine, x[local], torch.zeros_like(x[local])), bests)
+    if axis is not None:
+        top_bests = all_reduce_tree(top_bests, axis)
     elite = states.elite
     for i in range(top.shape[0]):
         elite = elite.insert(
@@ -85,17 +119,17 @@ def exchange_elites(
         )
     states = states._replace(elite=elite)
 
-    n_cull = int(p * cull_frac)
+    n_total = cur.shape[0]
+    n_cull = int(n_total * cull_frac)
     if cull_frac > 0.0 and n_cull > 0:
-        cur = states.current_score
         if cull_rank == "lex":
             order = lex_argsort(cur)
         elif cull_rank == "hard":
             order = torch.sort(cur[:, 0], stable=True).indices
         else:
             raise ValueError(f"unknown cull_rank {cull_rank!r}")
-        rank = torch.argsort(order)
-        cull = rank >= p - n_cull
+        rank = torch.argsort(order)[index * p : (index + 1) * p]
+        cull = rank >= n_total - n_cull
         b_score, b_fp, b_state = states.elite.get_best()
         states = states._replace(
             current_state=tree_where(cull, b_state, states.current_state),
@@ -105,16 +139,25 @@ def exchange_elites(
     return states
 
 
-def best_score_of(st: IlsState) -> torch.Tensor:
-    """The global best score [2] over all lanes' archives."""
+def pop_axis(mesh: Mesh | None) -> Axis | None:
+    """The mesh's ``pop`` axis, if it has one."""
+    return mesh.axis("pop") if mesh is not None and "pop" in mesh.axis_names else None
+
+
+def best_score_of(st: IlsState, axis: Axis | None = None) -> torch.Tensor:
+    """The global best score [2] over all lanes' archives (every rank's along
+    ``axis``)."""
     scores = st.elite.get_best()[0]
+    if axis is not None:
+        scores = all_gather(scores, axis)
     return scores[lex_argmin(scores)]
 
 
 @dataclasses.dataclass(frozen=True)
 class ChunkProgram:
     """The population's chunk of rounds (the JAX ``run_chunk`` and
-    ``run_chunk_traced``)."""
+    ``run_chunk_traced``); under ``mesh`` the rounds run with it active and the
+    exchange goes over its ``pop`` axis."""
 
     problem: Problem
     ls_params: LsParams
@@ -123,6 +166,7 @@ class ChunkProgram:
     cull_frac: float
     exchange_every: int
     cull_rank: str = "lex"
+    mesh: Mesh | None = None
 
     def _gated_exchange(self, st: IlsState, round_no: int) -> IlsState:
         """The exchange fires on the ``exchange_every`` round cadence, however
@@ -130,7 +174,7 @@ class ChunkProgram:
         if self.k_exchange <= 0:
             return st
         if self.exchange_every <= 1 or round_no % self.exchange_every == 0:
-            return exchange_elites(st, self.k_exchange, self.cull_frac, self.cull_rank)
+            return exchange_elites(st, self.k_exchange, self.cull_frac, self.cull_rank, pop_axis(self.mesh))
         return st
 
     def _round(self, st: IlsState, draws, round_no: int) -> IlsState:
@@ -138,26 +182,31 @@ class ChunkProgram:
 
     def run(self, st: IlsState, draws, base: int, n: int) -> IlsState:
         """Rounds ``base + 1 .. base + n``, then the gated exchange."""
-        for i in range(n):
-            st = self._round(st, draws, base + 1 + i)
-        return self._gated_exchange(st, base + n)
+        with use_mesh(self.mesh):
+            for i in range(n):
+                st = self._round(st, draws, base + 1 + i)
+            return self._gated_exchange(st, base + n)
 
     def run_traced(self, st: IlsState, draws, base: int, n: int):
         """Like ``run``, and also a float32[n, 3] device trace of (round,
         best hard, best soft) after every round; the trace draws nothing."""
         rows = []
-        for i in range(n):
-            st = self._round(st, draws, base + 1 + i)
-            best = best_score_of(st)
-            rows.append(torch.cat([torch.full((1,), float(base + 1 + i), device=best.device), best]))
-        return self._gated_exchange(st, base + n), torch.stack(rows)
+        with use_mesh(self.mesh):
+            for i in range(n):
+                st = self._round(st, draws, base + 1 + i)
+                best = best_score_of(st, pop_axis(self.mesh))
+                rows.append(torch.cat([torch.full((1,), float(base + 1 + i), device=best.device), best]))
+            return self._gated_exchange(st, base + n), torch.stack(rows)
 
 
 class PopulationSolver:
     """The ``Solver`` driver API over P parallel trajectories.
 
-    ``device`` defaults to the card; ``draws`` to ``TorchDraws(config.seed,
-    population, device)``."""
+    ``device`` defaults to the card.  ``draws`` defaults to
+    ``TorchDraws(config.seed, population, device)``; it may be a source for the
+    whole population or, under a mesh, one for this rank's lanes.  ``mesh``
+    shards the lanes over its ``pop`` axis (see the module docstring); every
+    rank of the mesh's world builds the solver and makes the same calls."""
 
     def __init__(
         self,
@@ -171,24 +220,36 @@ class PopulationSolver:
         cull_rank: str = "lex",
         device="cuda",
         draws=None,
+        mesh: Mesh | None = None,
     ):
         self.problem = problem
         self.config = config
         self.population = population
         self.exchange_every = exchange_every
         self.device = torch.device(device)
+        self.mesh = mesh
         self.cancelled = False
         self._wall = 0.0
         self._round = 0
-        self.draws = draws if draws is not None else TorchDraws(config.seed, population, self.device)
-        if self.draws.population != population:
-            raise ValueError(f"draws are for {self.draws.population} lanes, population is {population}")
+        pop = pop_axis(mesh)
+        n_pop = pop.size if pop is not None else 1
+        if population % n_pop:
+            raise ValueError(f"population {population} must divide over the pop axis ({n_pop} shards)")
+        self.local_population = population // n_pop
+        self._lo = (pop.index if pop is not None else 0) * self.local_population
+        lanes = slice(self._lo, self._lo + self.local_population)
+        draws = draws if draws is not None else TorchDraws(config.seed, population, self.device)
+        if draws.population == population and self.local_population < population:
+            draws = LaneSlice(draws, lanes.start, lanes.stop)
+        if draws.population != self.local_population:
+            raise ValueError(f"draws are for {draws.population} lanes, population is {population}")
+        self.draws = draws
         self.state = population_init(
-            problem, config, self.draws, portfolio_temps(population, portfolio, self.device)
+            problem, config, self.draws, portfolio_temps(population, portfolio, self.device)[lanes]
         )
         self.program = ChunkProgram(
             problem, config.ls_params(problem.width), config.ils_params(),
-            k_exchange, cull_frac, exchange_every, cull_rank,
+            k_exchange, cull_frac, exchange_every, cull_rank, mesh,
         )
 
     def execute_round(self) -> None:
@@ -209,21 +270,37 @@ class PopulationSolver:
     def get_iteration_info(self) -> dict:
         return {"current": self._round, "total": self.config.iterated_local_search_max_iterations}
 
+    def _best_score(self) -> torch.Tensor:
+        return best_score_of(self.state, pop_axis(self.mesh))
+
     def get_best_score(self) -> tuple:
-        return score_tuple(best_score_of(self.state))
+        return score_tuple(self._best_score())
+
+    def _full_state(self, state):
+        """A state tree of this rank's lanes with every position of the
+        solution (the date-sharded solver gathers its days here)."""
+        return state
 
     def get_best_solution(self):
         """Global best over all lanes' archives, as ``((hard, soft), state)``
         with the state's leaves as host numpy arrays."""
         scores, _, bests = self.state.elite.get_best()
         lane = lex_argmin(scores)
-        return score_tuple(scores[lane]), to_host(tree_map(lambda x: x[lane], bests))
+        score, best = tree_map(lambda x: x[lane][None], (scores, bests))
+        pop = pop_axis(self.mesh)
+        if pop is not None:
+            # Each rank's best, lowest lane first among ties: the global best
+            # is the first best of these in rank order.
+            score, best = all_gather_tree((score, best), pop)
+            pick = lex_argmin(score)
+            score, best = tree_map(lambda x: x[pick][None], (score, best))
+        return score_tuple(score[0]), to_host(tree_map(lambda x: x[0], self._full_state(best)))
 
     def cancel(self) -> None:
         self.cancelled = True
 
     def _solved(self) -> bool:
-        return bool(self.problem.is_best(best_score_of(self.state).cpu()))
+        return bool(self.problem.is_best(self._best_score().cpu()))
 
     def run(
         self,
@@ -237,7 +314,8 @@ class PopulationSolver:
         reads the best score once per chunk.  ``verbose`` prints the best and
         the lexicographically best current score per chunk; with
         ``checkpoint_path`` the solver saves itself every ``checkpoint_every``
-        rounds and at the end."""
+        rounds and at the end.  Under a mesh a ``cancel`` on any rank stops
+        every rank at the same chunk."""
         chunk = chunk or self.exchange_every
         total = self.config.iterated_local_search_max_iterations
         if max_rounds is not None:
@@ -257,21 +335,26 @@ class PopulationSolver:
                 f"best score: {score_tuple(score)} current score: {score_tuple(cur[lex_argmin(cur)])}"
             )
 
-        run_chunks(
-            self, total, advance, lambda: best_score_of(self.state).cpu(),
-            lambda score: bool(self.problem.is_best(score)), report if verbose else None,
-            checkpoint_path, checkpoint_every,
-        )
+        with use_mesh(self.mesh):
+            run_chunks(
+                self, total, advance, lambda: self._best_score().cpu(),
+                lambda score: bool(self.problem.is_best(score)), report if verbose else None,
+                checkpoint_path, checkpoint_every,
+            )
 
     def roofline(self, chunk: int = 2) -> dict:
         """FLOP/s and memory rate of the measured solve against the card's
         peaks, all lanes and the gated exchange included: see
-        ``Solver.roofline``."""
+        ``Solver.roofline``.  Under a mesh every rank runs the counted chunk
+        and the counts are summed over ranks."""
 
         def advance(state, base, n):
             return self.program.run(state, self.draws, base, n)
 
-        return solver_roofline(self, advance, chunk)
+        def init():
+            return population_init(self.problem, self.config, self.draws, self.state.accept_temp)
+
+        return solver_roofline(self, advance, chunk, init)
 
     def reseed_from_elites(self) -> None:
         """Restart every lane's current solution from a random entry of its
@@ -289,26 +372,51 @@ class PopulationSolver:
         """What ``load`` checks a checkpoint against."""
         return {"problem": self.problem.name, "seed": self.config.seed, "population": self.population}
 
-    def save(self, path: str) -> None:
+    def _dense_state(self, state):
+        """The whole population's state in the one-device layout (a
+        collective under a mesh)."""
+        pop = pop_axis(self.mesh)
+        return all_gather_tree(state, pop) if pop is not None else state
+
+    def _shard_state(self, state):
+        """This rank's share of a whole population's state (``_dense_state``'s
+        inverse)."""
+        lanes = slice(self._lo, self._lo + self.local_population)
+        return tree_map(lambda x: x[lanes], state)
+
+    def save(self, path: str, meta: dict | None = None) -> None:
         """Snapshot every lane's state, the draw source and the round counter
-        (``utils/checkpoint.py``)."""
-        save_state(path, self.state, self.checkpoint_meta(), self.draws, self._round)
+        (``utils/checkpoint.py``), with ``meta`` (default
+        ``checkpoint_meta()``).  Under a mesh rank 0 writes every rank's lanes
+        and the other ranks return once the file is written."""
+        if self.mesh is not None and self.local_population < self.population and not isinstance(self.draws, LaneSlice):
+            raise ValueError("a sharded checkpoint holds one draw source: give the solver one for the whole population")
+        state = self._dense_state(self.state)
+        if self.mesh is None or self.mesh.world.index == 0:
+            save_state(path, state, meta or self.checkpoint_meta(), self.draws, self._round)
+        if self.mesh is not None:
+            all_reduce(torch.zeros(1, device=self.mesh.device), self.mesh.world)  # a barrier: the file is there for load
 
     def load(self, path: str) -> dict:
         """Resume from a ``save``d checkpoint of the same problem and
-        population; returns its metadata.  Raises ``ValueError`` for another
-        problem, another population or lanes out of lockstep."""
-        return load_into(self, path, self.population)
+        population, sharded or not; returns its metadata.  Raises
+        ``ValueError`` for another problem, another population or lanes out of
+        lockstep."""
+        return load_into(self, path, self.population, self._shard_state)
 
     def stats(self) -> dict:
-        iters = int(self.state.ls_iters_total.sum())
+        totals = torch.stack([self.state.ls_iters_total.long().sum(), self.state.tabu_exhausted_total.long().sum()])
+        pop = pop_axis(self.mesh)
+        if pop is not None:
+            totals = all_reduce(totals, pop)
+        iters, exhausted = (int(x) for x in totals)
         moves = iters * self.problem.width
         out = {
             "rounds": self._round,
             "population": self.population,
             "ls_iterations": iters,
             "moves_evaluated": moves,
-            "tabu_retry_exhausted": int(self.state.tabu_exhausted_total.sum()),
+            "tabu_retry_exhausted": exhausted,
         }
         if self._wall > 0:
             out["moves_per_sec"] = round(moves / self._wall)

@@ -13,8 +13,11 @@ Divergences from the JAX package:
   port's state has no key, and the file holds the draw source's state (for
   ``TorchDraws``, the ``torch.Generator`` state) and the host round counter
   instead.  The two packages cannot read each other's checkpoints.
-- **One process only.** The JAX package's gather of globally sharded leaves
-  and its process-0 writer are multi-device (ROADMAP A16).
+- **Sharded solvers** gather every rank's lanes before ``save_state`` and
+  write from rank 0 alone, as the JAX package gathers its globally sharded
+  leaves to process 0 (``PopulationSolver.save``); ``load_into`` reads the
+  whole file on every rank and keeps the rank's share (``shard``).  The file
+  is the one-device layout either way.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from constraint_solver_tpu_torch.parallel.mesh import world_any
 from constraint_solver_tpu_torch.utils.tree import tree_leaves, tree_map
 
 _FORMAT_VERSION = 1
@@ -97,12 +101,13 @@ def load_state(path: str, example: Any) -> Checkpoint:
     return Checkpoint(state, header["meta"], draws, int(header["round"]))
 
 
-def load_into(solver, path: str, population: int) -> dict:
+def load_into(solver, path: str, population: int, shard=None) -> dict:
     """Resume ``solver`` (a ``Solver`` or ``PopulationSolver``) from a
     checkpoint of the same problem with ``population`` lanes (1 for the
     single-trajectory ``Solver``): its state, draw-source state and round
-    counter.  Returns the checkpoint's metadata.  Raises ``ValueError`` for
-    another problem, another population, or lanes out of lockstep (every lane's
+    counter; ``shard`` maps the whole state to the solver's share of it.
+    Returns the checkpoint's metadata.  Raises ``ValueError`` for another
+    problem, another population, or lanes out of lockstep (every lane's
     ``round`` must equal the host round: a hand-merged state would restart
     lanes on wrong rounds)."""
     ckpt = load_state(path, solver.state)
@@ -119,7 +124,7 @@ def load_into(solver, path: str, population: int) -> dict:
         raise ValueError(
             f"checkpoint violates the lane-lockstep round invariant (rounds {rounds}, host round {ckpt.round})"
         )
-    solver.state = ckpt.state
+    solver.state = shard(ckpt.state) if shard is not None else ckpt.state
     solver.draws.load_state_dict(ckpt.draws)
     solver._round = ckpt.round
     return meta
@@ -131,10 +136,12 @@ def run_chunks(solver, total: int, advance, best, is_best, report=None, path: st
     holds: ``advance(total)`` runs one chunk (never past ``total``), the host
     reads ``score = best()`` once, and ``report(score)`` prints it when given
     (``verbose``).  With ``path``, ``solver.save(path)`` runs every ``every``
-    rounds and at the end.  The loop's wall time adds to ``solver._wall``."""
+    rounds and at the end.  The loop's wall time adds to ``solver._wall``.
+    Under an active mesh the cancel is read over the whole world
+    (``world_any``), so every rank leaves the loop at the same chunk."""
     last_ckpt = solver._round
     t0 = time.time()
-    while not solver.cancelled and solver._round < total:
+    while solver._round < total and not world_any(torch.tensor([solver.cancelled])):
         advance(total)
         score = best()
         if report is not None:

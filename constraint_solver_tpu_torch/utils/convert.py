@@ -17,6 +17,11 @@ integer leaf in a solution's place (``current_state``, the archive's
 ``states``) is a solution; a float leaf there (an Ackley point, float32 on both
 sides) keeps its dtype.  PMC's ``PMCState`` crosses without its key.  A single
 JAX ``Solver``'s state has no lane axis: give it one first.
+
+``reference_share`` slices a JAX global state (numpy leaves) to one rank's
+share of a sharded solver: its lanes and, for the date-sharded solver, its days
+of every solution (padded with -1 past the schedule), so both sides can start
+from, or be compared on, the same state.
 """
 
 from __future__ import annotations
@@ -74,3 +79,23 @@ def to_reference(st: Any) -> Any:
         return a
 
     return conv(st, "")
+
+
+def reference_share(ref: Any, lanes: slice, days: tuple | None = None) -> Any:
+    """The lanes ``lanes`` of a JAX state tree with numpy leaves and, with
+    ``days = (start, stop, d_pad)``, days [start, stop) of every solution leaf
+    (``current_state``, the archive's ``states``) after padding it with -1 to
+    ``d_pad`` days, in the port's classes (the PRNG ``key`` has no field there)."""
+
+    def conv(node, field):
+        if hasattr(node, "_fields"):
+            cls = _CLASSES.get(type(node).__name__, type(node))
+            return cls(*(conv(getattr(node, f), f) for f in cls._fields))
+        a = np.asarray(node)[lanes]
+        if days is not None and field in ("current_state", "states"):
+            start, stop, d_pad = days
+            pad = np.full(a.shape[:-1] + (d_pad - a.shape[-1],), -1, a.dtype)
+            a = np.concatenate([a, pad], axis=-1)[..., start:stop]
+        return a
+
+    return conv(ref, "")

@@ -46,7 +46,9 @@ source that follows JAX keys advances only their keys, as ``vmap`` of a
 
 ``TorchDraws`` is the production source: one ``torch.Generator`` seeded from the
 solver's seed string; ``state_dict``/``load_state_dict`` carry its state
-through a checkpoint.  A test-only source that follows the JAX key tree exactly
+through a checkpoint.  ``LaneSlice`` keeps one rank's lanes of a source that
+draws for the whole population (the multi-device solvers).  A test-only source
+that follows the JAX key tree exactly
 lives with the tests, so that the port and the JAX package can be fed identical
 draws and whole trajectories compared.
 """
@@ -293,3 +295,93 @@ class TorchDraws:
 
     def load_state_dict(self, state: dict) -> None:
         self._gen.set_state(torch.as_tensor(state["generator"], dtype=torch.uint8).cpu())
+
+
+class LaneSlice:
+    """The draws of lanes [lo, hi) of a source that draws for the whole
+    population: the multi-device solvers' draws per rank.
+
+    Every rank draws what the whole population would and keeps its lanes, so a
+    rank's lanes see exactly the numbers a one-device run from the same seed
+    gives them (a sharded run equals the dense run bit for bit, the world-agreed
+    loops of ``parallel/mesh.py`` keeping the number of draws equal), ranks that
+    hold the same lanes (a neighborhood or date group) see identical draws, and
+    a checkpoint needs one rank's source state.  A lane-shaped argument is
+    embedded into a whole-population one whose other lanes hold a valid filler
+    (every draw of a lane depends only on that lane's arguments)."""
+
+    def __init__(self, inner, lo: int, hi: int):
+        if not 0 <= lo < hi <= inner.population:
+            raise ValueError(f"lanes [{lo}, {hi}) of a {inner.population}-lane source")
+        self.inner, self.lo, self.hi = inner, lo, hi
+        self.population = hi - lo
+        self.device = inner.device
+
+    def _whole(self, x: torch.Tensor, fill) -> torch.Tensor:
+        out = torch.full((self.inner.population, *x.shape[1:]), fill, dtype=x.dtype, device=x.device)
+        out[self.lo : self.hi] = x
+        return out
+
+    def _mine(self, out):
+        if out is None:
+            return None
+        if isinstance(out, tuple):
+            parts = [self._mine(x) for x in out]
+            return type(out)(*parts) if hasattr(out, "_fields") else tuple(parts)
+        return out[self.lo : self.hi]
+
+    def permutation(self, n: int) -> torch.Tensor:
+        return self._mine(self.inner.permutation(n))
+
+    def assignment(self, d: int, e: int) -> torch.Tensor:
+        return self._mine(self.inner.assignment(d, e))
+
+    def uniform(self, shape: tuple, lo: float, hi: float) -> torch.Tensor:
+        return self._mine(self.inner.uniform(shape, lo, hi))
+
+    def round_keys(self) -> None:
+        self.inner.round_keys()
+
+    def perturb(self, n: int, hi: torch.Tensor, values: int | None) -> PerturbDraws:
+        return self._mine(self.inner.perturb(n, self._whole(hi, 1), values))
+
+    def perturb_normal(self, n: int) -> NormalPerturbDraws:
+        return self._mine(self.inner.perturb_normal(n))
+
+    def perturb_cells(self, n: int, hi: torch.Tensor) -> CellPerturbDraws:
+        return self._mine(self.inner.perturb_cells(n, self._whole(hi, 1)))
+
+    def neighborhood(self, n: int, amount: torch.Tensor, active: torch.Tensor):
+        return self._mine(self.inner.neighborhood(n, self._whole(amount, 1), self._whole(active, False)))
+
+    def random_moves(self, w: int, d: int, e: int, active: torch.Tensor) -> RandomMoveDraws:
+        return self._mine(self.inner.random_moves(w, d, e, self._whole(active, False)))
+
+    def dense_swaps(self, n_rand: int, n_off: int, d: int, active: torch.Tensor) -> DenseSwapDraws:
+        return self._mine(self.inner.dense_swaps(n_rand, n_off, d, self._whole(active, False)))
+
+    def step(self, lo: float, hi: float, active: torch.Tensor) -> torch.Tensor:
+        return self._mine(self.inner.step(lo, hi, self._whole(active, False)))
+
+    def advance(self, active: torch.Tensor) -> None:
+        self.inner.advance(self._whole(active, False))
+
+    def select_noise(self, w: int, active: torch.Tensor) -> torch.Tensor:
+        return self._mine(self.inner.select_noise(w, self._whole(active, False)))
+
+    def accept(self, elite_valid: torch.Tensor, weights: Sequence[float]) -> AcceptDraws:
+        return self._mine(self.inner.accept(self._whole(elite_valid, True), weights))
+
+    def reseed_pick(self, elite_valid: torch.Tensor) -> torch.Tensor:
+        return self._mine(self.inner.reseed_pick(self._whole(elite_valid, True)))
+
+    def pmc_step(self, n: int, a: int, conflicted: torch.Tensor, active: torch.Tensor, sampled: bool) -> PMCDraws:
+        return self._mine(
+            self.inner.pmc_step(n, a, self._whole(conflicted, True), self._whole(active, False), sampled)
+        )
+
+    def state_dict(self) -> dict:
+        return self.inner.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self.inner.load_state_dict(state)

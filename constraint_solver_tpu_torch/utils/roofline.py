@@ -23,7 +23,16 @@ Divergences from the JAX package:
   and never runs it; ``solver_roofline`` runs one chunk on a copy of the
   solver's state, with the draw source's ``state_dict`` restored after it, and
   discards the result.  Data-dependent loops (the descent's early exit) count
-  what this chunk ran.
+  what this chunk ran.  A solved solver's lanes only count their rounds (the
+  engine skips the descent of a lane whose best ``is_best``), so when every lane
+  has converged the chunk runs from a fresh initial state drawn from the
+  solver's own source (restored after it) instead; ``counted_from`` says which
+  (``"current"`` or ``"initial"``).  The JAX cost analysis counts the program,
+  whatever the state, so it reads the same before and after a solve.
+- **Under a mesh** every rank runs the counted chunk (it holds collectives),
+  the counts are summed over the world, and the shares are taken against the
+  peaks of the distinct cards the ranks occupy (by device index, the ranks of
+  one host), with the slowest rank's wall.
 - **The peaks are those of the card the port targets**, NVIDIA's H100 SXM data
   sheet: dense BF16 tensor 989.4 TFLOP/s (``mfu_bf16``), FP32 outside the
   tensor cores 67 TFLOP/s (``mfu_f32``), HBM3 3.35 TB/s (``hbm_frac``); and a
@@ -47,6 +56,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
+from constraint_solver_tpu_torch.parallel.mesh import all_gather, all_reduce, use_mesh, world_any
 from constraint_solver_tpu_torch.utils.tree import tree_map
 
 
@@ -166,23 +176,50 @@ def roofline(
     }
 
 
-def solver_roofline(solver, advance: Callable[[Any, int, int], Any], chunk: int = 2) -> dict[str, Any]:
+def solver_roofline(solver, advance: Callable[[Any, int, int], Any], chunk: int = 2, init=None) -> dict[str, Any]:
     """Roofline of ``solver`` over its measured solve: one chunk of ``chunk``
-    rounds, ``advance(state_copy, solver._round, chunk)``, counted on a copy of
-    the solver's state (the draw source restored after it), gives the work per
-    round; the solver's executed rounds over its measured wall give the rate.
-    ``kernels`` holds each kernel's calls, operations and bytes in the chunk."""
-    state = tree_map(torch.clone, solver.state)
+    rounds, ``advance(state, base, chunk)``, counted on a copy of the solver's
+    state (the draw source restored after it), gives the work per round; the
+    solver's executed rounds over its measured wall give the rate.  When every
+    lane has converged, the chunk runs from ``init()`` (a fresh initial state
+    from the solver's draws) at round 0 instead.  ``kernels`` holds each
+    kernel's calls, operations and bytes in the chunk."""
+    mesh = getattr(solver, "mesh", None)
     saved = solver.draws.state_dict()
     try:
-        with counting() as count:
-            advance(state, solver._round, chunk)
+        with use_mesh(mesh):
+            best, _, _ = solver.state.elite.get_best()
+            done = solver.state.elite.valid.any(dim=-1) & solver.problem.is_best(best)
+            fresh = init is not None and not world_any(~done)
+            state, base = (init(), 0) if fresh else (tree_map(torch.clone, solver.state), solver._round)
+            with counting() as count:
+                advance(state, base, chunk)
     finally:
         solver.draws.load_state_dict(saved)
-    per_round_flops = count.flops / chunk
-    per_round_bytes = count.bytes / chunk
-    rounds, wall_s = solver._round, solver._wall
-    peaks = detect_peaks(solver.device)
+    names = sorted(count.kernels)
+    totals = torch.tensor(
+        [count.flops, count.bytes, solver._wall] + [count.kernels[k][f] for k in names for f in _KERNEL_FIELDS],
+        dtype=torch.float64,
+    )
+    n_cards = 1
+    if mesh is not None and mesh.world.size > 1:
+        totals = all_reduce(totals.to(mesh.device), mesh.world).cpu()
+        totals[2] = all_reduce(torch.tensor([solver._wall], dtype=torch.float64, device=mesh.device),
+                               mesh.world, "max").item()
+        dev = solver.device
+        index = torch.tensor([dev.index if dev.type == "cuda" else -1], device=mesh.device)
+        n_cards = len(set(all_gather(index, mesh.world).tolist()))
+    flops, nbytes, wall_s = (float(x) for x in totals[:3])
+    kernels = {
+        k: {f: int(totals[3 + i * len(_KERNEL_FIELDS) + j]) for j, f in enumerate(_KERNEL_FIELDS)}
+        for i, k in enumerate(names)
+    }
+    per_round_flops = flops / chunk
+    per_round_bytes = nbytes / chunk
+    rounds = solver._round
+    one = detect_peaks(solver.device)
+    peaks = ChipPeaks(one.name if n_cards == 1 else f"{n_cards}x {one.name}", one.tensor_bf16 * n_cards,
+                      one.fp32 * n_cards, one.hbm_bw * n_cards)
     out = roofline(per_round_flops, per_round_bytes, max(rounds, 1), max(wall_s, 1e-9), peaks)
     out.update(
         flops_per_round=per_round_flops,
@@ -190,9 +227,15 @@ def solver_roofline(solver, advance: Callable[[Any, int, int], Any], chunk: int 
         rounds=rounds,
         wall_s=wall_s,
         chunk=chunk,
-        kernels={name: dict(c) for name, c in count.kernels.items()},
+        counted_from="initial" if fresh else "current",
+        ranks=mesh.world.size if mesh is not None else 1,
+        cards=n_cards,
+        kernels=kernels,
     )
     return out
+
+
+_KERNEL_FIELDS = ("calls", "flops", "bytes")
 
 
 def format_roofline(r: dict[str, Any]) -> str:

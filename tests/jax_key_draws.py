@@ -229,6 +229,14 @@ class JaxKeyDraws:
         self._perturb_key = self._ls_key = self._elite_key = self._accept_key = None
         self._nb_key = None  # the current descent iteration's k_nb
 
+    @classmethod
+    def lanes(cls, lane_key_data: np.ndarray, lo: int, hi: int, device="cpu") -> "JaxKeyDraws":
+        """The source of lanes [lo, hi) of a population whose per-lane keys
+        have the key data ``lane_key_data`` (``jax.random.key_data`` of
+        ``split(seed_key, P)``, as numpy): one rank's lanes of a sharded
+        solver, which draws from the keys the JAX sharded solver gives them."""
+        return cls(jax.random.wrap_key_data(jnp.asarray(lane_key_data[lo:hi])), device)
+
     def _i64(self, x):
         return _t(x, self.device, torch.int64)
 

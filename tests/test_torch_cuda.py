@@ -14,7 +14,10 @@ caller), the dense scheduling block, QAP in its three modes and the diagram
 layout.  The incremental QAP state must stay exact on the card.  The user
 surface runs on the card too: the nqueens CLI launches the kernel, the HTTP
 service answers a round, the roofline counts the kernel's launches, and
-threads that reach the kernel's first use together build it once."""
+threads that reach the kernel's first use together build it once.  Two gloo
+ranks sharing the card run the pop- and nbr-sharded N-Queens solves, equal to
+the same sharded solves on the CPU (the rank bodies are in
+``tests/torch_ranks.py``)."""
 
 import datetime
 
@@ -301,3 +304,17 @@ def test_cuda_concurrent_first_use_builds_once(cuda, tmp_path, monkeypatch):
     assert len(compiles) == 1 and len(got) == 4
     for out in got:
         assert all(torch.equal(w, g) for w, g in zip(want, out))
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_solves_equal_cpu(cuda, tmp_path):
+    import torch_ranks
+
+    ranks = torch_ranks.spawn(torch_ranks.cuda_sharded_body, 2, tmp_path, 48, 8, device="cuda:0")
+    for out in ranks:
+        for name in ("pop", "nbr"):
+            card, cpu = out[(name, "cuda")], out[(name, "cpu")]
+            np.testing.assert_array_equal(card["traces"], cpu["traces"])
+            for want, got in zip(torch_ranks.tree_leaves_np(cpu["state"]), torch_ranks.tree_leaves_np(card["state"])):
+                np.testing.assert_array_equal(got, want)
+            assert card["launches"] > 0 and cpu["launches"] == 0

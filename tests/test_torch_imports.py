@@ -58,5 +58,29 @@ def test_port_and_smoke_import_without_jax():
                  "constraint_solver_tpu_torch.diagram.geometry", "constraint_solver_tpu_torch.diagram.route",
                  "constraint_solver_tpu_torch.diagram.png", "constraint_solver_tpu_torch.utils.roofline",
                  "constraint_solver_tpu_torch.utils.profiling", "constraint_solver_tpu_torch.utils.printing",
-                 "chip_smoke"):
+                 "constraint_solver_tpu_torch.parallel.mesh", "constraint_solver_tpu_torch.parallel.distributed",
+                 "constraint_solver_tpu_torch.parallel.sharded", "constraint_solver_tpu_torch.parallel.seq_shard",
+                 "constraint_solver_tpu_torch.parallel.seq_solver", "chip_smoke"):
         assert name in out["names"]
+
+
+def test_multi_device_layer_and_smoke_name_no_jax():
+    """No import statement in ``parallel/`` or ``chip_smoke.py`` names JAX or
+    the JAX package, at any depth (a function-level import included)."""
+    import ast
+    import glob
+
+    files = glob.glob(os.path.join(REPO, "constraint_solver_tpu_torch", "parallel", "*.py"))
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(files) >= 8
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                roots = [(node.module or "").split(".")[0]]
+            else:
+                continue
+            assert not set(roots) & {"jax", "jaxlib", "constraint_solver_tpu"}, (path, node.lineno)

@@ -231,3 +231,40 @@ def test_perturb_and_init_match_jax(n):
     got_init = to_reference(tp.init(draws))
     for f in want_init._fields:
         _assert_equal(getattr(want_init, f), getattr(got_init, f))
+
+
+def test_factory_takes_the_jax_keywords():
+    """``use_pallas`` is accepted and ignored (the tensors' device picks the
+    kernel); the TPU-only ``col_sampling="approx"`` and ``block_impl`` forms
+    raise ``NotImplementedError``, an unknown ``block_impl`` ``ValueError``, as
+    the JAX package does; the defaults are the JAX package's."""
+    n = 12
+    weights = reference_log_weights(n)
+    plain = tnq.make_nqueens_problem(n, log_weights=weights)
+    for kw in ({"use_pallas": True}, {"use_pallas": "interpret"},
+               {"col_sampling": "exact", "block_impl": "slice", "use_pallas": False}):
+        problem = tnq.make_nqueens_problem(n, log_weights=weights, **kw)
+        rows = torch.from_numpy(_boards(np.random.default_rng(0), 3, n)).long()
+        state = tnq.build_state(rows)
+        draws_a, draws_b = (JaxKeyDraws(jax.random.split(jax.random.key(1), 3)) for _ in range(2))
+        for d in (draws_a, draws_b):
+            d.round_keys()
+        on = torch.ones(3, dtype=torch.bool)
+        a = problem.neighborhood(state, problem.score(state), draws_a, on)
+        b = plain.neighborhood(state, plain.score(state), draws_b, on)
+        assert torch.equal(a.scores, b.scores) and torch.equal(a.hint_idx, b.hint_idx)
+    with pytest.raises(NotImplementedError, match="approx_max_k"):
+        tnq.make_nqueens_problem(n, col_sampling="approx")
+    for impl in ("mxu_conv", "mxu_toeplitz"):
+        with pytest.raises(NotImplementedError, match=impl):
+            tnq.make_nqueens_problem(n, block_impl=impl)
+    with pytest.raises(ValueError, match="unknown block_impl 'gather'"):
+        tnq.make_nqueens_problem(n, block_impl="gather")
+    with pytest.raises(ValueError, match="unknown block_impl 'gather'"):  # the JAX package's error
+        jax.vmap(lambda r: jnq.make_nqueens_problem(n, block_impl="gather").neighborhood(
+            jnq.build_state(r), jnp.zeros(2), jax.random.key(0)))(jnp.zeros((1, n), jnp.int32))
+    import inspect
+
+    jax_defaults = {k: v.default for k, v in inspect.signature(jnq.make_nqueens_problem).parameters.items()}
+    port_defaults = {k: v.default for k, v in inspect.signature(tnq.make_nqueens_problem).parameters.items()}
+    assert {k: port_defaults[k] for k in jax_defaults} == jax_defaults

@@ -125,6 +125,28 @@ def test_roofline_leaves_the_solver_as_it_was(cls):
     assert_tree_equal(to_reference(twin.state), to_reference(solver.state))
 
 
+@pytest.mark.parametrize("cls", [Solver, PopulationSolver], ids=["Solver", "PopulationSolver"])
+def test_roofline_of_a_solved_solver_counts_from_an_initial_state(cls):
+    """Once every lane has converged the engine skips their descents, so the
+    chunk is counted from a fresh initial state drawn from the solver's own
+    source: the kernel is counted, and the solver's state and draw source are
+    left as they were."""
+    problem = make_nqueens_problem(8)
+    config = SolverConfig(seed="solved", local_search_max_iterations=50, best_solutions_capacity=4,
+                          all_solutions_capacity=32)
+    solver = (Solver(problem, config, device="cpu") if cls is Solver
+              else PopulationSolver(problem, config, population=2, device="cpu", exchange_every=1))
+    solver.run(max_rounds=200, chunk=1)
+    assert solver.get_best_score() == (0.0, 0.0)
+    solver.run(max_rounds=2, chunk=1)  # the converged rounds
+    before, gen = to_reference(solver.state), solver.draws.state_dict()["generator"].clone()
+    r = solver.roofline(chunk=2)
+    assert r["counted_from"] == "initial"
+    assert r["kernels"][nk.KERNEL_NAME]["calls"] > 0
+    assert_tree_equal(before, to_reference(solver.state))
+    assert torch.equal(gen, solver.draws.state_dict()["generator"])
+
+
 def test_peaks_are_the_h100s():
     assert rl.PEAKS["h100"] == rl.ChipPeaks("h100-sxm", 989.4e12, 67e12, 3.35e12)
     assert rl.detect_peaks("cpu") is rl.PEAKS["cpu"]

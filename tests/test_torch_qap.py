@@ -206,8 +206,12 @@ def test_asymmetric_or_nonzero_diagonal_is_rejected():
         tq.make_qap_problem(tq.QAPSpec(flow, skew))
     with pytest.raises(ValueError, match="diagonal"):
         tq.make_qap_problem(tq.QAPSpec(flow + np.eye(4), dist))
-    with pytest.raises(NotImplementedError, match="A16"):
-        tq.make_qap_problem(tq.QAPSpec(flow, dist), nbr_axis="nbr")
+    # The sharded neighborhood's errors, the JAX package's.
+    for make, spec in ((tq.make_qap_problem, tq.QAPSpec(flow, dist)), (jq.make_qap_problem, jq.QAPSpec.random(4))):
+        with pytest.raises(ValueError, match="must divide over 3 nbr shards"):
+            make(spec, nbr_axis="nbr", nbr_shards=3)
+        with pytest.raises(ValueError, match="incremental excludes nbr_axis"):
+            make(spec, nbr_axis="nbr", nbr_shards=2, incremental=True)
 
 
 @pytest.mark.parametrize("mode", list(MODES))
@@ -274,3 +278,41 @@ def test_population_trajectory_matches_jax(mode, extra):
     assert_tree_equal(jsolver.state, to_reference(from_reference(jsolver.state, "cpu")))
     back = from_reference(to_reference(tsolver.state), "cpu")
     assert_tree_equal(to_reference(tsolver.state), to_reference(back))
+
+
+def test_sharded_neighborhood_and_population_equal_jax_nbr_axis(tmp_path):
+    """The sharded neighborhood (``nbr_axis``) of qap-16 over two gloo ranks
+    equals the JAX one under ``shard_map`` on two devices: every gathered
+    score, swap and validity flag; and 4 rounds of a sharded population of 4
+    lanes from the JAX lane keys equal the JAX ``ShardedPopulationSolver``."""
+    from jax.sharding import PartitionSpec
+
+    from constraint_solver_tpu.parallel.mesh import make_mesh as j_mesh
+    from constraint_solver_tpu.parallel.sharded import ShardedPopulationSolver as JSharded
+
+    import torch_ranks
+
+    n, p = 16, 4
+    perms = _perms(np.random.default_rng(5), 3, n)
+    mesh = j_mesh(n_pop=1, n_nbr=2)
+    jax.set_mesh(mesh)
+    jp = jq.make_qap_problem(jq.QAPSpec.random(n, seed=0), nbr_axis="nbr", nbr_shards=2, nbr_keep=16)
+
+    def nbr(perms):
+        return jax.vmap(lambda q: jp.neighborhood(q, jp.score(q), jax.random.key(0)))(perms)
+
+    want = jax.jit(jax.shard_map(nbr, mesh=mesh, in_specs=PartitionSpec(), out_specs=PartitionSpec(),
+                                 check_vma=False))(jnp.asarray(perms, jnp.int32))
+    keys = jax.random.split(seed_string_to_key("qap-nbr"), p)
+    js = JSharded(jp, JConfig(**torch_ranks.qap_config()), population=p, mesh=mesh, exchange_every=2)
+    for _ in range(4):
+        js.execute_round()
+    ranks = torch_ranks.spawn(torch_ranks.qap_body, 2, tmp_path, n, perms,
+                              np.asarray(jax.random.key_data(keys)))
+    for out in ranks:
+        np.testing.assert_array_equal(out["scores"], np.asarray(want.scores))
+        np.testing.assert_array_equal(out["a"], np.asarray(want.moves[0]))
+        np.testing.assert_array_equal(out["b"], np.asarray(want.moves[1]))
+        np.testing.assert_array_equal(out["valid"], np.asarray(want.valid))
+        assert_tree_equal(jax.device_get(js.state), out["state"])
+        assert out["best"][0] == js.get_best_solution()[0]
