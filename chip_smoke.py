@@ -2,13 +2,14 @@
 """Smoke run of the PyTorch port (``constraint_solver_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py                # every phase
-    python3 chip_smoke.py --kernel-only  # phases 1 and 2, no result line
+    python3 chip_smoke.py --kernel-only  # phases 1, 2 and 2b, no result line
 
 Phases, each printing its own lines; any failure raises and exits nonzero:
 
-1. builds the CUDA kernel from ``constraint_solver_tpu_torch/csrc`` and prints the
-   card's name and power limit (``nvidia-smi``); without a CUDA device it stops
-   before printing any result;
+1. builds the two CUDA libraries from ``constraint_solver_tpu_torch/csrc``
+   (``nqueens_scores.cu`` and ``nqueens_probes.cu``, one ``nvcc`` each, started
+   together) and prints the card's name and power limit (``nvidia-smi``);
+   without a CUDA device it stops before printing any result;
 2. holds the kernel against its plain PyTorch version on the card, bit for bit,
    at the shapes the solvers give it (phase 13's sharded (128, 25, 1000) and
    (64, 50, 1000) included) and at n on both sides of the staging threshold;
@@ -19,6 +20,16 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    likewise, and the DRAM bound (bytes over 3.35 TB/s) with the share reached;
    and the device-only time of variants of the kernel's launch plan, each held
    against the plain version;
+2b. the five probe kernels of ``bench/kernel_iso.py`` (``ops/nqueens_probes.py``)
+   at the harness's (256, 50, 1000) and at (16, 819, 16384): each equal to its
+   plain version bit for bit on the whole padded block, min and argmin; its
+   device-only ms, wrapper ms and host us, the plain version's ms, the bound and
+   the share; at n = 16384 the staged int16 and packed probes also with their
+   tables read from global memory and with 16 and 32 columns per block, and B1
+   timed and held equal to the min probes; then the ported harness's
+   ``main(["--packed", "--i16", "--mxu"])`` with the probes' launch counts from
+   0: each arm's ms/iter, and every probe arm's sums equal to the plain slice
+   block's;
 3. runs a few rounds of nqueens-64 with 8 lanes on the card and on the CPU from
    the same host-side draws, in both tabu modes: the states must be equal;
 4. drives the main path, ``PopulationSolver(make_nqueens_problem(1000), ...,
@@ -133,6 +144,14 @@ CHECK_SHAPES = (
 TIMED_LAUNCHES = 50
 KERNEL_EVENT = "nqueens_scores"  # in the CUDA kernel's name in a profiler trace
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+# Phase 2b: the probe harness's default shape (n = 1000 padded to 1024), and
+# n = 16384 at 16 lanes with the harness's A = n // 20, where the float32 tables
+# no longer fit a block's shared memory and the int16 and packed ones do; timed
+# launches of the wrapper and of the plain version (several GB a call there).
+PROBE_SHAPES = ((MAIN_P, MAIN_A, MAIN_N), (16, 819, 16384))
+PROBE_LAUNCHES = {PROBE_SHAPES[0]: (TIMED_LAUNCHES, 20), PROBE_SHAPES[1]: (20, 3)}
+HARNESS_ARGV = ["--packed", "--i16", "--mxu"]  # the ported harness at its default n, P and K
 
 
 def log(msg: str) -> None:
@@ -180,11 +199,11 @@ def time_ms(fn, args, launches: int) -> float:
     return start.elapsed_time(stop) / launches
 
 
-def device_ms(fn, args, launches: int) -> tuple[float, str]:
-    """The kernel's device-only ms per launch: its own events in a
-    ``torch.profiler`` trace of ``launches`` calls or, where the trace holds
-    none, the replay of a CUDA graph of the calls timed with CUDA events.
-    Returns (ms, the source of the number)."""
+def device_ms(fn, args, launches: int, event: str = KERNEL_EVENT) -> tuple[float, str]:
+    """The kernel's device-only ms per launch: its own events (``event`` in
+    their name) in a ``torch.profiler`` trace of ``launches`` calls or, where
+    the trace holds none, the replay of a CUDA graph of the calls timed with
+    CUDA events.  Returns (ms, the source of the number)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -195,7 +214,7 @@ def device_ms(fn, args, launches: int) -> tuple[float, str]:
         torch.cuda.synchronize()
     us = [
         e.time_range.elapsed_us() for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA and KERNEL_EVENT in e.name
+        if e.device_type == torch.autograd.DeviceType.CUDA and event in e.name
     ]
     if len(us) == launches:
         return sum(us) / 1e3 / launches, "profiler"
@@ -232,27 +251,6 @@ def kernel_bound_ms(p: int, a: int, n: int) -> float:
     float32 operations per score (P·A·n·10 over 67 TFLOP/s) take a tenth of
     that, so bytes bound it."""
     return kernel_bytes(p, a, n) / HBM_BYTES_PER_S * 1e3
-
-
-def probe_kernel_bytes(p=MAIN_P, a=MAIN_A, n=MAIN_N) -> dict:
-    """Bytes each TPU probe kernel of ``bench/kernel_iso.py`` must move at its
-    default shape (P lanes, A columns, n rows padded to a multiple of 128),
-    each input read once and each output written once: the scores [A, n_pad]
-    in float32, the rc, dc and ac tables (float32 or int16; the packed probe
-    holds dc and ac in one int32 table), c, r and removed, cur, and the row
-    min and argmin where the probe writes them.  Those probes stay with the
-    benchmark folder; this gives their bounds."""
-    n_pad = -(-n // 128) * 128
-    scores, scalars, row_min = 4 * a * n_pad, 4 * (3 * a + 1), 8 * a
-    f32_tables, i16_tables = 4 * (n_pad + 4 * n_pad), 2 * (n_pad + 4 * n_pad)
-    per_lane = {
-        "_kern_packed": scores + 4 * n_pad + 4 * 2 * n_pad + scalars + row_min,
-        "_kern_base": scores + f32_tables + scalars,
-        "_kern_noroll": scores + f32_tables + scalars,
-        "_kern_i16": scores + i16_tables + scalars,
-        "_kern_i16min": scores + i16_tables + scalars + row_min,
-    }
-    return {name: p * b for name, b in per_lane.items()}
 
 
 def probe_plans(rng, device, shape) -> dict:
@@ -353,6 +351,179 @@ def phase_kernel(device) -> dict:
         **{f"pmc_{k}": v for k, v in pmc.items()},
         "sharded_shapes": sharded,
     }
+
+
+def probe_bound(name: str, shape) -> tuple[float, str]:
+    """A probe's least time on the card, ms: the larger of its bytes over the
+    HBM rate and its operations over the float32 rate (``probe_work``), and
+    which of the two it is."""
+    from constraint_solver_tpu_torch.ops import nqueens_probes as npr
+
+    ops, nbytes = npr.probe_work(name, *shape)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def assert_outputs_equal(want, got, what: str) -> None:
+    import torch
+
+    for i, (w, g) in enumerate(zip(want, got, strict=True)):
+        if w.shape != g.shape or w.dtype != g.dtype or not torch.equal(w, g):
+            raise AssertionError(
+                f"{what}: output {i} differs ({tuple(w.shape)} {w.dtype} vs {tuple(g.shape)} {g.dtype})"
+            )
+
+
+def time_probe(name: str, args, shape, launches: int, plain_launches: int) -> dict:
+    """One probe at one shape: CUDA-event ms of its wrapper and of its plain
+    version in turns (plain, kernel, kernel, plain), device-only ms from its
+    profiler events, the wrapper's host us, the bound and the share."""
+    from constraint_solver_tpu_torch.ops import nqueens_probes as npr
+
+    kern, plain = npr.WRAPPERS[name], npr.REFS[name]
+    time_ms(kern, args, 3)  # warm-up
+    plain_ms = [time_ms(plain, args, plain_launches)]
+    kern_ms = [time_ms(kern, args, launches) for _ in range(2)]
+    plain_ms.append(time_ms(plain, args, plain_launches))
+    dev, how = device_ms(kern, args, launches, npr.PROBES[name].event)
+    host = min(host_us(kern, args, launches) for _ in range(2))
+    bound, by = probe_bound(name, shape)
+    plan = npr.launch_plan(name, *shape)
+    log(
+        f"phase 2b: {name} at (P, A, n) = {shape}: device-only {dev:.6f} ms per launch ({how}); wrapper "
+        f"{kern_ms} ms, plain {plain_ms} ms (CUDA events, {launches} / {plain_launches} calls); host "
+        f"{host:.1f} us per call; bound {bound:.6f} ms by {by} ({npr.probe_work(name, *shape)[1]} bytes), "
+        f"share {bound / dev:.3f}; plan {tuple(plan)}"
+    )
+    return {
+        "ms": sum(kern_ms) / 2, "plain_ms": sum(plain_ms) / 2, "device_ms": dev, "host_us": host,
+        "bound_ms": bound, "bound_by": by, "bound_share": bound / dev, "launch_plan": list(plan),
+    }
+
+
+def probe_plan_variants(name: str, args, shape, want) -> dict:
+    """Device-only ms of a staged probe under variants of its plan, each held
+    against the plain version: its tables read from global memory, and 16 or
+    32 columns per block (one block per SM holds more warps)."""
+    import torch
+
+    from constraint_solver_tpu_torch.ops import nqueens_probes as npr
+
+    p, a, n = shape
+    rc, dc, ac, c, r, removed, cur = args
+    plan = npr.launch_plan(name, *shape)
+    variants = {"tables from global memory": plan._replace(staged=False, smem_bytes=0)}
+    for g in (16, 32):
+        variants[f"{g} columns per block"] = plan._replace(cols_per_block=g, grid=(-(-a // g), p))
+    tables = npr.prepare_tables(npr.PROBES[name].table, rc, dc, ac)
+    out = {}
+    for label, variant in variants.items():
+        outs = tuple(torch.empty_like(w) for w in want)
+
+        def call(variant=variant, outs=outs):
+            npr._launch(name, tables, c, r, removed, cur, outs, p, a, n, variant)
+
+        call()
+        torch.cuda.synchronize()
+        assert_outputs_equal(want, outs, f"{name} under {variant} at {shape}")
+        out[label], _ = device_ms(call, (), PROBE_LAUNCHES[shape][0], npr.PROBES[name].event)
+        log(f"phase 2b: {name} at (P, A, n) = {shape}, {label} {tuple(variant)}: device-only {out[label]:.6f} ms")
+    return out
+
+
+def phase_probes(device) -> tuple[list, dict]:
+    """Phase 2b: the five probe kernels of ``bench/kernel_iso.py``.  Returns
+    their entries of the kernels line and B1's numbers at the large shape."""
+    import torch
+
+    from constraint_solver_tpu_torch.bench import kernel_iso
+    from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+    from constraint_solver_tpu_torch.ops import nqueens_probes as npr
+
+    t0 = time.time()
+    rng = np.random.default_rng(2)
+    per = {name: {"max_abs_err": 0.0} for name in npr.PROBES}
+    b1 = {}
+    for shape in PROBE_SHAPES:
+        args = kernel_inputs(rng, *shape, device)
+        outs = {}
+        for name in npr.PROBES:
+            got = npr.WRAPPERS[name](*args)
+            torch.cuda.synchronize()
+            want = npr.REFS[name](*args)
+            assert_outputs_equal(want, got, f"{name} != its plain version at {shape}")
+            per[name]["max_abs_err"] = max(per[name]["max_abs_err"], float((got[0] - want[0]).abs().max()))
+            log(f"phase 2b: {name} == plain version bit for bit at (P, A, n) = {shape}, n_pad {npr.padded(shape[2])}")
+            outs[name] = got
+            per[name][shape] = time_probe(name, args, shape, *PROBE_LAUNCHES[shape])
+            if npr.launch_plan(name, *shape).staged and shape != PROBE_SHAPES[0]:
+                per[name][shape]["plan_probe_ms"] = probe_plan_variants(name, args, shape, want)
+            del want
+        if shape == PROBE_SHAPES[0]:
+            # rc of 4s, dc and ac of 2s: every valid column's three terms sum to at
+            # least 5, a padding column's (rc 0 there) to at most 4, so only the
+            # kernels' masks keep the padding out of the min.
+            twos = tuple(torch.full_like(t, v) for t, v in zip(args[:3], (4.0, 2.0, 2.0)))
+            for name in ("kern_i16min", "kern_packed"):
+                got = npr.WRAPPERS[name](*twos, *args[3:])
+                assert_outputs_equal(npr.REFS[name](*twos, *args[3:]), got, f"{name} on constant tables at {shape}")
+                if not bool((got[0].amin(dim=-1) < got[1]).all()):
+                    raise AssertionError(f"{name}: the padding columns do not test the row-min mask")
+            log(f"phase 2b: kern_i16min and kern_packed skip the padding columns in the row min at {shape}")
+        if shape[2] == npr.padded(shape[2]):
+            # B1 computes B2d's and B2e's function where n = n_pad: the like-for-like yardstick.
+            got = nk.nqueens_neighborhood_scores(*args)
+            for name in ("kern_i16min", "kern_packed"):
+                assert_outputs_equal(got, outs[name], f"B1 != {name} at {shape}")
+            dev, how = device_ms(nk.nqueens_neighborhood_scores, args, PROBE_LAUNCHES[shape][0])
+            host = min(host_us(nk.nqueens_neighborhood_scores, args, PROBE_LAUNCHES[shape][0]) for _ in range(2))
+            bound = kernel_bound_ms(*shape)
+            b1[shape] = {"device_ms": dev, "host_us": host, "bound_ms": bound, "bound_share": bound / dev,
+                         "launch_plan": list(nk._launch_plan(*shape))}
+            log(f"phase 2b: B1 (nqueens_neighborhood_scores) == kern_i16min == kern_packed at (P, A, n) = {shape}; "
+                f"device-only {dev:.6f} ms ({how}), host {host:.1f} us, bound {bound:.6f} ms "
+                f"({kernel_bytes(*shape)} bytes), share {bound / dev:.3f}, plan {nk._launch_plan(*shape)}")
+        del args, outs
+        torch.cuda.empty_cache()
+
+    # The harness's path: every probe's count from 0 just before it, read just after.
+    for fn in npr.WRAPPERS.values():
+        fn.launches = 0
+    t1 = time.time()
+    iso = kernel_iso.main(HARNESS_ARGV)
+    launches = {name: fn.launches for name, fn in npr.WRAPPERS.items()}
+    want = iso["arms"]["torch slice block"]["acc"]
+    for arm, res in iso["arms"].items():
+        same = bool(torch.equal(res["acc"], want))
+        if arm.startswith(("base", "packed", "i16")) and not same:
+            raise AssertionError(f"harness arm {arm!r}: its sums differ from the plain slice block's")
+        if not arm.startswith("noroll"):
+            log(f"phase 2b: harness arm {arm!r}: sums {'equal' if same else 'differ from'} the plain slice "
+                f"block's (max |delta| {float((res['acc'] - want).abs().max())})")
+    log(f"phase 2b: harness {HARNESS_ARGV} in {time.time() - t1:.1f} s; launches {launches}")
+    arm_of = {"kern_base": "base f32", "kern_noroll": "noroll (timing only)", "kern_i16": "i16 tables",
+              "kern_i16min": "i16 + row min/argmin", "kern_packed": "packed 1-roll + min"}
+    entries = []
+    main_shape, large = PROBE_SHAPES
+    for name, probe in npr.PROBES.items():
+        main = per[name][main_shape]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "constraint_solver_tpu_torch/csrc/nqueens_probes.cu",
+            "replaces": f"bench/kernel_iso.py:{probe.body_line}",
+            "launches": launches[name],
+            "launches_by_path": {"kernel_iso": launches[name]},
+            "max_abs_err": per[name]["max_abs_err"],
+            **{k: main[k] for k in ("ms", "plain_ms", "device_ms", "host_us", "bound_ms", "bound_by",
+                                    "bound_share", "launch_plan")},
+            "library_ms": None,
+            "x".join(map(str, large)): per[name][large],
+            "harness_ms_per_iter": iso["arms"][arm_of[name]]["ms_per_iter"],
+        })
+    log(f"phase 2b: {time.time() - t0:.1f} s; harness ms/iter "
+        f"{ {arm: round(res['ms_per_iter'], 6) for arm, res in iso['arms'].items()} }")
+    return entries, {"x".join(map(str, s)): v for s, v in b1.items()}
 
 
 def run_rounds(device, exact, chunks=3):
@@ -1884,6 +2055,30 @@ def phase_multi(device, sizes=None) -> dict:
     return out
 
 
+def build_kernels() -> None:
+    """Phase 1: compile both kernel libraries from the checkout's sources, one
+    ``nvcc`` each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+    from constraint_solver_tpu_torch.ops import nqueens_probes as npr
+
+    def build(module):
+        t = time.time()
+        report = module.build_library(force=True)
+        return module._LIB_PATH.name, report, time.time() - t
+
+    t0 = time.time()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        built = [f.result() for f in [pool.submit(build, nk), pool.submit(build, npr)]]
+    for name, report, secs in built:
+        log(f"phase 1: built {name} in {secs:.1f} s")
+        for line in report.splitlines():
+            if any(k in line for k in ("Compiling entry", "registers", "spill")) or "error" in line.lower():
+                log(f"  nvcc: {line.strip()}")
+    log(f"phase 1: both libraries in {time.time() - t0:.1f} s")
+
+
 def main() -> None:
     import argparse
 
@@ -1892,33 +2087,26 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--kernel-only", action="store_true",
-        help="run phases 1 and 2 only, print the kernel's measurements and stop (no result line)",
+        help="run phases 1, 2 and 2b only, print the kernels' measurements and stop (no result line)",
     )
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; the port's kernels run only on the card")
-    from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
 
     device = torch.device("cuda", 0)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    t0 = time.time()
-    report = nk.build_library(force=True)
-    log(f"phase 1: built {nk._LIB_PATH.name} in {time.time() - t0:.1f} s")
-    for line in report.splitlines():
-        if any(k in line for k in ("Compiling entry", "registers", "spill")) or "error" in line.lower():
-            log(f"  nvcc: {line.strip()}")
+    build_kernels()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     log(f"phase 1: card {card}")
-    for name, nbytes in probe_kernel_bytes().items():
-        log(f"phase 1: TPU probe {name} (bench/kernel_iso.py, not ported) at (P, A, n) = {(MAIN_P, MAIN_A, MAIN_N)}: "
-            f"{nbytes} bytes, bound {nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms")
 
     kernel = phase_kernel(device)
+    probe_entries, kernel["probe_shapes"] = phase_probes(device)
     if args.kernel_only:
-        log(json.dumps({"kernels": [kernel]}))
+        log(card)
+        log(json.dumps({"kernels": [kernel, *probe_entries]}))
         return
     phase_cross_device(device)
     main_run, main_solver = phase_main(device)
@@ -1952,7 +2140,7 @@ def main() -> None:
         "card": card,
     }, default=str))
     log(card)
-    log(json.dumps({"kernels": [kernel]}))
+    log(json.dumps({"kernels": [kernel, *probe_entries]}))
     log(json.dumps({
         "ok": True,
         "device": {

@@ -99,16 +99,21 @@ def build_library(force: bool = False) -> str:
 
 
 def _build(force: bool) -> str:
-    if not force and _LIB_PATH.exists() and _LIB_PATH.stat().st_mtime >= _SRC.stat().st_mtime:
+    return compile_library(_SRC, _LIB_PATH, force)
+
+
+def compile_library(src: Path, lib: Path, force: bool) -> str:
+    """Compile ``src`` with ``nvcc`` into the shared library ``lib`` if it is
+    missing, older than its source, or ``force`` is set; the caller holds the
+    library's lock.  Returns the compiler's report, or "" when up to date."""
+    if not force and lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
         return ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _LIB_PATH.with_name(f"{_LIB_PATH.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)], capture_output=True, text=True
-    )
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, _LIB_PATH)  # atomic: a concurrent loader never sees half a file
+    os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
     return proc.stdout + proc.stderr
 
 
@@ -151,18 +156,25 @@ class LaunchPlan(NamedTuple):
     vector: bool  # 16-byte score stores (n % 4 == 0)
 
 
-@functools.lru_cache(maxsize=64)
-def _launch_plan(p: int, a: int, n: int) -> LaunchPlan:
-    """The kernel's launch for P lanes, A sampled columns and n rows (P, A ≥ 1)."""
+def columns_per_block(p: int, a: int) -> int:
+    """G, the warps of a block, one sampled column each: 8, halved while it is
+    at least twice A or the grid of ⌈A/G⌉ × P blocks is smaller than the SMs."""
     g = _MAX_WARPS
     while g > 1 and (g >= 2 * a or -(-a // g) * p < _SMS):
         g //= 2
+    return g
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_plan(p: int, a: int, n: int) -> LaunchPlan:
+    """The kernel's launch for P lanes, A sampled columns and n rows (P, A ≥ 1)."""
+    g = columns_per_block(p, a)
     smem = 4 * (_staged_floats(n) + 2 * _staged_floats(2 * n - 1))
     staged = smem <= _SMEM_LIMIT
     return LaunchPlan(g, (-(-a // g), p), smem if staged else 0, staged, n % 4 == 0)
 
 
-def _check(rc, dc, ac, c, r, removed, cur) -> tuple[int, int, int]:
+def check_inputs(rc, dc, ac, c, r, removed, cur) -> tuple[int, int, int]:
     if rc.dim() != 2 or c.dim() != 2:
         raise ValueError(f"rc must be [P, n] and c [P, A], got {tuple(rc.shape)} and {tuple(c.shape)}")
     p, n = rc.shape
@@ -226,7 +238,7 @@ def nqueens_neighborhood_scores(rc, dc, ac, c, r, removed, cur):
     float32[P, 2n−1], c/r int32[P, A], removed float32[P, A], cur float32[P],
     all contiguous and on one device.  Returns (scores float32[P, A, n],
     row_min float32[P, A], row_arg int32[P, A])."""
-    p, a, n = _check(rc, dc, ac, c, r, removed, cur)
+    p, a, n = check_inputs(rc, dc, ac, c, r, removed, cur)
     count = roofline.active_count()
     if count is not None:
         # Counted by formula; the ops issued below are not counted.

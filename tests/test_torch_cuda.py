@@ -11,7 +11,9 @@ not, 16- or 4-byte stores) and for inputs that are views with a storage
 offset, and a solve on the card must equal the same solve on
 the CPU from the same host-side draws: N-Queens, PMC (the kernel's second
 caller), the dense scheduling block, QAP in its three modes and the diagram
-layout.  The incremental QAP state must stay exact on the card.  The user
+layout.  The five probe kernels of ``bench/kernel_iso.py`` must equal their
+plain versions bit for bit, staged or not, and the ported harness's loops must
+give the CPU's sums.  The incremental QAP state must stay exact on the card.  The user
 surface runs on the card too: the nqueens CLI launches the kernel, the HTTP
 service answers a round, the roofline counts the kernel's launches, and
 threads that reach the kernel's first use together build it once.  Two gloo
@@ -32,6 +34,7 @@ from constraint_solver_tpu_torch.models.nqueens_parallel import pmc_solve
 from constraint_solver_tpu_torch.models.qap import QAPSpec, make_qap_problem
 from constraint_solver_tpu_torch.models.scheduling import ScheduleSpec, make_scheduling_problem
 from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+from constraint_solver_tpu_torch.ops import nqueens_probes as npr
 from constraint_solver_tpu_torch.parallel.population import PopulationSolver
 from constraint_solver_tpu_torch.utils.convert import to_reference
 from constraint_solver_tpu_torch.utils.draws import TorchDraws
@@ -109,6 +112,77 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
     args[3] = args[3].int().cpu()
     with pytest.raises(ValueError):
         nk.nqueens_neighborhood_scores(*args)
+
+
+PROBE_SHAPES = [
+    (256, 50, 1000), (4, 3, 8), (3, 13, 130), (8, 5, 1003), (16, 41, 2048),
+    # n_pad at and above each format's staging limit: f32 11,520, packed 19,328, int16 23,168
+    (2, 3, 11520), (2, 3, 11521), (2, 3, 16384), (1, 5, 19328), (1, 5, 19329), (1, 5, 23168), (1, 5, 23169),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(npr.PROBES))
+@pytest.mark.parametrize("p, a, n", PROBE_SHAPES)
+def test_cuda_probe_matches_plain_version(cuda, name, p, a, n):
+    """Each probe kernel of ``bench/kernel_iso.py`` equals its plain version bit
+    for bit on the whole padded block, min and argmin, staged or not."""
+    args = _inputs(np.random.default_rng(n), p, a, n, cuda)
+    before = npr.WRAPPERS[name].launches
+    got = npr.WRAPPERS[name](*args)
+    torch.cuda.synchronize()
+    assert npr.WRAPPERS[name].launches == before + 1
+    want = npr.REFS[name](*args)
+    assert len(got) == len(want) == (3 if npr.PROBES[name].with_min else 1)
+    for w, g in zip(want, got):
+        assert w.dtype == g.dtype and w.shape == g.shape and torch.equal(w, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["kern_i16min", "kern_packed"])
+@pytest.mark.parametrize("n", [1003, 16300])
+def test_cuda_probe_row_min_skips_the_padding_columns(cuda, name, n):
+    """rc of 4s, dc and ac of 2s: every valid column's three terms sum to at
+    least 5, a padding column's (rc 0 there) to at most 4, so only the kernel's
+    mask keeps the padding out of the min."""
+    rc, dc, ac, c, r, removed, cur = _inputs(np.random.default_rng(3), 4, 9, n, cuda)
+    args = (torch.full_like(rc, 4.0), torch.full_like(dc, 2.0), torch.full_like(ac, 2.0), c, r, removed, cur)
+    got = npr.WRAPPERS[name](*args)
+    torch.cuda.synchronize()
+    for w, g in zip(npr.REFS[name](*args), got):
+        assert torch.equal(w, g)
+    assert torch.all(got[0].amin(dim=-1) < got[1]) and torch.all(got[2] < n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["kern_i16", "kern_i16min", "kern_packed"])
+def test_cuda_probe_with_tables_from_global_memory(cuda, name):
+    p, a, n = 4, 9, 16384
+    rc, dc, ac, c, r, removed, cur = _inputs(np.random.default_rng(1), p, a, n, cuda)
+    plan = npr.launch_plan(name, p, a, n)
+    assert plan.staged
+    want = npr.REFS[name](rc, dc, ac, c, r, removed, cur)
+    outs = tuple(torch.empty_like(w) for w in want)
+    tables = npr.prepare_tables(npr.PROBES[name].table, rc, dc, ac)
+    npr._launch(name, tables, c, r, removed, cur, outs, p, a, n, plan._replace(staged=False, smem_bytes=0))
+    torch.cuda.synchronize()
+    assert all(torch.equal(w, g) for w, g in zip(want, outs))
+
+
+@pytest.mark.cuda
+def test_cuda_probe_harness_equals_cpu(cuda):
+    """The ported harness's loops give the same sums on the card and on the CPU."""
+    from constraint_solver_tpu_torch.bench import kernel_iso
+
+    n, p, k = 200, 3, 4
+    a = n // 20
+    for kern in npr.WRAPPERS.values():
+        loop = kernel_iso.build(kern, k)
+        on_card = loop(*kernel_iso.inputs(n, p, a, cuda)).cpu()
+        assert torch.equal(on_card, loop(*kernel_iso.inputs(n, p, a, "cpu")))
+    for impl in ("slice", "conv", "toeplitz"):
+        loop = kernel_iso.build_xla(impl, k)
+        assert torch.equal(loop(*kernel_iso.inputs(n, p, a, cuda)).cpu(), loop(*kernel_iso.inputs(n, p, a, "cpu")))
 
 
 @pytest.mark.cuda

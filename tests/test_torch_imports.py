@@ -60,19 +60,23 @@ def test_port_and_smoke_import_without_jax():
                  "constraint_solver_tpu_torch.utils.profiling", "constraint_solver_tpu_torch.utils.printing",
                  "constraint_solver_tpu_torch.parallel.mesh", "constraint_solver_tpu_torch.parallel.distributed",
                  "constraint_solver_tpu_torch.parallel.sharded", "constraint_solver_tpu_torch.parallel.seq_shard",
-                 "constraint_solver_tpu_torch.parallel.seq_solver", "chip_smoke"):
+                 "constraint_solver_tpu_torch.parallel.seq_solver", "constraint_solver_tpu_torch.ops.nqueens_probes",
+                 "constraint_solver_tpu_torch.bench.kernel_iso", "chip_smoke"):
         assert name in out["names"]
 
 
 def test_multi_device_layer_and_smoke_name_no_jax():
-    """No import statement in ``parallel/`` or ``chip_smoke.py`` names JAX or
-    the JAX package, at any depth (a function-level import included)."""
+    """No import statement in any module of the port or in ``chip_smoke.py``
+    names JAX or the JAX package, at any depth (a function-level import
+    included)."""
     import ast
     import glob
 
-    files = glob.glob(os.path.join(REPO, "constraint_solver_tpu_torch", "parallel", "*.py"))
+    files = glob.glob(os.path.join(REPO, "constraint_solver_tpu_torch", "**", "*.py"), recursive=True)
     files.append(os.path.join(REPO, "chip_smoke.py"))
-    assert len(files) >= 8
+    assert len(files) >= 40
+    for sub in ("parallel/mesh.py", "ops/nqueens_probes.py", "bench/kernel_iso.py", "cli/nqueens.py"):
+        assert os.path.join(REPO, "constraint_solver_tpu_torch", sub) in files
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read())
