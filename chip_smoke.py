@@ -38,6 +38,15 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    board with an independent numpy count, every lane's carried counters against
    a rebuild from its board, the carried fingerprints against a full
    recomputation, and that the kernel was launched in the run;
+4b. the descent replayed as CUDA graphs (``core/graphed.py``, the solvers'
+   default on the card) against the eager loop (the solvers' private
+   ``_graphed=False``), from one seed, drawing on the card: nqueens-64 with 8
+   lanes in both tabu modes, 3 chunks of 2 rounds, and the main path's
+   ``run(chunk=2)`` to zero after a warm-up of each: the final state trees,
+   the traces, ``stats()``, the generator's state and the kernel's launches
+   must be equal; it prints both walls, the capture time and both peak
+   memories, each with the card's name and power limit, then the benchmark's
+   traced round on the second round of a fresh solver on each path;
 5. parallel min-conflicts, the kernel's second caller: ``pmc_solve(1000,
    max_steps=5000)`` on the card over the full [n, n] block after one warm-up
    solve (zero conflicts by an independent count, the carried score equal to
@@ -650,6 +659,163 @@ def phase_main(device, n=MAIN_N, population=MAIN_P, wall_cap=WALL_CAP_S):
         f"moves/s {stats.get('moves_per_sec')}, kernel launches {launches}"
     )
     return {"ttz_s": ttz, "launches": launches, **stats}, s
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
+def graphs_pair(device, make, drive) -> dict:
+    """4b's comparison: ``drive`` on an eager solver (``_graphed=False``) and on
+    a graphed one, each from ``make(graphed)``; the final state trees, what
+    ``drive`` returns (the traces), ``stats()``, the generator's state and the
+    kernel's launches must be equal.  Each side's wall, its peak memory, and the
+    graphed side's capture time."""
+    import torch
+
+    from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+    from constraint_solver_tpu_torch.utils.convert import to_reference
+
+    out = {}
+    cuda = is_cuda(device)
+    if cuda:
+        torch.zeros(1, device=device)  # the allocator's peak counters exist once it has allocated
+    for graphed in (False, True):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        launches0 = nk.nqueens_neighborhood_scores.launches
+        s = make(graphed)
+        sync(device)
+        t0 = time.time()
+        result = drive(s)
+        sync(device)
+        wall = time.time() - t0
+        graphs = s.program.graphs
+        out[graphed] = {
+            "wall_s": wall, "state": to_reference(s.state), "result": result,
+            "stats": {k: v for k, v in s.stats().items() if k != "moves_per_sec"},  # that one is the wall's
+            "generator": s.draws.state_dict()["generator"],
+            "launches": nk.nqueens_neighborhood_scores.launches - launches0,
+            "peak_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
+            "reserved_bytes": torch.cuda.memory_reserved(device) if cuda else None,
+            "capture_s": graphs.capture_s if graphs is not None else None,
+            "units": len(graphs._units) if graphs is not None else None,
+        }
+    eager, graph = out[False], out[True]
+    assert_tree_equal(graph["state"], eager["state"])
+    if not np.array_equal(np.asarray(graph["result"]), np.asarray(eager["result"])):
+        raise AssertionError("phase 4b: graphed and eager traces differ")
+    for key in ("stats", "launches"):
+        if graph[key] != eager[key]:
+            raise AssertionError(f"phase 4b: graphed and eager {key} differ: {graph[key]} != {eager[key]}")
+    if not torch.equal(graph["generator"], eager["generator"]):
+        raise AssertionError("phase 4b: the generator's state differs after the graphed run")
+    if is_cuda(device) and graph["units"] != 1:
+        raise AssertionError(f"phase 4b: the graphed solver made {graph['units']} graphed descents, not 1")
+    return {side: {k: v[k] for k in ("wall_s", "peak_bytes", "reserved_bytes", "capture_s", "launches", "stats")}
+            for side, v in (("eager", eager), ("graphed", graph))}
+
+
+def phase_graphs(device, n=MAIN_N, population=MAIN_P, small_n=64, small_p=8, card=None) -> dict:
+    """4b. The descent replayed as CUDA graphs against the eager loop, from one
+    seed, drawing on the device: nqueens-``small_n`` P=``small_p`` in both tabu
+    modes (phase 3's configuration, 3 chunks of 2 rounds with their traces),
+    then nqueens-``n`` P=``population`` ``run(chunk=2)`` to zero, after a
+    2-round warm-up of each path."""
+    from constraint_solver_tpu_torch.core.ils import SolverConfig
+    from constraint_solver_tpu_torch.models.nqueens import make_nqueens_problem
+    from constraint_solver_tpu_torch.parallel.population import PopulationSolver
+
+    card = card or (card_line() if is_cuda(device) else "cpu")
+    out = {}
+    for exact in (None, False):
+        config = SolverConfig(
+            seed="smoke-64", local_search_max_iterations=40, best_solutions_capacity=4,
+            all_solutions_capacity=64, restart_every=4, tabu_exact_filter=exact,
+        )
+        mode = "exact filter" if exact is None else "pick-then-check"
+        out[mode] = graphs_pair(
+            device,
+            lambda graphed: PopulationSolver(make_nqueens_problem(small_n), config, population=small_p,
+                                             exchange_every=2, device=device, _graphed=graphed),
+            lambda s: np.concatenate([s.execute_chunk_traced(2) for _ in range(3)]),
+        )
+        log(f"phase 4b: nqueens-{small_n} P={small_p} ({mode}): graphed == eager (state, traces, stats, "
+            f"generator, {out[mode]['graphed']['launches']} kernel launches); walls eager "
+            f"{out[mode]['eager']['wall_s']:.3f} s, graphed {out[mode]['graphed']['wall_s']:.3f} s")
+
+    problem, config = make_nqueens_problem(n), main_config()
+
+    def make(graphed):
+        return PopulationSolver(problem, config, population=population, exchange_every=2, device=device,
+                                _graphed=graphed)
+
+    for graphed in (False, True):
+        make(graphed).run(max_rounds=2, chunk=2)  # warm-up: first-call costs stay out of the walls
+
+    def solve(s):
+        timer = threading.Timer(WALL_CAP_S, s.cancel)
+        timer.start()
+        try:
+            s.run(chunk=2)
+        finally:
+            timer.cancel()
+            timer.join()
+        if s.cancelled or s.get_best_score()[0] != 0:
+            raise AssertionError(f"phase 4b: nqueens-{n} not solved: {s.get_best_score()} after {s.stats()}")
+        return np.zeros(0)
+
+    main = out["main"] = graphs_pair(device, make, solve)
+    eager, graph = main["eager"], main["graphed"]
+    log(f"phase 4b: nqueens-{n} P={population} run(chunk=2) to zero: graphed == eager (state, stats, generator, "
+        f"{graph['launches']} kernel launches, {graph['stats']['rounds']} rounds, "
+        f"{graph['stats']['ls_iterations']} descent iterations)")
+    log(f"phase 4b: wall eager {eager['wall_s']:.4f} s, graphed {graph['wall_s']:.4f} s; {card}")
+    log(f"phase 4b: capture {graph['capture_s']:.4f} s (host, inside the graphed wall); {card}")
+    log(f"phase 4b: peak memory eager {eager['peak_bytes']} B, graphed {graph['peak_bytes']} B; reserved after "
+        f"each {eager['reserved_bytes']} B, {graph['reserved_bytes']} B; {card}")
+    if is_cuda(device):
+        out["second_round"] = {}
+        for graphed in (False, True):
+            trace = second_round_trace(device, problem, config, population, graphed)
+            out["second_round"]["graphed" if graphed else "eager"] = trace
+            log(f"phase 4b: traced second round, {'graphed' if graphed else 'eager'}: {trace['iterations']} "
+                f"iterations in {trace['wall_s']:.4f} s, idle {trace['idle_share']:.4f}, busy "
+                f"{trace['busy_ms_per_iteration']:.4f} ms, {trace['device_kernels'] / trace['iterations']:.3f} "
+                f"kernels and {trace['host_reads'] / trace['iterations']:.3f} host reads per iteration, "
+                f"B1 {trace['kernel']['ms_per_launch']:.6f} ms in {trace['kernel']['events']} events; "
+                f"top {[(o['name'][:40], round(o['ms'], 3), o['calls']) for o in trace['top_device_ops'][:5]]}; "
+                f"gaps {trace['idle_gaps']}; {card}")
+    return out
+
+
+def second_round_trace(device, problem, config, population, graphed) -> dict:
+    """The benchmark's traced round (``bench_torch.run.traced_round``) on the
+    second round of a fresh main-path solver, past the graphed path's capture:
+    its steady state, where the benchmark traces a first round."""
+    from bench_torch import run as bench_run
+    from constraint_solver_tpu_torch.parallel.population import PopulationSolver
+
+    counted, counters = instrument(problem, device)
+
+    class SecondRound:
+        def trace_setup(self):
+            s = PopulationSolver(counted, config, population=population, exchange_every=2, device=device,
+                                 _graphed=graphed)
+            s.execute_round()
+
+            def step() -> int:
+                counters.calls = 0
+                s.execute_round()
+                return counters.calls
+
+            return step
+
+    return bench_run.traced_round(SecondRound(), device)
 
 
 def sync(device) -> None:
@@ -2123,6 +2289,8 @@ def main() -> None:
 
     import torch
 
+    from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--kernel-only", action="store_true",
@@ -2135,10 +2303,7 @@ def main() -> None:
     device = torch.device("cuda", 0)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     build_kernels()
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
+    card = card_line()
     log(f"phase 1: card {card}")
 
     kernel = phase_kernel(device)
@@ -2149,6 +2314,9 @@ def main() -> None:
         return
     phase_cross_device(device)
     main_run, main_solver = phase_main(device)
+    nk.nqueens_neighborhood_scores.launches = 0
+    graphs = phase_graphs(device, card=card)
+    graphs_launches = nk.nqueens_neighborhood_scores.launches
     pmc_run = phase_pmc(device)
     phase_schedule_cross_device(device)
     sched = phase_schedule_bench(device)
@@ -2162,6 +2330,7 @@ def main() -> None:
     bench = phase_bench(device)
     paths = {
         "nqueens_population": main_run["launches"],
+        "graphs_vs_eager": graphs_launches,
         "pmc": pmc_run["launches"],
         "checkpoint_resume": ckpt["nqueens"]["launches"],
         "cli_nqueens": surface["cli_nqueens"]["launches"],
@@ -2176,7 +2345,7 @@ def main() -> None:
     kernel["launches_by_path"] = paths
 
     log(json.dumps({
-        "main_path": main_run, "pmc": pmc_run, "scheduling": sched, "qap": qap, "ackley": ackley,
+        "main_path": main_run, "graphs": graphs, "pmc": pmc_run, "scheduling": sched, "qap": qap, "ackley": ackley,
         "diagram": diagram, "phased": phased, "checkpoint": ckpt, "surface": surface, "multi_device": multi,
         "bench": bench, "card": card,
     }, default=str))

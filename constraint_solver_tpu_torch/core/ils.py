@@ -30,6 +30,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from constraint_solver_tpu_torch.core.graphed import DescentGraphs
 from constraint_solver_tpu_torch.core.history import EliteArchive, TabuRing
 from constraint_solver_tpu_torch.core.local_search import LsParams, ls_execute
 from constraint_solver_tpu_torch.core.problem import Problem
@@ -135,9 +136,11 @@ def ils_round(
     st: IlsState,
     draws,
     round_no: int,
+    graphs=None,
 ) -> IlsState:
     """One ILS round on every lane; ``round_no`` is the 1-based round number
-    this call executes (every lane's ``round + 1``)."""
+    this call executes (every lane's ``round + 1``).  ``graphs``: the solver's
+    ``DescentGraphs`` for the descent (``ls_execute``)."""
     rnd = st.round + 1
     best_score, _, _ = st.elite.get_best()
     done = st.elite.valid.any(dim=-1) & problem.is_best(best_score)
@@ -151,7 +154,7 @@ def ils_round(
 
     perturbed = problem.perturb(cur_state, st.elite.contains_fp(cur_fp), draws)
     new_state, new_score, tabu, ls_iters, ls_exhausted = ls_execute(
-        problem, ls_params, perturbed, st.tabu, draws, enabled=~done
+        problem, ls_params, perturbed, st.tabu, draws, enabled=~done, graphs=graphs
     )
     new_fp = problem.fingerprint(new_state)
     elite = st.elite.insert(new_score, new_fp, new_state)
@@ -200,9 +203,10 @@ class Solver:
     ``get_best_solution``, ``get_best_score``, ``cancel``, ``stats``.
 
     ``device`` defaults to the card; ``draws`` to ``TorchDraws(config.seed, 1,
-    device)``."""
+    device)``.  The solver owns its descents' CUDA graphs (``core/graphed.py``);
+    ``_graphed=False`` runs them eagerly, to compare the two."""
 
-    def __init__(self, problem: Problem, config: SolverConfig, device="cuda", draws=None):
+    def __init__(self, problem: Problem, config: SolverConfig, device="cuda", draws=None, _graphed=True):
         self.problem = problem
         self.config = config
         self.device = torch.device(device)
@@ -213,11 +217,12 @@ class Solver:
         self.state = ils_init(problem, config, self.draws, -1.0)
         self._ls_params = config.ls_params(problem.width)
         self._ils_params = config.ils_params()
+        self.graphs = DescentGraphs() if _graphed else None
 
     def execute_round(self) -> None:
         self._round += 1
         self.state = ils_round(
-            self.problem, self._ls_params, self._ils_params, self.state, self.draws, self._round
+            self.problem, self._ls_params, self._ils_params, self.state, self.draws, self._round, self.graphs
         )
 
     def is_finished(self) -> bool:

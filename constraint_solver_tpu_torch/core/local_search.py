@@ -16,6 +16,11 @@ running, and the host asks whether any lane is still running only every
 nothing).  The retry loop of pick-then-check is masked the same way and ends when
 no lane needs another retry.
 
+An iteration is three functions: ``_begin`` (the push, the neighborhood, the
+first pick), ``_retry`` (one more pick-then-check pick, while the host's read
+of ``need_any`` says some lane needs it) and ``_finish`` (the move and the
+carry).  On the card ``core/graphed.py`` replays each of them as a CUDA graph.
+
 Noisy selection (``select_topk > 1``) samples the applied move from the top-k
 non-tabu candidates (``ops/lex.noisy_lex_select``), on the exact-filter path
 only, as in the JAX package.
@@ -75,56 +80,42 @@ class _Pick(NamedTuple):
     idx: torch.Tensor    # int64[P]
     fp: torch.Tensor     # int64[P, 2]
     found: torch.Tensor  # bool[P]
-    tries: torch.Tensor  # int64[P]
-    excl: torch.Tensor   # int64[P, retries] examined candidates, -1 = empty
+    tries: torch.Tensor | None  # int64[P] candidates examined (pick-then-check)
+    excl: torch.Tensor | None   # int64[P, retries] examined candidates, -1 = empty (pick-then-check)
 
 
-def _pick_then_check(problem, params, nb, tabu, c, n_valid, active):
-    """Take each lane's best candidate, fingerprint it, and re-pick among the
-    unexamined ones while it is tabu, examining at most ``tabu_retries``.
-    Returns (idx, cand_fp, found, exhausted_event)."""
-    retries = params.tabu_retries
-    p = n_valid.shape[0]
-    lane = torch.arange(p, device=n_valid.device)
-    idx0 = nb.hint_idx if nb.hint_idx is not None else lex_argmin(nb.scores, nb.valid)
-    fp0 = problem.move_fp(c.state, c.fp, nb.moves, idx0)
-    found0 = ~tabu.is_tabu(fp0[:, None, :])[:, 0] & (n_valid > 0)
-    excl = torch.full((p, retries), -1, dtype=torch.int64, device=n_valid.device)
-    excl[:, 0] = idx0
-    pick = _Pick(idx0, fp0, found0, torch.ones_like(idx0), excl)
-    iota_w = torch.arange(nb.valid.shape[1], device=n_valid.device)
+class _Begun(NamedTuple):
+    """An iteration up to its first pick: what ``_retry`` and ``_finish`` read."""
 
-    for _ in range(retries - 1):
-        need = active & ~pick.found & (pick.tries < retries) & (pick.tries < n_valid)
-        if not bool(need.any()):
-            break
-        mask = nb.valid
-        for k in range(retries):  # -1 slots never match
-            mask = mask & (iota_w != pick.excl[:, k : k + 1])
-        idx = lex_argmin(nb.scores, mask)
-        fp = problem.move_fp(c.state, c.fp, nb.moves, idx)
-        hit = tabu.is_tabu(fp[:, None, :])[:, 0]
-        excl = pick.excl.clone()
-        excl[lane, pick.tries.clamp_max(retries - 1)] = idx
-        pick = tree_where(need, _Pick(idx, fp, ~hit, pick.tries + 1, excl), pick)
-    exhausted_event = ~pick.found & (n_valid > pick.tries)
-    return pick.idx, pick.fp, pick.found, exhausted_event
+    tabu: TabuRing            # the ring after this iteration's push
+    hit_best: torch.Tensor    # bool[P]
+    nb: Any                   # the Neighborhood
+    n_valid: torch.Tensor     # int64[P]
+    pick: _Pick               # the pick so far; under the exact filter the final one
+    need: torch.Tensor | None      # bool[P] lanes that pick again (pick-then-check), else None
+    need_any: torch.Tensor | None  # need.any(): the one value of the iteration the host reads
 
 
-def _step(problem: Problem, params: LsParams, c: _LsCarry, draws, active) -> _LsCarry:
-    """One descent iteration for every lane (the JAX ``body``)."""
+def _need(params, pick: _Pick, n_valid, active):
+    need = active & ~pick.found & (pick.tries < params.tabu_retries) & (pick.tries < n_valid)
+    return need, need.any()
+
+
+def _begin(problem: Problem, params: LsParams, c: _LsCarry, draws, active) -> _Begun:
+    """Push, the early-exit test, the neighborhood and the first pick: under the
+    exact filter the best non-tabu candidate; with pick-then-check each lane's
+    best candidate, fingerprinted and checked against the ring."""
     tabu = c.tabu.push(c.fp)
     hit_best = problem.is_best(c.score)
     nb = problem.neighborhood(c.state, c.score, draws, active)
     n_valid = nb.n_valid if nb.n_valid is not None else nb.valid.sum(dim=-1)
-    lane = torch.arange(n_valid.shape[0], device=n_valid.device)
-
     use_exact = (
         params.tabu_exact_filter
         if params.tabu_forced
         else params.tabu_exact_filter or nb.fp_deltas is not None
     )
     if use_exact:
+        lane = torch.arange(n_valid.shape[0], device=n_valid.device)
         if nb.fp_deltas is not None:
             fps_all = c.fp[:, None, :] ^ nb.fp_deltas
         else:
@@ -137,19 +128,62 @@ def _step(problem: Problem, params: LsParams, c: _LsCarry, draws, active) -> _Ls
             idx = noisy_lex_select(nb.scores, ok, params.select_topk, params.select_temp, noise)
         else:
             idx = lex_argmin(nb.scores, ok)
-        cand_fp = fps_all[lane, idx]
-        exhausted_event = torch.zeros_like(found)
-        empty_nbr = ~found
-    else:
-        idx, cand_fp, found, exhausted_event = _pick_then_check(
-            problem, params, nb, tabu, c, n_valid, active
-        )
-        empty_nbr = n_valid == 0
+        pick = _Pick(idx, fps_all[lane, idx], found, None, None)
+        return _Begun(tabu, hit_best, nb, n_valid, pick, None, None)
+    idx0 = nb.hint_idx if nb.hint_idx is not None else lex_argmin(nb.scores, nb.valid)
+    fp0 = problem.move_fp(c.state, c.fp, nb.moves, idx0)
+    found0 = ~tabu.is_tabu(fp0[:, None, :])[:, 0] & (n_valid > 0)
+    excl = torch.full((n_valid.shape[0], params.tabu_retries), -1, dtype=torch.int64, device=n_valid.device)
+    excl[:, 0] = idx0
+    pick = _Pick(idx0, fp0, found0, torch.ones_like(idx0), excl)
+    need, need_any = _need(params, pick, n_valid, active)
+    return _Begun(tabu, hit_best, nb, n_valid, pick, need, need_any)
 
-    cand_score = nb.scores[lane, idx]
-    cand_state = problem.apply_move(c.state, nb.moves, idx)
-    improved = lex_less(cand_score, c.score) & found
-    step = found & ~hit_best
+
+def _retry(problem: Problem, params: LsParams, c: _LsCarry, b: _Begun, active) -> _Begun:
+    """One more pick-then-check pick for the lanes in ``b.need``: their best
+    candidate among the unexamined ones, fingerprinted and checked."""
+    retries, nb, pick = params.tabu_retries, b.nb, b.pick
+    lane = torch.arange(b.n_valid.shape[0], device=b.n_valid.device)
+    iota_w = torch.arange(nb.valid.shape[1], device=b.n_valid.device)
+    mask = nb.valid
+    for k in range(retries):  # -1 slots never match
+        mask = mask & (iota_w != pick.excl[:, k : k + 1])
+    idx = lex_argmin(nb.scores, mask)
+    fp = problem.move_fp(c.state, c.fp, nb.moves, idx)
+    hit = b.tabu.is_tabu(fp[:, None, :])[:, 0]
+    excl = pick.excl.clone()
+    excl[lane, pick.tries.clamp_max(retries - 1)] = idx
+    pick = tree_where(b.need, _Pick(idx, fp, ~hit, pick.tries + 1, excl), pick)
+    need, need_any = _need(params, pick, b.n_valid, active)
+    return b._replace(pick=pick, need=need, need_any=need_any)
+
+
+def _retry_loop(params: LsParams, b: _Begun, retry) -> _Begun:
+    """Pick-then-check's loop: ``retry(b)`` while some lane needs another pick,
+    at most ``tabu_retries - 1`` times; the host reads ``need_any`` before each."""
+    if b.need is None:
+        return b
+    for _ in range(params.tabu_retries - 1):
+        if not bool(b.need_any):
+            break
+        b = retry(b)
+    return b
+
+
+def _finish(problem: Problem, params: LsParams, c: _LsCarry, b: _Begun) -> _LsCarry:
+    """Apply each lane's pick and advance its carry (before the select by the
+    lanes still running)."""
+    nb, pick, hit_best = b.nb, b.pick, b.hit_best
+    lane = torch.arange(b.n_valid.shape[0], device=b.n_valid.device)
+    if b.need is None:
+        exhausted_event, empty_nbr = torch.zeros_like(pick.found), ~pick.found
+    else:
+        exhausted_event, empty_nbr = ~pick.found & (b.n_valid > pick.tries), b.n_valid == 0
+    cand_score = nb.scores[lane, pick.idx]
+    cand_state = problem.apply_move(c.state, nb.moves, pick.idx)
+    improved = lex_less(cand_score, c.score) & pick.found
+    step = pick.found & ~hit_best
     no_improve = torch.where(improved, 0, c.no_improve + 1).to(torch.int32)
     bail = ~improved & (no_improve >= params.allow_no_improvement_for)
     new_best = improved | hit_best
@@ -157,21 +191,30 @@ def _step(problem: Problem, params: LsParams, c: _LsCarry, draws, active) -> _Ls
     return _LsCarry(
         state=tree_where(step, cand_state, c.state),
         score=lane_where(step, cand_score, c.score),
-        fp=lane_where(step, cand_fp, c.fp),
+        fp=lane_where(step, pick.fp, c.fp),
         best_state=tree_where(new_best, tree_where(hit_best, c.state, cand_state), c.best_state),
         best_score=lane_where(new_best, lane_where(hit_best, c.score, cand_score), c.best_score),
-        tabu=tabu,
-        no_improve=torch.where(step | ~found, no_improve, c.no_improve),
+        tabu=b.tabu,
+        no_improve=torch.where(step | ~pick.found, no_improve, c.no_improve),
         it=c.it + 1,
         done=hit_best | bail | empty_nbr,
         exhausted=c.exhausted + exhausted_event.to(torch.int32),
     )
 
 
-def ls_execute(problem: Problem, params: LsParams, start_state, tabu: TabuRing, draws, enabled):
+def _step(problem: Problem, params: LsParams, c: _LsCarry, draws, active) -> _LsCarry:
+    """One descent iteration for every lane (the JAX ``body``)."""
+    b = _begin(problem, params, c, draws, active)
+    b = _retry_loop(params, b, lambda b: _retry(problem, params, c, b, active))
+    return _finish(problem, params, c, b)
+
+
+def ls_execute(problem: Problem, params: LsParams, start_state, tabu: TabuRing, draws, enabled, graphs=None):
     """Run one descent per lane from ``start_state``; lanes with
     ``enabled[p]`` False do nothing.  Returns ``(best_state, best_score, tabu,
-    iterations_used [P], exhausted [P])``."""
+    iterations_used [P], exhausted [P])``.  ``graphs`` (``core/graphed.py``'s
+    ``DescentGraphs``, the solver's) replays the iterations as CUDA graphs
+    where its rule allows; otherwise, and without it, they run eagerly."""
     start_score = problem.score(start_state)
     zeros = torch.zeros_like(enabled, dtype=torch.int32)
     c = _LsCarry(
@@ -186,9 +229,12 @@ def ls_execute(problem: Problem, params: LsParams, start_state, tabu: TabuRing, 
         done=~enabled,
         exhausted=zeros,
     )
-    for i in range(params.max_iterations):
-        active = ~c.done
-        if i % _DONE_CHECK_EVERY == 0 and not world_any(active):
-            break
-        c = tree_where(active, _step(problem, params, c, draws, active), c)
+    if graphs is not None and graphs.applies(problem, draws, enabled.device):
+        c = graphs.descend(problem, params, c, draws)
+    else:
+        for i in range(params.max_iterations):
+            active = ~c.done
+            if i % _DONE_CHECK_EVERY == 0 and not world_any(active):
+                break
+            c = tree_where(active, _step(problem, params, c, draws, active), c)
     return c.best_state, c.best_score, c.tabu, c.it, c.exhausted

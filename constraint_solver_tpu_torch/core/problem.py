@@ -64,6 +64,15 @@ class Problem(NamedTuple):
     perturb:      (state, is_elite[P], draws) -> state
     name:         domain name for logs and benchmarks.
     width:        candidate moves scored per lane per local-search iteration.
+    capturable:   every function of a descent iteration (``neighborhood``,
+                  ``move_fp``, ``apply_move``, ``is_best``) issues device work
+                  only: no host read, no copy from the host, no collective.  On
+                  a CUDA device the solvers then replay the iteration as CUDA
+                  graphs (``core/graphed.py``).  A replayed iteration does not
+                  run ``neighborhood``; it calls ``neighborhood(None, None,
+                  None, None)``, which must return at once, so that whatever
+                  wraps ``neighborhood`` (a counter, a profiler span) still
+                  sees one call per iteration.
     """
 
     name: str
@@ -76,3 +85,4 @@ class Problem(NamedTuple):
     apply_move: Callable
     perturb: Callable
     width: int = 0
+    capturable: bool = False

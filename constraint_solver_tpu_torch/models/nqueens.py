@@ -31,6 +31,10 @@ Divergences from the JAX package:
   block) raise ``NotImplementedError``; an unknown ``block_impl`` raises
   ``ValueError``, as there.
 
+Without ``nbr_axis`` the problem is ``capturable`` (``core/problem.py``): on the
+card the solvers replay its descent iterations as CUDA graphs; the per-device log
+table is filled before any capture, by the eager first iteration.
+
 The sharded neighborhood (``nbr_axis``, ``nbr_shards``, ``nbr_keep``), as in the
 JAX package: A pads up to a multiple of the shard count, every rank of the
 active mesh's ``nbr_axis`` draws the same column sample and scores its A/shards
@@ -203,6 +207,8 @@ def make_nqueens_problem(
         return fingerprint_i32(state.rows)
 
     def neighborhood(state, cur_score, draws, active):
+        if state is None:  # a replayed iteration's call (core/problem.py, ``capturable``)
+            return None
         rows, rc, dc, ac, cs = state
         p = rows.shape[0]
         device = rows.device
@@ -330,4 +336,5 @@ def make_nqueens_problem(
         apply_move=apply_move,
         perturb=perturb,
         width=a_max * n,
+        capturable=nbr_axis is None,
     )

@@ -11,8 +11,9 @@ as in the JAX package.  Three PyTorch details decide the form:
   ``lax.sort`` of the JAX package;
 - ``noisy_lex_select`` takes the k-th smallest *value* (``torch.kthvalue``),
   which does not depend on how ties are ordered, and divides by the
-  temperature held in a tensor: CUDA's division by a Python scalar multiplies
-  by its reciprocal, which is not bit-equal to a division.  Divergence: its
+  temperature held in a tensor filled on the device (no copy from the host):
+  CUDA's division by a Python scalar multiplies by its reciprocal, which is
+  not bit-equal to a division.  Divergence: its
   Gumbel noise is an argument (a ``Draws`` source makes it) instead of a key.
 """
 
@@ -24,10 +25,15 @@ INF_SCORE = float("inf")
 
 
 def make_score(hard, soft=0.0) -> torch.Tensor:
-    """Pack hard/soft values (or broadcastable tensors) into a [..., 2] score."""
+    """Pack hard/soft values (or broadcastable tensors) into a [..., 2] score.
+    A number ``soft`` is filled on ``hard``'s device: no copy from the host,
+    which a CUDA graph could not capture."""
     hard = torch.as_tensor(hard, dtype=torch.float32)
-    soft = torch.as_tensor(soft, dtype=torch.float32, device=hard.device).expand(hard.shape)
-    return torch.stack([hard, soft], dim=-1)
+    if isinstance(soft, (int, float)):
+        soft = torch.full((), soft, dtype=torch.float32, device=hard.device)
+    else:
+        soft = torch.as_tensor(soft, dtype=torch.float32, device=hard.device)
+    return torch.stack([hard, soft.expand(hard.shape)], dim=-1)
 
 
 def lex_less(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -92,7 +98,7 @@ def noisy_lex_select(
     k = min(k, w.shape[-1])
     kth = torch.kthvalue(w, k, dim=-1, keepdim=True).values
     in_topk = valid & (w <= kth)
-    logit = torch.where(in_topk, -w / w.new_tensor(max(temp, 1e-9)) + gumbel, -INF_SCORE)
+    logit = torch.where(in_topk, -w / w.new_full((), max(temp, 1e-9)) + gumbel, -INF_SCORE)
     return torch.argmax(logit, dim=-1)
 
 

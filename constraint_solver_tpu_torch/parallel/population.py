@@ -37,6 +37,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from constraint_solver_tpu_torch.core.graphed import DescentGraphs
 from constraint_solver_tpu_torch.core.ils import (
     IlsParams,
     IlsState,
@@ -157,7 +158,8 @@ def best_score_of(st: IlsState, axis: Axis | None = None) -> torch.Tensor:
 class ChunkProgram:
     """The population's chunk of rounds (the JAX ``run_chunk`` and
     ``run_chunk_traced``); under ``mesh`` the rounds run with it active and the
-    exchange goes over its ``pop`` axis."""
+    exchange goes over its ``pop`` axis.  ``graphs``: the solver's
+    ``DescentGraphs`` (``core/graphed.py``) for its descents."""
 
     problem: Problem
     ls_params: LsParams
@@ -167,6 +169,7 @@ class ChunkProgram:
     exchange_every: int
     cull_rank: str = "lex"
     mesh: Mesh | None = None
+    graphs: DescentGraphs | None = None
 
     def _gated_exchange(self, st: IlsState, round_no: int) -> IlsState:
         """The exchange fires on the ``exchange_every`` round cadence, however
@@ -178,7 +181,7 @@ class ChunkProgram:
         return st
 
     def _round(self, st: IlsState, draws, round_no: int) -> IlsState:
-        return ils_round(self.problem, self.ls_params, self.ils_params, st, draws, round_no)
+        return ils_round(self.problem, self.ls_params, self.ils_params, st, draws, round_no, self.graphs)
 
     def run(self, st: IlsState, draws, base: int, n: int) -> IlsState:
         """Rounds ``base + 1 .. base + n``, then the gated exchange."""
@@ -206,7 +209,9 @@ class PopulationSolver:
     ``TorchDraws(config.seed, population, device)``; it may be a source for the
     whole population or, under a mesh, one for this rank's lanes.  ``mesh``
     shards the lanes over its ``pop`` axis (see the module docstring); every
-    rank of the mesh's world builds the solver and makes the same calls."""
+    rank of the mesh's world builds the solver and makes the same calls.  The
+    solver owns its descents' CUDA graphs (``core/graphed.py``);
+    ``_graphed=False`` runs them eagerly, to compare the two."""
 
     def __init__(
         self,
@@ -221,6 +226,7 @@ class PopulationSolver:
         device="cuda",
         draws=None,
         mesh: Mesh | None = None,
+        _graphed: bool = True,
     ):
         self.problem = problem
         self.config = config
@@ -249,7 +255,7 @@ class PopulationSolver:
         )
         self.program = ChunkProgram(
             problem, config.ls_params(problem.width), config.ils_params(),
-            k_exchange, cull_frac, exchange_every, cull_rank, mesh,
+            k_exchange, cull_frac, exchange_every, cull_rank, mesh, DescentGraphs() if _graphed else None,
         )
 
     def execute_round(self) -> None:

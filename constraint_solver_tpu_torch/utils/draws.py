@@ -46,7 +46,8 @@ source that follows JAX keys advances only their keys, as ``vmap`` of a
 
 ``TorchDraws`` is the production source: one ``torch.Generator`` seeded from the
 solver's seed string; ``state_dict``/``load_state_dict`` carry its state
-through a checkpoint.  ``LaneSlice`` keeps one rank's lanes of a source that
+through a checkpoint, and ``graph_generator`` hands it to a CUDA graph of the
+descent iteration when it draws on the solver's card.  ``LaneSlice`` keeps one rank's lanes of a source that
 draws for the whole population (the multi-device solvers).  A test-only source
 that follows the JAX key tree exactly
 lives with the tests, so that the port and the JAX package can be fed identical
@@ -288,6 +289,14 @@ class TorchDraws:
         out = self._out(u, kick_col, self._ints(0, n))
         gumbel = self._out(self._gumbel(n))[0] if sampled else None
         return PMCDraws(*out, gumbel)
+
+    def graph_generator(self) -> torch.Generator | None:
+        """The generator a CUDA graph of a descent iteration registers
+        (``core/graphed.py``): this source's, when it draws on a CUDA device
+        and that device is the solver's; else None, and descents run eagerly."""
+        if self._draw_device.type == "cuda" and self._draw_device == self.device:
+            return self._gen
+        return None
 
     def state_dict(self) -> dict:
         """The generator's state, a CPU uint8 tensor."""

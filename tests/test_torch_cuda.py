@@ -16,7 +16,9 @@ plain versions bit for bit, staged or not, and the ported harness's loops must
 give the CPU's sums.  The incremental QAP state must stay exact on the card.  The user
 surface runs on the card too: the nqueens CLI launches the kernel, the HTTP
 service answers a round, the roofline counts the kernel's launches, and
-threads that reach the kernel's first use together build it once.  Two gloo
+threads that reach the kernel's first use together build it once.  The descent
+replayed as CUDA graphs equals the eager loop bit for bit, after a checkpoint's
+``load`` too and on two threads at once.  Two gloo
 ranks sharing the card run the pop- and nbr-sharded N-Queens solves, equal to
 the same sharded solves on the CPU (the rank bodies are in
 ``tests/torch_ranks.py``)."""
@@ -325,6 +327,109 @@ def test_cuda_service_round(cuda):
     assert nk.nqueens_neighborhood_scores.launches > before
     assert r["result"]["score"]["hard_score"] == float(total_conflicts(torch.as_tensor(rows)))
     service.delete(sid)
+
+
+def _graphs_solver(device, exact, graphed, seed="graphs"):
+    """nqueens-40, 6 lanes, drawing on ``device``: on the card its descents
+    replay as CUDA graphs unless ``graphed`` is False."""
+    config = SolverConfig(
+        seed=seed, local_search_max_iterations=20, best_solutions_capacity=4,
+        all_solutions_capacity=32, restart_every=3, tabu_exact_filter=exact,
+    )
+    return PopulationSolver(make_nqueens_problem(40), config, population=6, exchange_every=2, device=device,
+                            _graphed=graphed)
+
+
+def _graphs_run(solver, chunks=2):
+    before = nk.nqueens_neighborhood_scores.launches
+    trace = np.concatenate([solver.execute_chunk_traced(2) for _ in range(chunks)])
+    return (to_reference(solver.state), trace, solver.stats(), solver.draws.state_dict()["generator"],
+            nk.nqueens_neighborhood_scores.launches - before)
+
+
+def _graphs_equal(a, b):
+    compare(a[0], b[0])
+    np.testing.assert_array_equal(a[1], b[1])
+    assert a[2] == b[2] and torch.equal(a[3], b[3]) and a[4] == b[4] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [None, False])
+def test_cuda_graphed_descent_equals_eager(cuda, exact):
+    """The descent replayed as CUDA graphs follows the eager loop's trajectory
+    bit for bit, draws the same numbers and counts the same kernel launches."""
+    graphed = _graphs_solver(cuda, exact, True)
+    got = _graphs_run(graphed)
+    _graphs_equal(got, _graphs_run(_graphs_solver(cuda, exact, False)))
+    assert len(graphed.program.graphs._units) == 1 and graphed.program.graphs.capture_s > 0
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_single_lane_solver_equals_eager(cuda):
+    """``Solver`` (one lane) owns its graphs too."""
+    from constraint_solver_tpu_torch.core.ils import Solver
+
+    def run(graphed):
+        config = SolverConfig(seed="one-lane", local_search_max_iterations=30, all_solutions_capacity=32)
+        s = Solver(make_nqueens_problem(40), config, device=cuda, _graphed=graphed)
+        for _ in range(4):
+            s.execute_round()
+        return s, to_reference(s.state)
+
+    (graphed, got), (_, want) = run(True), run(False)
+    compare(got, want)
+    assert len(graphed.graphs._units) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_descent_resumes_from_a_checkpoint(cuda, tmp_path):
+    """``load`` replaces the solver's tensors and the generator's state: the
+    next descent copies them into the static carry, so a graphed solver that
+    loads its own earlier checkpoint follows the same trajectory again."""
+    s = _graphs_solver(cuda, False, True)
+    s.execute_chunk_traced(2)
+    path = str(tmp_path / "graphs")
+    s.save(path)
+    want = _graphs_run(s)
+    s.load(path)
+    _graphs_equal(_graphs_run(s), want)
+    fresh = _graphs_solver(cuda, False, True)
+    fresh.load(path)
+    _graphs_equal(_graphs_run(fresh), want)
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_solvers_on_two_threads(cuda):
+    """Two graphed solvers captured and replayed on two threads at once (the
+    service's handler threads) each equal the eager run, and the kernel's
+    counter holds every launch."""
+    import threading
+
+    want = {
+        exact: _graphs_run(_graphs_solver(cuda, exact, False, seed=f"threads-{exact}")) for exact in (None, False)
+    }
+    before = nk.nqueens_neighborhood_scores.launches
+    got, errors = {}, []
+
+    def work(exact):
+        try:
+            got[exact] = _graphs_run(_graphs_solver(cuda, exact, True, seed=f"threads-{exact}"))
+        except Exception as e:  # re-raised below, in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(exact,)) for exact in (None, False)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    if errors:
+        raise errors[0]
+    for exact in (None, False):
+        compare(got[exact][0], want[exact][0])
+        np.testing.assert_array_equal(got[exact][1], want[exact][1])
+        assert got[exact][2] == want[exact][2] and torch.equal(got[exact][3], want[exact][3])
+    assert nk.nqueens_neighborhood_scores.launches - before == want[None][4] + want[False][4]
 
 
 @pytest.mark.cuda
