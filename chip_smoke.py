@@ -47,6 +47,20 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    must be equal; it prints both walls, the capture time and both peak
    memories, each with the card's name and power limit, then the benchmark's
    traced round on the second round of a fresh solver on each path;
+4c. the same comparison for the other domains that replay their descents as
+   graphs, each from one seed, drawing on the card: scheduling 31 d x 7 e with
+   8 lanes (random, dense, noisy dense and systematic proposers, 4 rounds),
+   the roster cell's configuration (365 d x 20 e, dense, 64 lanes, 8 rounds
+   after a 4-round warm-up), qap-64 with 8 lanes (dense, compact,
+   incremental), qap-256 with 64 (dense, compact) and qap-4096 incremental
+   with 4 (2 rounds; G and H are 268 MB each), Ackley d = 10 with 64 lanes
+   (6 rounds of descents of at most 40 iterations) and the diagram layout (8
+   boxes with 4 lanes, 64 boxes with 64, 3 rounds): state trees, traces,
+   ``stats()`` and the generator's state equal; both walls and ms per
+   iteration, the capture time and both peak memories, with the card's name
+   and power limit; then the benchmark's traced round on the second round of
+   a fresh roster solver, eager and graphed.  Every later phase whose draws
+   are made on the card runs its descents as graphs (the solvers' default);
 5. parallel min-conflicts, the kernel's second caller: ``pmc_solve(1000,
    max_steps=5000)`` on the card over the full [n, n] block after one warm-up
    solve (zero conflicts by an independent count, the carried score equal to
@@ -58,7 +72,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    host-side draws: every state leaf must be equal;
 7. scheduling at the JAX bench's size (365 days x 20 employees from
    2024-01-01, 10 holidays each): (a) the dense throughput arm, 64 lanes, 40
-   rounds after a 4-round warm-up, which must reach hard 0; (b) the random
+   rounds after a 4-round warm-up, which must reach hard 0, with its ms per
+   lockstep iteration; (b) the random
    window quality arm (``presets.scheduling_quality``, 128 lanes, culling a
    quarter) for ``QUALITY_WALL_S``.  For both, the recorded best must equal a
    rescore by the date-based scorer below (independent of the port), and every
@@ -70,7 +85,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    compact, 16 lanes; (d) qap-4096 incremental, 4 lanes, with the perturbation
    (which rebuilds H) timed apart and the carried G and H exact.  For (b)-(d)
    the recorded best must be a permutation whose carried cost is within 1e-3
-   of an int64 host cost; one more round of each runs under ``torch.profiler``;
+   of an int64 host cost, and the timed run's peak and reserved memory are
+   printed; one more round of each runs under ``torch.profiler``;
 9. Ackley d=10, 64 lanes, the JAX CLI's configuration, until |f| <= 1e-2 or
    ``ACKLEY_WALL_S``: the recorded best equal to the float64 function of its
    point within 2e-5;
@@ -669,12 +685,12 @@ def card_line() -> str:
     ).stdout.strip()
 
 
-def graphs_pair(device, make, drive) -> dict:
-    """4b's comparison: ``drive`` on an eager solver (``_graphed=False``) and on
-    a graphed one, each from ``make(graphed)``; the final state trees, what
-    ``drive`` returns (the traces), ``stats()``, the generator's state and the
-    kernel's launches must be equal.  Each side's wall, its peak memory, and the
-    graphed side's capture time."""
+def graphs_pair(device, make, drive, label="4b") -> dict:
+    """4b's and 4c's comparison: ``drive`` on an eager solver (``_graphed=False``)
+    and on a graphed one, each from ``make(graphed)``; the final state trees,
+    what ``drive`` returns (the traces), ``stats()``, the generator's state and
+    the kernel's launches must be equal.  Each side's wall, its peak memory, and
+    the graphed side's capture time."""
     import torch
 
     from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
@@ -708,14 +724,14 @@ def graphs_pair(device, make, drive) -> dict:
     eager, graph = out[False], out[True]
     assert_tree_equal(graph["state"], eager["state"])
     if not np.array_equal(np.asarray(graph["result"]), np.asarray(eager["result"])):
-        raise AssertionError("phase 4b: graphed and eager traces differ")
+        raise AssertionError(f"phase {label}: graphed and eager traces differ")
     for key in ("stats", "launches"):
         if graph[key] != eager[key]:
-            raise AssertionError(f"phase 4b: graphed and eager {key} differ: {graph[key]} != {eager[key]}")
+            raise AssertionError(f"phase {label}: graphed and eager {key} differ: {graph[key]} != {eager[key]}")
     if not torch.equal(graph["generator"], eager["generator"]):
-        raise AssertionError("phase 4b: the generator's state differs after the graphed run")
+        raise AssertionError(f"phase {label}: the generator's state differs after the graphed run")
     if is_cuda(device) and graph["units"] != 1:
-        raise AssertionError(f"phase 4b: the graphed solver made {graph['units']} graphed descents, not 1")
+        raise AssertionError(f"phase {label}: the graphed solver made {graph['units']} graphed descents, not 1")
     return {side: {k: v[k] for k in ("wall_s", "peak_bytes", "reserved_bytes", "capture_s", "launches", "stats")}
             for side, v in (("eager", eager), ("graphed", graph))}
 
@@ -793,10 +809,123 @@ def phase_graphs(device, n=MAIN_N, population=MAIN_P, small_n=64, small_p=8, car
     return out
 
 
-def second_round_trace(device, problem, config, population, graphed) -> dict:
+def graphs_domain_cases(sched_p=8, roster=(365, 20, 64, 8), qap_small=(64, 8), qap_big=(256, 64), qap_inc=(4096, 4),
+                        ackley=(10, 64, 6), diagrams=((8, 10, 8, 3, 4, 3), (64, 96, 32, 4, 64, 3))) -> list:
+    """4c's configurations: (label, problem, config, solver keywords, warm-up
+    rounds, chunks of rounds), each drawing on the solver's device."""
+    from constraint_solver_tpu_torch.core.ils import SolverConfig
+    from constraint_solver_tpu_torch.models.ackley import make_ackley_problem
+    from constraint_solver_tpu_torch.models.diagram_layout import DiagramLayoutSpec, make_diagram_layout_problem
+    from constraint_solver_tpu_torch.models.qap import QAPSpec, make_qap_problem
+    from constraint_solver_tpu_torch.models.scheduling import ScheduleSpec, make_scheduling_problem
+
+    cases = []
+    # Phase 6's scheduling instance and configuration.
+    d0 = datetime.date(2022, 5, 9)
+    spec = ScheduleSpec.from_dates(d0, d0 + datetime.timedelta(days=30), 7)
+    sched_kw = dict(
+        seed="smoke-sched", local_search_max_iterations=60, best_solutions_capacity=8, all_solutions_capacity=128,
+        all_solution_iteration_expiry=1000, max_allow_no_improvement_for=20, restart_every=3,
+    )
+    for proposer, extra in (*SCHED_MODES, ("systematic", {})):
+        noisy = " noisy" if extra else ""
+        cases.append((f"scheduling-31d-7e {proposer}{noisy} P={sched_p}", make_scheduling_problem(spec, proposer=proposer),
+                      SolverConfig(**sched_kw, **extra), dict(population=sched_p, exchange_every=2, cull_frac=0.25),
+                      0, (2, 2)))
+    # The roster cell's configuration (phase 7a's).
+    days, emps, population, rounds = roster
+    roster_spec, _, _ = bench_schedule(days, emps)
+    cases.append((
+        f"scheduling-{days}d-{emps}e dense P={population} (the roster cell)",
+        make_scheduling_problem(roster_spec, proposer="dense", n_rand_swaps=256),
+        SolverConfig(seed="bench", local_search_max_iterations=50, best_solutions_capacity=16,
+                     all_solutions_capacity=64, all_solution_iteration_expiry=1_000,
+                     iterated_local_search_max_iterations=10_000, max_allow_no_improvement_for=20),
+        dict(population=population, exchange_every=4), 4, (4,) * (rounds // 4),
+    ))
+    # Phase 8's QAP configurations.
+    for (n, population), modes, warm, chunks in ((qap_small, QAP_MODES, 0, (2, 2)),
+                                                 (qap_big, ("dense", "compact"), 2, (2, 2)),
+                                                 (qap_inc, ("incremental",), 1, (2,))):
+        for mode in modes:
+            cases.append((f"qap-{n} {mode} P={population}", make_qap_problem(QAPSpec.random(n, seed=0), **QAP_MODES[mode]),
+                          qap_config("smoke-qap"), dict(population=population), warm, chunks))
+    # Phase 9's Ackley configuration with its profiled round's descents of at
+    # most 40 iterations (the JAX CLI's 10,000 run every round to the limit).
+    d, population, rounds = ackley
+    cases.append((
+        f"ackley-{d}d P={population} (LS max 40)", make_ackley_problem(d),
+        SolverConfig(seed="42", local_search_max_iterations=40, best_solutions_capacity=32,
+                     all_solutions_capacity=512, all_solution_iteration_expiry=10_000,
+                     iterated_local_search_max_iterations=1000, max_allow_no_improvement_for=10),
+        dict(population=population), 1, (2,) * (rounds // 2),
+    ))
+    # Phase 10's diagram instances.
+    for boxes, edges, grid, max_size, population, rounds in diagrams:
+        spec_d = DiagramLayoutSpec.random(boxes, edges, grid, seed=0, max_size=max_size)
+        cases.append((f"diagram-{boxes}b-{grid}g P={population}", make_diagram_layout_problem(spec_d),
+                      diagram_config("smoke-diagram"), dict(population=population, exchange_every=2),
+                      1 if boxes > 8 else 0, (rounds,)))
+    return cases
+
+
+def phase_graphs_domains(device, card=None, **sizes) -> dict:
+    """4c. The descents of scheduling (every proposer), QAP (every mode),
+    Ackley and the diagram layout replayed as CUDA graphs against the eager
+    loop, from one seed each, drawing on the device: for each configuration of
+    ``graphs_domain_cases``, after its warm-up rounds on a throwaway solver of
+    each side, its chunks with their traces; state trees, traces, ``stats()``
+    and the generator's state must be equal."""
+    from constraint_solver_tpu_torch.parallel.population import PopulationSolver
+
+    card = card or (card_line() if is_cuda(device) else "cpu")
+    out = {}
+    for label, problem, config, kw, warm, chunks in graphs_domain_cases(**sizes):
+        counted, counters = instrument(problem, device)
+
+        def make(graphed):
+            counters.calls = 0
+            return PopulationSolver(counted, config, device=device, _graphed=graphed, **kw)
+
+        t0 = time.time()
+        for graphed in (False, True):
+            if warm:
+                make(graphed).run(max_rounds=warm, chunk=warm)  # first-call costs stay out of the walls
+        sync(device)
+        warm_s = time.time() - t0
+        pair = graphs_pair(device, make, lambda s: np.concatenate([s.execute_chunk_traced(c) for c in chunks]),
+                           label="4c")
+        eager, graph = pair["eager"], pair["graphed"]
+        iterations = counters.calls  # the graphed side's, which equal the eager side's (stats)
+        out[label] = {**pair, "iterations": iterations, "warm_up_s": warm_s,
+                      "ms_per_iteration": {k: 1e3 * v["wall_s"] / max(iterations, 1) for k, v in pair.items()}}
+        log(f"phase 4c: {label}: graphed == eager (state, traces, stats, generator) after {graph['stats']['rounds']} "
+            f"rounds, {iterations} lockstep iterations, {graph['stats']['ls_iterations']} descent iterations; "
+            f"walls eager {eager['wall_s']:.4f} s, graphed {graph['wall_s']:.4f} s "
+            f"({out[label]['ms_per_iteration']['eager']:.4f} / {out[label]['ms_per_iteration']['graphed']:.4f} "
+            f"ms per iteration); capture {graph['capture_s']:.4f} s (host, inside the graphed wall); peak memory "
+            f"eager {eager['peak_bytes']} B, graphed {graph['peak_bytes']} B, reserved after each "
+            f"{eager['reserved_bytes']} B, {graph['reserved_bytes']} B; {card}")
+        if is_cuda(device) and "roster" in label:
+            out[label]["second_round"] = {}
+            for graphed in (False, True):
+                trace = second_round_trace(device, problem, config, kw["population"], graphed, kw["exchange_every"])
+                out[label]["second_round"]["graphed" if graphed else "eager"] = trace
+                log(f"phase 4c: roster traced second round, {'graphed' if graphed else 'eager'}: "
+                    f"{trace['iterations']} iterations in {trace['wall_s']:.4f} s, idle {trace['idle_share']:.4f}, "
+                    f"busy {trace['busy_ms_per_iteration']:.4f} ms, "
+                    f"{trace['device_kernels'] / trace['iterations']:.3f} kernels and "
+                    f"{trace['host_reads'] / trace['iterations']:.3f} host reads per iteration; top "
+                    f"{[(o['name'][:40], round(o['ms'], 3), o['calls']) for o in trace['top_device_ops'][:5]]}; "
+                    f"gaps {trace['idle_gaps']}; {card}")
+    return out
+
+
+def second_round_trace(device, problem, config, population, graphed, exchange_every=2) -> dict:
     """The benchmark's traced round (``bench_torch.run.traced_round``) on the
-    second round of a fresh main-path solver, past the graphed path's capture:
-    its steady state, where the benchmark traces a first round."""
+    second round of a fresh solver (the main path's, or phase 4c's roster),
+    past the graphed path's capture: its steady state, where the benchmark
+    traces a first round."""
     from bench_torch import run as bench_run
     from constraint_solver_tpu_torch.parallel.population import PopulationSolver
 
@@ -804,8 +933,8 @@ def second_round_trace(device, problem, config, population, graphed) -> dict:
 
     class SecondRound:
         def trace_setup(self):
-            s = PopulationSolver(counted, config, population=population, exchange_every=2, device=device,
-                                 _graphed=graphed)
+            s = PopulationSolver(counted, config, population=population, exchange_every=exchange_every,
+                                 device=device, _graphed=graphed)
             s.execute_round()
 
             def step() -> int:
@@ -985,7 +1114,7 @@ def phase_schedule_bench(device, population=64, q_population=128, rounds=40, qua
     out = {}
 
     # (a) Throughput arm: the dense block with 256 random swaps.
-    dense = make_scheduling_problem(spec, proposer="dense", n_rand_swaps=256)
+    dense, counters = instrument(make_scheduling_problem(spec, proposer="dense", n_rand_swaps=256), device)
     config = SolverConfig(
         seed="bench", local_search_max_iterations=50, best_solutions_capacity=16,
         all_solutions_capacity=64, all_solution_iteration_expiry=1_000,
@@ -1000,6 +1129,7 @@ def phase_schedule_bench(device, population=64, q_population=128, rounds=40, qua
     sync(device)
     log(f"phase 7a: warm-up (4 rounds) {time.time() - t0:.3f} s")
     s = dense_solver()
+    counters.reset()
     t0 = time.time()
     s.run(max_rounds=rounds, chunk=4)
     sync(device)
@@ -1008,12 +1138,14 @@ def phase_schedule_bench(device, population=64, q_population=128, rounds=40, qua
     hard, soft = check_schedule(s, dense, d0, hols, "phase 7a")
     if hard != 0:
         raise AssertionError(f"phase 7a: dense arm ended at ({hard}, {soft}) after {stats['rounds']} rounds")
+    ms_it = 1e3 * wall / max(counters.calls, 1)
     log(
         f"phase 7a: scheduling-{days}d-{emps}e dense P={population}: best ({hard}, {soft}) in {wall:.3f} s, "
-        f"{stats['rounds']} rounds, {stats['ls_iterations']} descent iterations, "
-        f"moves/s {stats['moves_evaluated'] / wall:.4g}"
+        f"{stats['rounds']} rounds, {counters.calls} lockstep iterations ({ms_it:.4f} ms each), "
+        f"{stats['ls_iterations']} descent iterations, moves/s {stats['moves_evaluated'] / wall:.4g}"
     )
-    out["dense"] = {"best": [hard, soft], "wall_s": wall, **stats, "moves_per_sec": stats["moves_evaluated"] / wall}
+    out["dense"] = {"best": [hard, soft], "wall_s": wall, **stats, "moves_per_sec": stats["moves_evaluated"] / wall,
+                    "lockstep_iterations": counters.calls, "ms_per_iteration": ms_it}
 
     # (b) Quality arm: the random window with culling, for a fixed wall budget.
     window = make_scheduling_problem(spec, proposer="random", window_size=100)
@@ -1178,6 +1310,8 @@ def qap_arm(device, n, population, mode, warm, rounds, label, capacity=8):
     """``warm`` warm-up rounds on one solver, then ``rounds`` timed rounds
     (chunk 2) on a fresh one, the int64 cost check and one profiled round.
     Returns the measurements and the timed solver."""
+    import torch
+
     from constraint_solver_tpu_torch.models.qap import QAPSpec, make_qap_problem
     from constraint_solver_tpu_torch.parallel.population import PopulationSolver
 
@@ -1190,6 +1324,8 @@ def qap_arm(device, n, population, mode, warm, rounds, label, capacity=8):
     PopulationSolver(problem, config, population=population, device=device).run(max_rounds=warm, chunk=2)
     sync(device)
     log(f"phase 8{label}: qap-{n} {mode} P={population} warm-up ({warm} rounds) {time.time() - t0:.3f} s")
+    if is_cuda(device):
+        torch.cuda.reset_peak_memory_stats(device)
     s = PopulationSolver(problem, config, population=population, device=device)
     counters.reset()
     t0 = time.time()
@@ -1198,6 +1334,7 @@ def qap_arm(device, n, population, mode, warm, rounds, label, capacity=8):
     wall = time.time() - t0
     stats = s.stats()
     calls, perturb_s = counters.calls, counters.perturb_s()
+    memory = (torch.cuda.max_memory_allocated(device), torch.cuda.memory_reserved(device)) if is_cuda(device) else None
     (cost, _), best = s.get_best_solution()
     perm = best.p if mode == "incremental" else best
     if sorted(perm.tolist()) != list(range(n)):
@@ -1211,6 +1348,7 @@ def qap_arm(device, n, population, mode, warm, rounds, label, capacity=8):
         "wall_per_round_s": wall / rounds, "best_carried": cost, "best_int64": exact,
         "lockstep_iterations": calls, "ms_per_iteration": 1e3 * wall / max(calls, 1),
         "ls_iterations": stats["ls_iterations"], "moves_per_sec": stats["moves_evaluated"] / wall,
+        "peak_bytes": memory and memory[0], "reserved_bytes": memory and memory[1],
     }
     if mode == "incremental":
         out["perturb_s"] = perturb_s
@@ -1220,7 +1358,8 @@ def qap_arm(device, n, population, mode, warm, rounds, label, capacity=8):
     log(
         f"phase 8{label}: qap-{n} {mode} P={population}: {rounds} rounds in {wall:.3f} s, "
         f"{calls} lockstep iterations ({out['ms_per_iteration']:.3f} ms each), best {cost:.0f} "
-        f"(int64 host cost {exact}), moves/s {out['moves_per_sec']:.4g}"
+        f"(int64 host cost {exact}), moves/s {out['moves_per_sec']:.4g}, peak memory {out['peak_bytes']} B, "
+        f"reserved {out['reserved_bytes']} B"
         + (f", perturbation with H rebuild {perturb_s:.3f} s ({out['rebuild_share']:.3f} of the wall)"
            if mode == "incremental" else "")
         + (f", profiled round: {out['profile']}" if "profile" in out else "")
@@ -2317,6 +2456,7 @@ def main() -> None:
     nk.nqueens_neighborhood_scores.launches = 0
     graphs = phase_graphs(device, card=card)
     graphs_launches = nk.nqueens_neighborhood_scores.launches
+    graphs_domains = phase_graphs_domains(device, card=card)
     pmc_run = phase_pmc(device)
     phase_schedule_cross_device(device)
     sched = phase_schedule_bench(device)
@@ -2345,7 +2485,7 @@ def main() -> None:
     kernel["launches_by_path"] = paths
 
     log(json.dumps({
-        "main_path": main_run, "graphs": graphs, "pmc": pmc_run, "scheduling": sched, "qap": qap, "ackley": ackley,
+        "main_path": main_run, "graphs": graphs, "graphs_domains": graphs_domains, "pmc": pmc_run, "scheduling": sched, "qap": qap, "ackley": ackley,
         "diagram": diagram, "phased": phased, "checkpoint": ckpt, "surface": surface, "multi_device": multi,
         "bench": bench, "card": card,
     }, default=str))

@@ -2,14 +2,14 @@
 compiles its whole ``while_loop`` instead).
 
 On the card a descent iteration of the eager loop (``core/local_search.py``)
-issues some 330 kernel launches from Python and reads the host once
-(pick-then-check's ``need.any()``), so the host's launch rate, not the device,
-sets its time.  Here an iteration replays as two or three graphs, split at that
-read:
+issues some 230 to 1,700 kernel launches from Python, by domain, and reads the
+host at most once (pick-then-check's ``need.any()``), so the host's launch
+rate, not the device, sets its time.  Here an iteration replays as two or
+three graphs, split at that read:
 
-- **A** (``_begin``): the tabu push, ``is_best``, the neighborhood (its draws,
-  the column sample, the kernel, the hint), the first pick and the ``need``
-  mask with its ``any``;
+- **A** (``_begin``): the tabu push, ``is_best``, the neighborhood (its draws
+  and every op of the proposer, N-Queens' kernel included), the first pick
+  and, with pick-then-check, the ``need`` mask with its ``any``;
 - the host reads ``need_any``; while it is set, **R** (``_retry``) replays, at
   most ``tabu_retries - 1`` times, writing its pick and mask over A's;
 - **B** (``_finish``): the move and the carry's selects, then the select by the
@@ -33,14 +33,23 @@ op for it to count), and a draw source whose generator lives on the card
 (``graph_generator``).  Every other descent runs the eager loop.  A capture or
 a replay that fails raises: nothing falls back to the eager loop.
 
+Every problem that declares itself ``capturable`` (N-Queens and QAP without
+``nbr_axis``, scheduling with every proposer, Ackley, the diagram layout)
+takes this path; one unit serves whatever its problem's state tree holds (QAP
+incremental carries G and H, [P, n, n] each), and the phased solver, which
+switches problem at a round, makes one unit per phase.
+
 A unit runs its first iteration eagerly, on its static carry (that loads every
-kernel and fills every per-device cache, such as the N-Queens log table, before
-any capture), captures A and B at its second iteration, and R at its first
-retry after that; each capture is replayed at once.  Each descent copies its
+kernel and fills every per-device cache, such as the N-Queens log table, the
+scheduling tables, QAP's F and D and the diagram's constants, before any
+capture), captures A and B at its second iteration, and R at its first retry
+after that; each capture is replayed at once.  Each descent copies its
 start carry into the static carry and returns copies of the results, so the next
 descent, or a checkpoint's ``load``, never meets stale buffers.  Captures run on
 a side stream in ``thread_local`` error mode, so the service's other handler
-threads may launch work meanwhile.  The kernel's launch counters
+threads may launch work meanwhile; the side stream is ordered after the
+current stream's queued replays, and before its next work (``capture``).  The
+kernel's launch counters
 (``ops/nqueens_kernel.py``) count nothing at a capture and what it captured at
 each replay, so they equal the eager run's.  A replayed iteration runs no
 ``neighborhood``; it calls ``neighborhood(None, None, None, None)`` once, so
@@ -99,26 +108,43 @@ class Captured(NamedTuple):
 
     def replay(self) -> None:
         self.graph.replay()
-        nqueens_kernel.count_replay(self.launches)
+        if self.launches:  # the domains without N-Queens' kernel capture none
+            nqueens_kernel.count_replay(self.launches)
 
 
 def capture(fn: Callable, graph, stream=None, pool=None, generator=None) -> Captured:
     """Capture ``fn()`` into ``graph`` (a ``torch.cuda.CUDAGraph``) on
     ``stream`` (None: the current one, for a stand-in graph), in the memory
     ``pool``, with ``generator`` registered.  The kernel's counters see nothing
-    of it.  Raises what the capture raises."""
+    of it.  Raises what the capture raises.
+
+    ``stream`` waits for the work queued on the current stream before the
+    capture, and the current stream for ``stream`` after it: ``capture_begin``
+    refills the registered generator's seed and offset on the device, outside
+    the graph and on the capturing stream, and that refill must land neither
+    while a replay queued before it still draws (a segment captured right after
+    another segment's replay, with no host read between them) nor after the
+    refill of the next replay."""
     if generator is not None:
         graph.register_generator_state(generator)
-    on_stream = contextlib.nullcontext() if stream is None else torch.cuda.stream(stream)
-    with nqueens_kernel.captured_launches() as launches, on_stream:
-        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-        try:
-            out = fn()
-        except BaseException:
-            with contextlib.suppress(RuntimeError):  # ending a failed capture may fail too; raise the cause
-                graph.capture_end()
-            raise
-        graph.capture_end()
+    on_stream, current = contextlib.nullcontext(), None
+    if stream is not None:
+        current = torch.cuda.current_stream(stream.device)
+        stream.wait_stream(current)
+        on_stream = torch.cuda.stream(stream)
+    try:
+        with nqueens_kernel.captured_launches() as launches, on_stream:
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                out = fn()
+            except BaseException:
+                with contextlib.suppress(RuntimeError):  # ending a failed capture may fail too; raise the cause
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+    finally:
+        if current is not None:
+            current.wait_stream(stream)
     return Captured(graph, out, launches)
 
 

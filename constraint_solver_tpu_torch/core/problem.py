@@ -72,7 +72,8 @@ class Problem(NamedTuple):
                   run ``neighborhood``; it calls ``neighborhood(None, None,
                   None, None)``, which must return at once, so that whatever
                   wraps ``neighborhood`` (a counter, a profiler span) still
-                  sees one call per iteration.
+                  sees one call per iteration (``replayable`` gives a
+                  neighborhood that form).
     """
 
     name: str
@@ -86,3 +87,15 @@ class Problem(NamedTuple):
     perturb: Callable
     width: int = 0
     capturable: bool = False
+
+
+def replayable(neighborhood: Callable) -> Callable:
+    """``neighborhood`` that returns None at once when a replayed iteration
+    calls it as ``neighborhood(None, None, None, None)`` (``Problem.capturable``)."""
+
+    def call(state, cur_score, draws, active):
+        if state is None:
+            return None
+        return neighborhood(state, cur_score, draws, active)
+
+    return call

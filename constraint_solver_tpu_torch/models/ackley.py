@@ -22,6 +22,9 @@ Divergences from the JAX package:
   about 1e-6 relative, not bit for bit.  Positions and fingerprints (the bit
   patterns of the points) follow the same arithmetic and agree exactly while
   no two candidates are that close.
+
+The problem is ``capturable`` (``core/problem.py``): on the card the solvers
+replay its descent iterations as CUDA graphs.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import math
 import numpy as np
 import torch
 
-from constraint_solver_tpu_torch.core.problem import Neighborhood, Problem
+from constraint_solver_tpu_torch.core.problem import Neighborhood, Problem, replayable
 from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_f32, fp_update
 from constraint_solver_tpu_torch.ops.lex import make_score
 
@@ -50,9 +53,11 @@ def ackley_np(x: np.ndarray, a: float = _A, b: float = _B, c: float = _C) -> flo
 
 
 def ackley(x: torch.Tensor, a: float = _A, b: float = _B, c: float = _C) -> torch.Tensor:
-    """float32 Ackley over the last axis.  Divisions are by tensors: CUDA
-    multiplies by the reciprocal of a Python scalar divisor."""
-    d = x.new_tensor(x.shape[-1])
+    """float32 Ackley over the last axis.  Divisions are by a tensor filled on
+    ``x``'s device: CUDA multiplies by the reciprocal of a Python scalar
+    divisor, and a tensor made from host data is a copy a CUDA graph cannot
+    capture."""
+    d = torch.full((), x.shape[-1], dtype=x.dtype, device=x.device)
     sq = (x * x).sum(dim=-1) / d
     cs = torch.cos(c * x).sum(dim=-1) / d
     return -a * torch.exp(-b * torch.sqrt(sq)) - torch.exp(cs) + a + math.e
@@ -110,9 +115,10 @@ def make_ackley_problem(
         score=score,
         is_best=is_best,
         fingerprint=fingerprint_f32,
-        neighborhood=neighborhood,
+        neighborhood=replayable(neighborhood),
         move_fp=move_fp,
         apply_move=apply_move,
         perturb=perturb,
         width=2 * d,
+        capturable=True,
     )

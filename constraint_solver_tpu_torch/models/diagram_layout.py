@@ -23,6 +23,10 @@ Divergences from the JAX package:
   ``torch.einsum`` in float32 over 0/1 and small-integer operands: exact in
   any summation order, as on the TPU.
 - **Draws** come from a ``Draws`` source (``utils/draws.py``).
+
+The problem is ``capturable`` (``core/problem.py``): on the card the solvers
+replay its descent iterations as CUDA graphs; its per-device constants are
+filled by the first ``score`` on a device, before any capture.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from constraint_solver_tpu_torch.core.problem import Neighborhood, Problem
+from constraint_solver_tpu_torch.core.problem import Neighborhood, Problem, replayable
 from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32, fp_update
 from constraint_solver_tpu_torch.ops.lex import make_score
 
@@ -226,11 +230,12 @@ def make_diagram_layout_problem(spec: DiagramLayoutSpec) -> Problem:
         score=score,
         is_best=is_best,
         fingerprint=fingerprint,
-        neighborhood=neighborhood,
+        neighborhood=replayable(neighborhood),
         move_fp=move_fp,
         apply_move=apply_move,
         perturb=perturb,
         width=n_boxes * grid * grid,
+        capturable=True,
     )
 
 

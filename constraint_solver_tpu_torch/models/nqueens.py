@@ -52,7 +52,7 @@ from typing import NamedTuple
 
 import torch
 
-from constraint_solver_tpu_torch.core.problem import Neighborhood, Problem
+from constraint_solver_tpu_torch.core.problem import Neighborhood, Problem, replayable
 from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32, fp_update
 from constraint_solver_tpu_torch.ops.lex import first_true, make_score
 from constraint_solver_tpu_torch.ops.nqueens_kernel import nqueens_neighborhood_scores
@@ -207,8 +207,6 @@ def make_nqueens_problem(
         return fingerprint_i32(state.rows)
 
     def neighborhood(state, cur_score, draws, active):
-        if state is None:  # a replayed iteration's call (core/problem.py, ``capturable``)
-            return None
         rows, rc, dc, ac, cs = state
         p = rows.shape[0]
         device = rows.device
@@ -331,7 +329,7 @@ def make_nqueens_problem(
         score=score,
         is_best=is_best,
         fingerprint=fingerprint,
-        neighborhood=neighborhood,
+        neighborhood=replayable(neighborhood),
         move_fp=move_fp,
         apply_move=apply_move,
         perturb=perturb,

@@ -50,6 +50,12 @@ Divergences from the JAX package:
   exist to be hashable for its ``lru_cache`` and take seconds to build at
   n = 4096.
 
+Without ``nbr_axis`` every mode is ``capturable`` (``core/problem.py``): on the
+card the solvers replay its descent iterations as CUDA graphs.  F and D reach
+the device at the first ``score`` there, before any capture, and every product
+is exact, so a captured GEMM gives the eager one's integers whatever its
+algorithm.
+
 The sharded neighborhood (``nbr_axis``, ``nbr_shards``, ``nbr_keep``), as in the
 JAX package: each rank of the active mesh's ``nbr_axis`` scores its n/shards
 row block of the swap-delta matrix (two [n/S, n] x [n, n] products per lane,
@@ -67,7 +73,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from constraint_solver_tpu_torch.core.problem import Neighborhood, Problem
+from constraint_solver_tpu_torch.core.problem import Neighborhood, Problem, replayable
 from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32, fp_update
 from constraint_solver_tpu_torch.ops.lex import make_score
 from constraint_solver_tpu_torch.parallel.mesh import active_axis, all_gather, gather_best
@@ -331,11 +337,12 @@ def make_qap_problem(
             score=score_inc,
             is_best=is_best,
             fingerprint=lambda st: fingerprint_i32(st.p),
-            neighborhood=neighborhood_inc,
+            neighborhood=replayable(neighborhood_inc),
             move_fp=lambda st, cur_fp, moves, idx: swap_fp(st.p, cur_fp, moves, idx),
             apply_move=apply_move_inc,
             perturb=perturb_inc,
             width=n * n,
+            capturable=True,
         )
 
     if nbr_axis is not None:
@@ -348,9 +355,10 @@ def make_qap_problem(
         score=score,
         is_best=is_best,
         fingerprint=fingerprint_i32,
-        neighborhood=nbr_fn,
+        neighborhood=replayable(nbr_fn),
         move_fp=swap_fp,
         apply_move=apply_move,
         perturb=perturb,
         width=n * n,
+        capturable=nbr_axis is None,
     )

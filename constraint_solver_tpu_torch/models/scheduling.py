@@ -45,6 +45,10 @@ Divergences from the JAX package:
   ``assignment``, ``perturb``).
 - **The systematic proposer draws nothing** and calls ``draws.advance``, as
   the other draw-free proposers do.
+
+Every proposer is ``capturable`` (``core/problem.py``): on the card the solvers
+replay its descent iterations as CUDA graphs.  The per-device tables are filled
+by the first ``score`` on a device, before any capture.
 """
 
 from __future__ import annotations
@@ -57,7 +61,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from constraint_solver_tpu_torch.core.problem import Neighborhood, Problem
+from constraint_solver_tpu_torch.core.problem import Neighborhood, Problem, replayable
 from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32, fp_update, position_hash_planes
 from constraint_solver_tpu_torch.ops.lex import make_score
 
@@ -724,11 +728,12 @@ def make_scheduling_problem(
         score=score,
         is_best=is_best,
         fingerprint=fingerprint_i32,
-        neighborhood=nbr_fn,
+        neighborhood=replayable(nbr_fn),
         move_fp=fp_fn,
         apply_move=apply_fn,
         perturb=_make_perturb(d_days, n_emp),
         width=width,
+        capturable=True,
     )
 
 

@@ -19,7 +19,9 @@ made once, by phase 0's problem and configuration, as the JAX solver uses phase
 0's initial state.  ``mesh`` shards the lanes over its ``pop`` axis for every
 phase, as ``PopulationSolver(mesh=)`` does: the handoff passes each rank's
 share of the state from one program to the next, and every count and best is
-global.
+global.  Every phase's program descends through phase 0's solver's CUDA graphs
+(``core/graphed.py``): one graphed unit per phase's problem, freed with the
+solver.
 """
 
 from __future__ import annotations
@@ -91,7 +93,7 @@ class PhasedPopulationSolver:
         self._programs = [
             ChunkProgram(
                 p.problem, p.config.ls_params(p.problem.width), p.config.ils_params(),
-                k_exchange, cull_frac, exchange_every, cull_rank, mesh,
+                k_exchange, cull_frac, exchange_every, cull_rank, mesh, self._base.program.graphs,
             )
             for p in phases
         ]

@@ -18,7 +18,8 @@ surface runs on the card too: the nqueens CLI launches the kernel, the HTTP
 service answers a round, the roofline counts the kernel's launches, and
 threads that reach the kernel's first use together build it once.  The descent
 replayed as CUDA graphs equals the eager loop bit for bit, after a checkpoint's
-``load`` too and on two threads at once.  Two gloo
+``load`` too and on two threads at once, for N-Queens and for scheduling, QAP,
+Ackley and the diagram layout.  Two gloo
 ranks sharing the card run the pop- and nbr-sharded N-Queens solves, equal to
 the same sharded solves on the CPU (the rank bodies are in
 ``tests/torch_ranks.py``)."""
@@ -30,6 +31,7 @@ import pytest
 import torch
 
 from constraint_solver_tpu_torch.core.ils import SolverConfig
+from constraint_solver_tpu_torch.models.ackley import make_ackley_problem
 from constraint_solver_tpu_torch.models.diagram_layout import DiagramLayoutSpec, make_diagram_layout_problem
 from constraint_solver_tpu_torch.models.nqueens import build_state, make_nqueens_problem, total_conflicts
 from constraint_solver_tpu_torch.models.nqueens_parallel import pmc_solve
@@ -430,6 +432,84 @@ def test_cuda_graphed_solvers_on_two_threads(cuda):
         np.testing.assert_array_equal(got[exact][1], want[exact][1])
         assert got[exact][2] == want[exact][2] and torch.equal(got[exact][3], want[exact][3])
     assert nk.nqueens_neighborhood_scores.launches - before == want[None][4] + want[False][4]
+
+
+def _domain_problem(domain):
+    spec = ScheduleSpec.from_dates(datetime.date(2022, 5, 9), datetime.date(2022, 6, 8), 7)
+    qap = QAPSpec.random(24, seed=0)
+    return {
+        "scheduling-dense": lambda: make_scheduling_problem(spec, proposer="dense", n_rand_swaps=16),
+        "scheduling-random": lambda: make_scheduling_problem(spec, window_size=24, proposer="random"),
+        "scheduling-systematic": lambda: make_scheduling_problem(spec, proposer="systematic"),
+        "qap-dense": lambda: make_qap_problem(qap),
+        "qap-compact": lambda: make_qap_problem(qap, compact=True),
+        "qap-incremental": lambda: make_qap_problem(qap, incremental=True),
+        "ackley": lambda: make_ackley_problem(6),
+        "diagram": lambda: make_diagram_layout_problem(DiagramLayoutSpec.random(8, 10, 8, seed=0)),
+    }[domain]()
+
+
+def _domain_run(device, domain, exact, graphed):
+    """Two chunks of 2 rounds of ``domain`` with 6 lanes, drawing on ``device``:
+    (solver, state, traces, stats, generator state)."""
+    config = SolverConfig(
+        seed=f"graphs-{domain}", local_search_max_iterations=20, best_solutions_capacity=4,
+        all_solutions_capacity=32, restart_every=3, tabu_exact_filter=exact,
+    )
+    s = PopulationSolver(_domain_problem(domain), config, population=6, exchange_every=2, device=device,
+                         _graphed=graphed)
+    trace = np.concatenate([s.execute_chunk_traced(2) for _ in range(2)])
+    return s, to_reference(s.state), trace, s.stats(), s.draws.state_dict()["generator"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [True, False], ids=["exact-filter", "pick-then-check"])
+@pytest.mark.parametrize("domain", ["scheduling-dense", "scheduling-random", "scheduling-systematic", "qap-dense",
+                                    "qap-compact", "qap-incremental", "ackley", "diagram"])
+def test_cuda_graphed_domains_equal_eager(cuda, domain, exact):
+    """Every domain that opts in replays its descents as graphs on the card,
+    bit for bit the eager trajectory, with the same draws."""
+    graphed, *got = _domain_run(cuda, domain, exact, True)
+    _, *want = _domain_run(cuda, domain, exact, False)
+    compare(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[2] == want[2] and torch.equal(got[3], want[3])
+    assert len(graphed.program.graphs._units) == 1 and graphed.program.graphs.capture_s > 0
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_scheduling_and_nqueens_on_two_threads(cuda):
+    """A scheduling solver and an N-Queens solver (the service's two kinds of
+    client) captured and replayed on two threads at once each equal the eager
+    run."""
+    import threading
+
+    def run(kind, graphed):
+        if kind == "nqueens":
+            return _graphs_run(_graphs_solver(cuda, None, graphed, seed="threads-nqueens"))[:4]
+        return tuple(_domain_run(cuda, "scheduling-dense", None, graphed)[1:])
+
+    want = {kind: run(kind, False) for kind in ("nqueens", "scheduling")}
+    got, errors = {}, []
+
+    def work(kind):
+        try:
+            got[kind] = run(kind, True)
+        except Exception as e:  # re-raised below, in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(kind,)) for kind in want]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    if errors:
+        raise errors[0]
+    for kind in want:
+        compare(got[kind][0], want[kind][0])
+        np.testing.assert_array_equal(got[kind][1], want[kind][1])
+        assert got[kind][2] == want[kind][2] and torch.equal(got[kind][3], want[kind][3])
 
 
 @pytest.mark.cuda

@@ -306,7 +306,7 @@ def _host_draws():
         ("cpu", "CUDA graphs need a CUDA device"),
         ("not capturable", "is not capturable"),
         ("sharded neighborhood", "is not capturable"),
-        ("scheduling", "is not capturable"),
+        ("scheduling", None),
         ("mesh", "a mesh is active"),
         ("roofline", "a roofline count is active"),
         ("host draws", "no generator on the card"),
