@@ -61,11 +61,26 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    and power limit; then the benchmark's traced round on the second round of
    a fresh roster solver, eager and graphed.  Every later phase whose draws
    are made on the card runs its descents as graphs (the solvers' default);
+4d. the JAX package's matrix forms of the N-Queens block (``block_impl=
+   "mxu_conv"`` and ``"mxu_toeplitz"``, plain torch ops that run instead of
+   the kernel): at (8, 50, 1000) and (4, 64, 64) each block equal to the
+   kernel's on the same inputs and each neighborhood to the kernel's from the
+   same draws, bit for bit, with both times per call; then nqueens-64 with 8
+   lanes on ``mxu_conv``, graphed == eager as in 4b;
 5. parallel min-conflicts, the kernel's second caller: ``pmc_solve(1000,
    max_steps=5000)`` on the card over the full [n, n] block after one warm-up
-   solve (zero conflicts by an independent count, the carried score equal to
-   it, kernel launches > 0), then nqueens-64 with 4 lanes on the card and on
-   the CPU from host-side draws: the states must be equal;
+   solve, its steps replayed as CUDA graphs (the default; zero conflicts by an
+   independent count, the carried score equal to it, kernel launches > 0),
+   then nqueens-64 with 4 lanes on the card and on the CPU from host-side
+   draws (the eager loop): the states must be equal; then graphed against
+   eager (``_graphed=False``), from one seed, drawing on the card:
+   nqueens-64 with 4 lanes, the nqueens-1000 solve after a warm-up and
+   nqueens-1000 with ``sample_cols=64`` for 200 steps: the final
+   ``PMCState``, the steps, the generator's state and the kernel's launches
+   must be equal; it prints both walls, ms per step, launches per step, the
+   capture time and both peak memories, and, at n = 1000, a profiled stretch
+   of 64 steps of each side (idle share, device kernels and host reads per
+   step), each with the card's name and power limit;
 6. scheduling, the reference CLI instance (31 days x 7 employees from
    2022-05-09, 8 lanes, 4 rounds) with the random proposer, the dense proposer
    and the dense proposer with noisy selection, on the card and on the CPU from
@@ -921,6 +936,64 @@ def phase_graphs_domains(device, card=None, **sizes) -> dict:
     return out
 
 
+MATRIX_FORMS = ("mxu_conv", "mxu_toeplitz")
+
+
+def phase_matrix_forms(device, shapes=((8, 50, 1000), (4, 64, 64)), small_n=64, small_p=8, card=None) -> dict:
+    """4d. The JAX package's matrix forms of the N-Queens block
+    (``block_impl="mxu_conv"``, ``"mxu_toeplitz"``), which run instead of the
+    kernel: at each shape their block equal to the kernel's on the same inputs,
+    and their whole neighborhood to the kernel's (``"slice"``) from the same
+    draws, bit for bit; then nqueens-``small_n`` P=``small_p`` with
+    ``mxu_conv``, graphed against eager (4b's comparison)."""
+    import torch
+
+    from constraint_solver_tpu_torch.core.ils import SolverConfig
+    from constraint_solver_tpu_torch.models.nqueens import build_state, make_nqueens_problem, matrix_block
+    from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+    from constraint_solver_tpu_torch.parallel.population import PopulationSolver
+    from constraint_solver_tpu_torch.utils.draws import TorchDraws
+
+    card = card or (card_line() if is_cuda(device) else "cpu")
+    rng = np.random.default_rng(4)
+    out = {}
+    for p, a, n in shapes:
+        args = kernel_inputs(rng, p, a, n, device)
+        want = nk.nqueens_neighborhood_scores(*args)
+        boards = torch.as_tensor(rng.integers(0, n, size=(p, n)), device=device)
+        on = torch.ones(p, dtype=torch.bool, device=device)
+
+        def neighborhood(impl):
+            problem = make_nqueens_problem(n, sample_cols=a, block_impl=impl)
+            st = build_state(boards)
+            nb = problem.neighborhood(st, problem.score(st), TorchDraws(f"4d-{n}", p, device), on)
+            return nb.scores, nb.valid, nb.hint_idx, nb.n_valid
+
+        want_nb = neighborhood("slice")
+        for impl in MATRIX_FORMS:
+            assert_outputs_equal(want, matrix_block(impl, *args), f"phase 4d: {impl} block at {(p, a, n)}")
+            assert_outputs_equal(want_nb, neighborhood(impl), f"phase 4d: {impl} neighborhood at {(p, a, n)}")
+            ms = {"kernel": None, impl: None}
+            if is_cuda(device):
+                ms = {"kernel": time_ms(nk.nqueens_neighborhood_scores, args, 20),
+                      impl: time_ms(lambda *x: matrix_block(impl, *x), args, 5)}
+            out[f"{impl} {(p, a, n)}"] = ms
+            log(f"phase 4d: {impl} at (P, A, n) = {(p, a, n)}: block and neighborhood == the kernel's; ms per call "
+                f"{ms[impl]}, the kernel's {ms['kernel']}; {card}")
+    config = SolverConfig(seed="smoke-64", local_search_max_iterations=40, best_solutions_capacity=4,
+                          all_solutions_capacity=64, restart_every=4, tabu_exact_filter=False)
+    pair = out["graphs mxu_conv"] = graphs_pair(
+        device,
+        lambda graphed: PopulationSolver(make_nqueens_problem(small_n, block_impl="mxu_conv"), config,
+                                         population=small_p, exchange_every=2, device=device, _graphed=graphed),
+        lambda s: np.concatenate([s.execute_chunk_traced(2) for _ in range(3)]),
+        label="4d",
+    )
+    log(f"phase 4d: nqueens-{small_n} P={small_p} mxu_conv: graphed == eager (state, traces, stats, generator); "
+        f"walls eager {pair['eager']['wall_s']:.4f} s, graphed {pair['graphed']['wall_s']:.4f} s; {card}")
+    return out
+
+
 def second_round_trace(device, problem, config, population, graphed, exchange_every=2) -> dict:
     """The benchmark's traced round (``bench_torch.run.traced_round``) on the
     second round of a fresh solver (the main path's, or phase 4c's roster),
@@ -954,8 +1027,91 @@ def sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def phase_pmc(device, n=PMC_N, max_steps=5000, check_n=64) -> dict:
-    """PMC nqueens-n through the kernel, then a card == CPU check at ``check_n``."""
+def pmc_pair(device, n, population, seed, max_steps, sample_cols=None, warm=False) -> dict:
+    """Phase 5's comparison: ``pmc_solve`` from one seed, drawing on the
+    device, with the eager loop (``_graphed=False``) and through a fresh
+    ``PMCGraphs`` holder (the default: graphs on the card); the final
+    ``PMCState``, the generator's state and the kernel's launches must be
+    equal.  Each side's wall, steps, launches and peak memory, and the graphed
+    side's capture time, after a warm-up solve of each side from another seed
+    when ``warm``."""
+    import torch
+
+    from constraint_solver_tpu_torch.models.nqueens_parallel import PMCGraphs, pmc_solve
+    from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+    from constraint_solver_tpu_torch.utils.convert import to_reference
+    from constraint_solver_tpu_torch.utils.draws import TorchDraws
+
+    cuda = is_cuda(device)
+    out = {}
+    for graphed in (False, True):
+        kw = dict(sample_cols=sample_cols, _graphed=graphed)
+        if warm:
+            pmc_solve(n, TorchDraws(f"{seed}-warm-up", population, device), max_steps, **kw)
+        holder = PMCGraphs() if graphed else None
+        draws = TorchDraws(seed, population, device)
+        sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        launches0 = nk.nqueens_neighborhood_scores.launches
+        t0 = time.time()
+        res = pmc_solve(n, draws, max_steps, graphs=holder, **kw)
+        sync(device)
+        wall = time.time() - t0
+        steps = int(res.steps.max())
+        out[graphed] = {
+            "wall_s": wall, "steps": steps, "ms_per_step": 1e3 * wall / max(steps, 1),
+            "launches": nk.nqueens_neighborhood_scores.launches - launches0,
+            "best": float(res.score.min()), "state": to_reference(res),
+            "generator": draws.state_dict()["generator"],
+            "peak_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
+            "capture_s": holder.capture_s if holder is not None else None,
+            "units": len(holder._units) if holder is not None else None,
+        }
+    eager, graph = out[False], out[True]
+    label = f"phase 5: nqueens-{n} P={population}" + (f" sample_cols={sample_cols}" if sample_cols else "")
+    assert_tree_equal(graph["state"], eager["state"])
+    if not torch.equal(graph["generator"], eager["generator"]):
+        raise AssertionError(f"{label}: the generator's state differs after the graphed run")
+    if graph["launches"] != eager["launches"]:
+        raise AssertionError(f"{label}: kernel launches differ: graphed {graph['launches']}, eager {eager['launches']}")
+    if cuda and graph["units"] != 1:
+        raise AssertionError(f"{label}: the graphed solve made {graph['units']} units, not 1")
+    keys = ("wall_s", "steps", "ms_per_step", "launches", "best", "peak_bytes", "capture_s")
+    return {side: {k: v[k] for k in keys} for side, v in (("eager", eager), ("graphed", graph))}
+
+
+def pmc_stretch(device, n, population, seed, steps, sample_cols, graphed) -> dict:
+    """The benchmark's traced round (``bench_torch.run.traced_round``) over
+    ``steps`` PMC steps of a solve under way: past a first call of 16 steps
+    through the same holder, so a graphed stretch replays only."""
+    from bench_torch import run as bench_run
+    from constraint_solver_tpu_torch.models.nqueens_parallel import PMCGraphs, pmc_init, pmc_run
+    from constraint_solver_tpu_torch.utils.draws import TorchDraws
+
+    class Stretch:
+        def trace_setup(self):
+            draws = TorchDraws(seed, population, device)
+            kw = dict(sample_cols=sample_cols, graphs=PMCGraphs() if graphed else None, _graphed=graphed)
+            carry = pmc_run(pmc_init(n, draws), draws, 16, **kw)
+
+            def step() -> int:
+                return int((pmc_run(carry, draws, steps, **kw).steps - carry.steps).max())
+
+            return step
+
+    return bench_run.traced_round(Stretch(), device)
+
+
+def phase_pmc(device, n=PMC_N, max_steps=5000, check_n=64, small=(64, 4), sampled=(64, 200), stretch=64,
+              card=None) -> dict:
+    """5. PMC nqueens-n through the kernel (the solve's launches are the
+    ``pmc`` path's), a card == CPU check at ``check_n`` from host-side draws
+    (the eager loop, by the rule), then graphed against eager, drawing on the
+    device: nqueens-``small[0]`` with ``small[1]`` lanes, the nqueens-n solve
+    after a warm-up and nqueens-n with ``sampled[0]`` columns for
+    ``sampled[1]`` steps, each with a profiled stretch of ``stretch`` steps on
+    the card."""
     import torch
 
     from constraint_solver_tpu_torch.models.nqueens_parallel import pmc_solve
@@ -963,6 +1119,7 @@ def phase_pmc(device, n=PMC_N, max_steps=5000, check_n=64) -> dict:
     from constraint_solver_tpu_torch.utils.convert import to_reference
     from constraint_solver_tpu_torch.utils.draws import TorchDraws
 
+    card = card or (card_line() if is_cuda(device) else "cpu")
     t0 = time.time()
     pmc_solve(n, TorchDraws("pmc-warm-up", 1, device), max_steps=max_steps)
     sync(device)
@@ -984,7 +1141,7 @@ def phase_pmc(device, n=PMC_N, max_steps=5000, check_n=64) -> dict:
     moves = steps * n * n
     log(
         f"phase 5: PMC nqueens-{n} solved: time to zero {ttz:.3f} s, {steps} steps, "
-        f"moves/s {moves / ttz:.4g}, kernel launches {launches}"
+        f"moves/s {moves / ttz:.4g}, kernel launches {launches}; {card}"
     )
 
     def lanes(dev):
@@ -992,7 +1149,38 @@ def phase_pmc(device, n=PMC_N, max_steps=5000, check_n=64) -> dict:
 
     assert_tree_equal(lanes(device), lanes("cpu"))
     log(f"phase 5: PMC nqueens-{check_n} P=4: card == CPU")
-    return {"ttz_s": ttz, "steps": steps, "moves_per_sec": moves / ttz, "launches": launches}
+
+    result = {"ttz_s": ttz, "steps": steps, "moves_per_sec": moves / ttz, "launches": launches, "graphs": {}}
+    runs = (
+        (f"nqueens-{small[0]} P={small[1]}", dict(n=small[0], population=small[1], seed="pmc-graphs-small",
+                                                   max_steps=2000), None),
+        (f"nqueens-{n} P=1", dict(n=n, population=1, seed="pmc-graphs", max_steps=max_steps, warm=True), None),
+        (f"nqueens-{n} P=1 sample_cols={sampled[0]}",
+         dict(n=n, population=1, seed="pmc-graphs-sampled", max_steps=sampled[1], warm=True), sampled[0]),
+    )
+    for label, kw, sample_cols in runs:
+        pair = pmc_pair(device, sample_cols=sample_cols, **kw)
+        eager, graph = pair["eager"], pair["graphed"]
+        log(f"phase 5: {label}: graphed == eager (state, steps, generator, {graph['launches']} kernel launches) "
+            f"after {graph['steps']} steps, best {graph['best']}; walls eager {eager['wall_s']:.4f} s, graphed "
+            f"{graph['wall_s']:.4f} s ({eager['ms_per_step']:.4f} / {graph['ms_per_step']:.4f} ms per step, "
+            f"{graph['launches'] / max(graph['steps'], 1):.4f} kernel launches per step); capture "
+            f"{graph['capture_s']:.4f} s (host, inside the graphed wall); peak memory eager {eager['peak_bytes']} B, "
+            f"graphed {graph['peak_bytes']} B; {card}")
+        if is_cuda(device) and kw["n"] == n:
+            pair["stretch"] = {}
+            for graphed in (False, True):
+                trace = pmc_stretch(device, n, 1, kw["seed"] + "-stretch", stretch, sample_cols, graphed)
+                pair["stretch"]["graphed" if graphed else "eager"] = trace
+                log(f"phase 5: {label} profiled stretch, {'graphed' if graphed else 'eager'}: {trace['iterations']} "
+                    f"steps in {trace['wall_s']:.4f} s, idle {trace['idle_share']:.4f}, busy "
+                    f"{trace['busy_ms_per_iteration']:.4f} ms, {trace['device_kernels'] / trace['iterations']:.3f} "
+                    f"device kernels and {trace['host_reads'] / trace['iterations']:.3f} host reads per step, "
+                    f"B1 {trace['kernel']['ms_per_launch']:.6f} ms in {trace['kernel']['events']} events; "
+                    f"top {[(o['name'][:40], round(o['ms'], 3), o['calls']) for o in trace['top_device_ops'][:5]]}; "
+                    f"gaps {trace['idle_gaps']}; {card}")
+        result["graphs"][label] = pair
+    return result
 
 
 def oracle_schedule_score(start_date, assign, holidays_by_emp):
@@ -2457,7 +2645,8 @@ def main() -> None:
     graphs = phase_graphs(device, card=card)
     graphs_launches = nk.nqueens_neighborhood_scores.launches
     graphs_domains = phase_graphs_domains(device, card=card)
-    pmc_run = phase_pmc(device)
+    matrix_forms = phase_matrix_forms(device, card=card)
+    pmc_run = phase_pmc(device, card=card)
     phase_schedule_cross_device(device)
     sched = phase_schedule_bench(device)
     qap = phase_qap(device)
@@ -2485,7 +2674,8 @@ def main() -> None:
     kernel["launches_by_path"] = paths
 
     log(json.dumps({
-        "main_path": main_run, "graphs": graphs, "graphs_domains": graphs_domains, "pmc": pmc_run, "scheduling": sched, "qap": qap, "ackley": ackley,
+        "main_path": main_run, "graphs": graphs, "graphs_domains": graphs_domains, "matrix_forms": matrix_forms,
+        "pmc": pmc_run, "scheduling": sched, "qap": qap, "ackley": ackley,
         "diagram": diagram, "phased": phased, "checkpoint": ckpt, "surface": surface, "multi_device": multi,
         "bench": bench, "card": card,
     }, default=str))

@@ -55,6 +55,11 @@ each replay, so they equal the eager run's.  A replayed iteration runs no
 ``neighborhood``; it calls ``neighborhood(None, None, None, None)`` once, so
 that whatever wraps the problem's ``neighborhood`` counts iterations as in the
 eager loop.
+
+Parallel min-conflicts (``models/nqueens_parallel.py``) is the second user of
+``capture``, ``cuda_capturer`` and ``eager_reason``: its step loop bypasses
+``ls_execute``, and ``PMCGraphs`` replays one step as one graph on a static
+``PMCState``, under the same rule with no problem to ask.
 """
 
 from __future__ import annotations
@@ -82,12 +87,13 @@ from constraint_solver_tpu_torch.utils import roofline
 from constraint_solver_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
-def eager_reason(problem: Problem, draws, device: torch.device) -> str | None:
+def eager_reason(problem: Problem | None, draws, device: torch.device) -> str | None:
     """Why descents of ``problem`` on ``device`` run eagerly, or None when they
-    replay as CUDA graphs."""
+    replay as CUDA graphs.  PMC's step loop, which has no ``Problem``, passes
+    None and is held to the rest of the rule."""
     if device.type != "cuda":
         return f"CUDA graphs need a CUDA device, not {device}"
-    if not problem.capturable:
+    if problem is not None and not problem.capturable:
         return f"{problem.name} is not capturable"
     if current_mesh() is not None:
         return "a mesh is active: its collectives cannot be captured"

@@ -23,13 +23,26 @@ Divergences from the JAX package:
 - **Counters by scatter.** ``line_counts`` is a ``scatter_add_`` (float adds of
   1.0 are exact in any order), not the TPU's one-hot reduction.
 - **Boards are int64**, PyTorch's index type (int32 in the JAX package).
-- **The block** always goes through ``ops/nqueens_kernel.py``: the CUDA kernel
-  for a CUDA tensor, its plain version on the CPU, so ``use_pallas`` is
-  accepted and ignored (the tensors' device picks the kernel).  The JAX
-  package's ``col_sampling="approx"`` (``jax.lax.approx_max_k``) and
-  ``block_impl="mxu_conv"``/``"mxu_toeplitz"`` (TPU matrix-unit A/Bs of the
-  block) raise ``NotImplementedError``; an unknown ``block_impl`` raises
-  ``ValueError``, as there.
+- **The block** goes through ``ops/nqueens_kernel.py`` where the JAX package
+  takes its Pallas kernel or its slice form (a truthy ``use_pallas``, or
+  ``block_impl="slice"``, the default): the CUDA kernel for a CUDA tensor, its
+  plain version on the CPU, whatever the truthy ``use_pallas`` (the tensors'
+  device picks).  ``block_impl="mxu_conv"`` and ``"mxu_toeplitz"``, the JAX
+  package's matrix forms of the diagonal reads (an A/B for the TPU's matrix
+  unit), run instead of the kernel, on the CPU and on the card, as plain torch
+  ops (``matrix_block``): a grouped ``conv1d`` of each lane's dc and ac with
+  one impulse row per sampled column, and a one-hot [P, A, n] ``bmm`` with two
+  [P, n, n] Toeplitz tables (built every call, 1.02 GB each at P = 256, n =
+  1000: an A/B arm, not a default).  Both are exact: the reads are products of
+  0/1 with small integers.  On the card the conv runs with cuDNN off (its
+  heuristics may take TF32, which rounds counters above 2048, or an FFT
+  algorithm, which is not exact), and the ``bmm`` in full float32, PyTorch's
+  default, which the port never changes.  An unknown ``block_impl`` raises
+  ``ValueError``, as there (here when the problem is made).
+- **``col_sampling="approx"``** samples exactly, as ``"exact"`` does.  The JAX
+  package's ``jax.lax.approx_max_k`` is approximate (recall ~0.95) only on the
+  TPU; on the CPU, where the reference runs, it returns ``lax.top_k``'s indices,
+  and so does the port.
 
 Without ``nbr_axis`` the problem is ``capturable`` (``core/problem.py``): on the
 card the solvers replay its descent iterations as CUDA graphs; the per-device log
@@ -55,7 +68,7 @@ import torch
 from constraint_solver_tpu_torch.core.problem import Neighborhood, Problem, replayable
 from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32, fp_update
 from constraint_solver_tpu_torch.ops.lex import first_true, make_score
-from constraint_solver_tpu_torch.ops.nqueens_kernel import nqueens_neighborhood_scores
+from constraint_solver_tpu_torch.ops.nqueens_kernel import block_from_windows, nqueens_neighborhood_scores
 from constraint_solver_tpu_torch.parallel.mesh import active_axis, gather_best
 
 
@@ -143,6 +156,33 @@ def default_log_weights(board_size: int) -> torch.Tensor:
     return torch.log(torch.arange(3 * board_size, dtype=torch.float32) + 1e-4)
 
 
+def matrix_block(block_impl: str, rc, dc, ac, c, r, removed, cur):
+    """The candidate block by the JAX package's matrix form ``block_impl``
+    (``"mxu_conv"`` or ``"mxu_toeplitz"``): the kernel wrapper's arguments and
+    its (scores float32[P, A, n], row_min float32[P, A], row_arg int32[P, A])."""
+    p, n = rc.shape
+    a = c.shape[1]
+    iota = torch.arange(n, device=rc.device)
+    c = c.long()
+    if block_impl == "mxu_conv":
+        # out[p, j, r'] = sum_k imp[p, j, k] * table[p, r' + k]: an impulse at
+        # k = n-1-c_j reads dc[r' - c_j + n-1], at k = c_j reads ac[r' + c_j].
+        imp_d = (iota == ((n - 1) - c).unsqueeze(-1)).to(torch.float32).view(p * a, 1, n)
+        imp_a = (iota == c.unsqueeze(-1)).to(torch.float32).view(p * a, 1, n)
+        with torch.backends.cudnn.flags(enabled=False):
+            dc_at = torch.nn.functional.conv1d(dc.unsqueeze(0), imp_d, groups=p).view(p, a, n)
+            ac_at = torch.nn.functional.conv1d(ac.unsqueeze(0), imp_a, groups=p).view(p, a, n)
+    elif block_impl == "mxu_toeplitz":
+        # T_d[p, s, r'] = dc[p, r' + n-1 - s] and T_a[p, s, r'] = ac[p, r' + s];
+        # row c_j of each is column c_j's read, taken by a one-hot product.
+        onehot = (iota == c.unsqueeze(-1)).to(torch.float32)
+        dc_at = torch.bmm(onehot, dc.unfold(1, n, 1).flip(1))
+        ac_at = torch.bmm(onehot, ac.unfold(1, n, 1).contiguous())
+    else:
+        raise ValueError(f"{block_impl!r} is not a matrix form of the block")
+    return block_from_windows(rc, dc_at, ac_at, r, removed, cur)
+
+
 def make_nqueens_problem(
     board_size: int,
     sample_cols: int | None = None,
@@ -156,24 +196,17 @@ def make_nqueens_problem(
 ) -> Problem:
     """Build the N-Queens problem.  ``sample_cols`` (A) is the number of
     conflicted columns sampled per proposal, ``max(1, n // 20)`` by default.
-    ``use_pallas`` is ignored; ``col_sampling`` and ``block_impl`` take the
-    JAX package's defaults only; ``nbr_axis``/``nbr_shards``/``nbr_keep``
-    shard the neighborhood over that axis of the active mesh (see the module
-    docstring).  ``log_weights``: float32[3n] table of log(k + 1e-4), by
-    default ``default_log_weights(n)``."""
-    del use_pallas  # the tensors' device picks the kernel
-    if col_sampling == "approx":
-        raise NotImplementedError(
-            "col_sampling='approx' is jax.lax.approx_max_k, a TPU partial reduction; the port samples exactly"
-        )
-    if col_sampling != "exact":
+    A truthy ``use_pallas`` or ``block_impl="slice"`` scores the block with the
+    kernel wrapper, ``block_impl="mxu_conv"``/``"mxu_toeplitz"`` otherwise by
+    ``matrix_block``; ``col_sampling="approx"`` samples exactly (see the module
+    docstring).  ``nbr_axis``/``nbr_shards``/``nbr_keep`` shard the
+    neighborhood over that axis of the active mesh.  ``log_weights``:
+    float32[3n] table of log(k + 1e-4), by default ``default_log_weights(n)``."""
+    if col_sampling not in ("exact", "approx"):
         raise ValueError(f"unknown col_sampling {col_sampling!r}")
-    if block_impl in ("mxu_conv", "mxu_toeplitz"):
-        raise NotImplementedError(
-            f"block_impl={block_impl!r} is a TPU matrix-unit form of the block; the port scores it with its kernel"
-        )
-    if block_impl != "slice":
+    if block_impl not in ("slice", "mxu_conv", "mxu_toeplitz"):
         raise ValueError(f"unknown block_impl {block_impl!r}")
+    use_kernel = bool(use_pallas) or block_impl == "slice"
     n = board_size
     a_max = sample_cols if sample_cols is not None else max(1, n // 20)
     if nbr_axis is not None:
@@ -242,13 +275,14 @@ def make_nqueens_problem(
         )
 
     def block(state, cur_score, c):
-        """The kernel's (scores [P, A', n], row_min, row_arg) for sampled columns c [P, A']."""
+        """The block's (scores [P, A', n], row_min, row_arg) for sampled columns c [P, A']."""
         rows, rc, dc, ac, _ = state
         r = rows.gather(1, c)
         removed = (rc.gather(1, r) - 1) + (dc.gather(1, r - c + (n - 1)) - 1) + (ac.gather(1, r + c) - 1)
-        return nqueens_neighborhood_scores(
-            rc, dc, ac, c.to(torch.int32), r.to(torch.int32), removed, cur_score[:, 0].contiguous()
-        )
+        args = (rc, dc, ac, c.to(torch.int32), r.to(torch.int32), removed, cur_score[:, 0].contiguous())
+        if use_kernel:
+            return nqueens_neighborhood_scores(*args)
+        return matrix_block(block_impl, *args)
 
     def sharded(state, cur_score, c, col_valid):
         """This rank's A/shards columns, its ``nbr_keep`` best candidates, and

@@ -27,18 +27,40 @@ Divergences from the JAX package:
   select costs one more rebuild and no host read.
 - **Log weights from a table** for the sampled-column mode, as in
   ``models/nqueens.py`` (``log_weights``).
+- **One step as a CUDA graph** where the JAX package compiles the whole
+  ``while_loop`` into one device program.  ``pmc_run`` and ``pmc_solve`` take
+  a ``PMCGraphs`` holder (None: a fresh one for the call), which keeps one
+  ``GraphedPMC`` per (n, P, ``p_accept``, ``sample_cols``, draw source, carry
+  and table shapes).  A unit runs the eager loop on a static ``PMCState`` and a
+  static ``limit`` filled at each call: its first step eagerly (that loads the
+  kernel), its second as a capture of one step (``core/graphed.capture``, the
+  draw source's generator registered, the unit's private pool) replayed at
+  once, every later step as a replay.  The host reads whether any lane still
+  runs at the eager loop's steps (every ``_DONE_CHECK_EVERY``), so no step
+  runs that the eager loop would not run, and the generator's Philox offset
+  and the kernel's launch counters end where the eager loop leaves them.  The
+  sampled mode's log table is the unit's own device tensor, refilled from the
+  host's at each call, so the graph's pointer stays valid.  The rule is
+  ``core/graphed.eager_reason`` with no problem: a CUDA device, no mesh, no
+  ``roofline`` count and a draw source whose generator is on the card
+  (``TorchDraws(..., draw_device="cpu")`` and the tests' JAX-key draws stay
+  eager).  ``ParallelMinConflictsSolver`` owns one holder for its lifetime;
+  the private ``_graphed=False`` of the three entry points runs the eager loop,
+  to compare the two.  A capture or replay that fails raises.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import time
+from typing import Callable, NamedTuple
 
 import torch
 
+from constraint_solver_tpu_torch.core.graphed import Captured, cuda_capturer, eager_reason
 from constraint_solver_tpu_torch.models.nqueens import NQState, build_state, default_log_weights, state_conflicts
 from constraint_solver_tpu_torch.ops.nqueens_kernel import nqueens_neighborhood_scores
 from constraint_solver_tpu_torch.utils.draws import TorchDraws
-from constraint_solver_tpu_torch.utils.tree import lane_where, tree_map, tree_where
+from constraint_solver_tpu_torch.utils.tree import lane_where, tree_leaves, tree_map, tree_where
 
 _DONE_CHECK_EVERY = 8
 
@@ -109,6 +131,97 @@ def pmc_step(
     )
 
 
+def _active(carry: PMCState, limit: torch.Tensor) -> torch.Tensor:
+    return (carry.score > 0) & (carry.steps < limit)
+
+
+def _run_eager(carry: PMCState, draws, max_steps: int, p_accept: float, sample_cols, log_table) -> PMCState:
+    limit = carry.steps + max_steps
+    for i in range(max_steps):
+        active = _active(carry, limit)
+        if i % _DONE_CHECK_EVERY == 0 and not bool(active.any()):
+            break
+        carry = tree_where(active, pmc_step(carry, draws, active, p_accept, sample_cols, log_table), carry)
+    return carry
+
+
+class GraphedPMC:
+    """One (n, P, ``p_accept``, ``sample_cols``, draw source, shapes)'s step
+    loop on a static carry, its step captured by ``capture`` (see the module
+    docstring).  With ``capture=None`` every step runs eagerly on the static
+    carry: the CPU tests hold that loop against the eager one."""
+
+    def __init__(self, c0: PMCState, draws, p_accept: float, sample_cols, table, capture=None):
+        self.draws, self.p_accept, self.sample_cols = draws, p_accept, sample_cols
+        self.carry = tree_map(torch.empty_like, c0)
+        self.limit = torch.empty_like(c0.steps)
+        self.table = None if table is None else table.to(c0.score.device, copy=True)
+        self._capture = capture
+        self._warm = False
+        self._step_graph: Captured | None = None
+        self.capture_s = 0.0  # host seconds spent capturing
+
+    def run(self, c0: PMCState, max_steps: int, table) -> PMCState:
+        """The eager loop of ``pmc_run`` from carry ``c0``: the final carry."""
+        torch._foreach_copy_(tree_leaves(self.carry), tree_leaves(c0))
+        torch.add(self.carry.steps, max_steps, out=self.limit)
+        if table is not None:
+            self.table.copy_(table)
+        for i in range(max_steps):
+            if i % _DONE_CHECK_EVERY == 0 and not bool(_active(self.carry, self.limit).any()):
+                break
+            self._iteration()
+        return tree_map(torch.clone, self.carry)
+
+    def _step(self) -> None:
+        """One step, written into the static carry for the lanes still running."""
+        active = _active(self.carry, self.limit)
+        new = pmc_step(self.carry, self.draws, active, self.p_accept, self.sample_cols, self.table)
+        for dst, src in zip(tree_leaves(self.carry), tree_leaves(new)):
+            torch.where(active.view(active.shape + (1,) * (dst.dim() - 1)), src, dst, out=dst)
+
+    def _iteration(self) -> None:
+        if self._capture is None or not self._warm:
+            self._step()
+            self._warm = True
+            return
+        if self._step_graph is None:
+            t0 = time.perf_counter()
+            self._step_graph = self._capture(self._step)
+            self.capture_s += time.perf_counter() - t0
+        self._step_graph.replay()
+
+
+class PMCGraphs:
+    """The graphed PMC step loops of one owner (a ``ParallelMinConflictsSolver``,
+    or one ``pmc_run`` call): one ``GraphedPMC`` per (n, P, ``p_accept``,
+    ``sample_cols``, draw source, carry and table shapes), made at first use.
+    ``capturer`` makes a unit's capture function from (device, draws); None runs
+    the units' steps eagerly (the CPU tests)."""
+
+    def __init__(self, capturer: Callable | None = cuda_capturer):
+        self._capturer = capturer
+        self._units: dict = {}
+
+    def applies(self, draws, device: torch.device) -> bool:
+        return eager_reason(None, draws, device) is None
+
+    def run(self, carry: PMCState, draws, max_steps: int, p_accept: float, sample_cols, table) -> PMCState:
+        shapes = tuple((x.shape, x.dtype, x.device) for x in tree_leaves(carry))
+        key = (p_accept, sample_cols, draws, shapes, None if table is None else table.shape)
+        unit = self._units.get(key)
+        if unit is None:
+            device = carry.score.device
+            capture = self._capturer(device, draws) if self._capturer is not None else None
+            unit = self._units[key] = GraphedPMC(carry, draws, p_accept, sample_cols, table, capture)
+        return unit.run(carry, max_steps, table)
+
+    @property
+    def capture_s(self) -> float:
+        """Host seconds spent capturing, over every unit."""
+        return sum(unit.capture_s for unit in self._units.values())
+
+
 def pmc_run(
     carry: PMCState,
     draws,
@@ -116,22 +229,24 @@ def pmc_run(
     p_accept: float = 0.7,
     sample_cols: int | None = None,
     log_weights=None,
+    graphs: PMCGraphs | None = None,
+    _graphed: bool = True,
 ) -> PMCState:
     """Continue every lane for up to ``max_steps`` more steps; a lane stops at 0
     conflicts.  ``log_weights``: float32[3n] table of log(k + 1e-4) for the
-    sampled-column mode (default ``default_log_weights(n)``)."""
+    sampled-column mode (default ``default_log_weights(n)``).  ``graphs``: the
+    caller's ``PMCGraphs`` (None: a fresh one); where ``core/graphed``'s rule
+    allows, the steps replay as CUDA graphs, bit for bit the eager loop."""
     n = carry.state.rows.shape[1]
-    log_table = None
+    table = None
     if sample_cols is not None:
         table = default_log_weights(n) if log_weights is None else torch.tensor(log_weights, dtype=torch.float32)
-        log_table = table.reshape(-1).to(carry.score.device)
-    limit = carry.steps + max_steps
-    for i in range(max_steps):
-        active = (carry.score > 0) & (carry.steps < limit)
-        if i % _DONE_CHECK_EVERY == 0 and not bool(active.any()):
-            break
-        carry = tree_where(active, pmc_step(carry, draws, active, p_accept, sample_cols, log_table), carry)
-    return carry
+        table = table.reshape(-1)
+    device = carry.score.device
+    graphs = PMCGraphs() if graphs is None else graphs
+    if _graphed and graphs.applies(draws, device):
+        return graphs.run(carry, draws, max_steps, p_accept, sample_cols, table)
+    return _run_eager(carry, draws, max_steps, p_accept, sample_cols, None if table is None else table.to(device))
 
 
 def pmc_solve(
@@ -141,11 +256,14 @@ def pmc_solve(
     p_accept: float = 0.7,
     sample_cols: int | None = None,
     log_weights=None,
+    graphs: PMCGraphs | None = None,
+    _graphed: bool = True,
 ) -> PMCState:
     """Solve n-queens on ``draws.population`` lanes by parallel min-conflicts
     from random permutations, stopping at 0 conflicts or after ``max_steps``.
-    ``sample_cols`` bounds each step's block to [A, n] (default: all n columns)."""
-    return pmc_run(pmc_init(n, draws), draws, max_steps, p_accept, sample_cols, log_weights)
+    ``sample_cols`` bounds each step's block to [A, n] (default: all n columns);
+    ``graphs`` as in ``pmc_run``."""
+    return pmc_run(pmc_init(n, draws), draws, max_steps, p_accept, sample_cols, log_weights, graphs, _graphed)
 
 
 class ParallelMinConflictsSolver:
@@ -153,7 +271,9 @@ class ParallelMinConflictsSolver:
     keeps the lane with the fewest conflicts (the first on ties).
 
     ``device`` defaults to the card; ``draws`` to ``TorchDraws(seed,
-    population, device)``."""
+    population, device)``.  The solver owns its step loop's CUDA graphs
+    (``graphs``, a ``PMCGraphs``); ``_graphed=False`` runs the eager loop, to
+    compare the two."""
 
     def __init__(
         self,
@@ -166,12 +286,14 @@ class ParallelMinConflictsSolver:
         device="cuda",
         draws=None,
         log_weights=None,
+        _graphed: bool = True,
     ):
         self.n = board_size
         self.population = population
         self._block = (sample_cols or board_size) * board_size
         draws = draws if draws is not None else TorchDraws(seed, population, device)
-        out = pmc_solve(board_size, draws, max_steps, p_accept, sample_cols, log_weights)
+        self.graphs = PMCGraphs() if _graphed else None
+        out = pmc_solve(board_size, draws, max_steps, p_accept, sample_cols, log_weights, self.graphs, _graphed)
         lane = int(out.score.argmin())
         self._out = tree_map(lambda x: x[lane], out)
 

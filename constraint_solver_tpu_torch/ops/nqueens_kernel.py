@@ -209,6 +209,15 @@ def nqueens_neighborhood_scores_ref(rc, dc, ac, c, r, removed, cur):
     c = c.long()
     dc_at = dc.gather(1, ((n - 1) - c).unsqueeze(-1).add(rp).reshape(p, a * n)).view(p, a, n)
     ac_at = ac.gather(1, c.unsqueeze(-1).add(rp).reshape(p, a * n)).view(p, a, n)
+    return block_from_windows(rc, dc_at, ac_at, r, removed, cur)
+
+
+def block_from_windows(rc, dc_at, ac_at, r, removed, cur):
+    """The plain version's algebra from the diagonal tables read at each sampled
+    column's rows, dc_at[p, j, r′] = dc[r′ − c_j + n − 1] and ac_at[p, j, r′] =
+    ac[r′ + c_j], float32[P, A, n] (however they were read: gathers here, the
+    matrix forms in ``models/nqueens.py``).  Returns (scores, row_min, row_arg)."""
+    rp = torch.arange(rc.shape[1], device=rc.device)
     same = (rp == r.long().unsqueeze(-1)).to(torch.float32)
     added = (rc.unsqueeze(1) - same) + (dc_at - same) + (ac_at - same)
     scores = cur[:, None, None] + 2.0 * (added - removed.unsqueeze(-1))

@@ -19,7 +19,10 @@ service answers a round, the roofline counts the kernel's launches, and
 threads that reach the kernel's first use together build it once.  The descent
 replayed as CUDA graphs equals the eager loop bit for bit, after a checkpoint's
 ``load`` too and on two threads at once, for N-Queens and for scheduling, QAP,
-Ackley and the diagram layout.  Two gloo
+Ackley and the diagram layout; so does PMC's step loop (full block and sampled
+columns), which ``ParallelMinConflictsSolver`` replays by default.  The matrix
+forms of the N-Queens block (``block_impl="mxu_conv"``, ``"mxu_toeplitz"``)
+equal the kernel's block bit for bit and replay as graphs too.  Two gloo
 ranks sharing the card run the pop- and nbr-sharded N-Queens solves, equal to
 the same sharded solves on the CPU (the rank bodies are in
 ``tests/torch_ranks.py``)."""
@@ -33,8 +36,14 @@ import torch
 from constraint_solver_tpu_torch.core.ils import SolverConfig
 from constraint_solver_tpu_torch.models.ackley import make_ackley_problem
 from constraint_solver_tpu_torch.models.diagram_layout import DiagramLayoutSpec, make_diagram_layout_problem
-from constraint_solver_tpu_torch.models.nqueens import build_state, make_nqueens_problem, total_conflicts
-from constraint_solver_tpu_torch.models.nqueens_parallel import pmc_solve
+from constraint_solver_tpu_torch.models.nqueens import build_state, make_nqueens_problem, matrix_block, total_conflicts
+from constraint_solver_tpu_torch.models.nqueens_parallel import (
+    ParallelMinConflictsSolver,
+    PMCGraphs,
+    pmc_init,
+    pmc_run,
+    pmc_solve,
+)
 from constraint_solver_tpu_torch.models.qap import QAPSpec, make_qap_problem
 from constraint_solver_tpu_torch.models.scheduling import ScheduleSpec, make_scheduling_problem
 from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
@@ -230,6 +239,72 @@ def test_cuda_pmc_launches_the_kernel_and_equals_cpu(cuda, sample_cols):
     assert nk.nqueens_neighborhood_scores.launches > before
     compare(to_reference(on_card), to_reference(run("cpu")))
     assert torch.equal(on_card.score.cpu(), total_conflicts(on_card.state.rows).cpu().float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sample_cols", [None, 16], ids=["full", "sampled"])
+def test_cuda_graphed_pmc_equals_eager(cuda, sample_cols):
+    """PMC's step loop replayed as CUDA graphs, drawing on the card, through one
+    holder over two calls: the eager loop's carry, generator state and kernel
+    launches."""
+
+    def run(graphed):
+        draws = TorchDraws("pmc-graphs", 4, cuda)
+        holder = PMCGraphs() if graphed else None
+        before = nk.nqueens_neighborhood_scores.launches
+        kw = dict(sample_cols=sample_cols, graphs=holder, _graphed=graphed)
+        carry = pmc_run(pmc_init(64, draws), draws, 13, **kw)
+        out = pmc_run(carry, draws, 300, **kw)
+        torch.cuda.synchronize()
+        return holder, to_reference(out), draws.state_dict()["generator"], nk.nqueens_neighborhood_scores.launches - before
+
+    (holder, got, generator, launches), (_, want, want_generator, want_launches) = run(True), run(False)
+    compare(got, want)
+    assert torch.equal(generator, want_generator) and launches == want_launches > 0
+    (unit,) = holder._units.values()
+    assert unit._step_graph is not None and holder.capture_s > 0
+
+
+@pytest.mark.cuda
+def test_cuda_pmc_solver_replays_graphs_by_default(cuda):
+    graphed = ParallelMinConflictsSolver(64, seed="pmc-solver", population=4, device=cuda)
+    eager = ParallelMinConflictsSolver(64, seed="pmc-solver", population=4, device=cuda, _graphed=False)
+    (unit,) = graphed.graphs._units.values()
+    assert unit._step_graph is not None and eager.graphs is None
+    assert graphed.stats() == eager.stats()
+    (score, _), state = graphed.get_best_solution()
+    assert score == eager.get_best_solution()[0][0] == 0.0
+    compare(state, eager.get_best_solution()[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["mxu_conv", "mxu_toeplitz"])
+@pytest.mark.parametrize("p, a, n", [(8, 50, 1000), (4, 64, 64), (1, 1000, 1000), (3, 13, 101)])
+def test_cuda_matrix_forms_equal_the_kernel_block(cuda, impl, p, a, n):
+    args = _inputs(np.random.default_rng(n + a), p, a, n, cuda)
+    before = nk.nqueens_neighborhood_scores.launches
+    want = nk.nqueens_neighborhood_scores(*args)
+    got = matrix_block(impl, *args)
+    torch.cuda.synchronize()
+    assert nk.nqueens_neighborhood_scores.launches == before + 1  # the matrix form launches no B1
+    for w, g in zip(want, got, strict=True):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["mxu_conv", "mxu_toeplitz"])
+def test_cuda_graphed_matrix_forms_equal_eager(cuda, impl):
+    def run(graphed):
+        config = SolverConfig(seed=f"graphs-{impl}", local_search_max_iterations=20, all_solutions_capacity=32)
+        s = PopulationSolver(make_nqueens_problem(40, block_impl=impl), config, population=6, exchange_every=2,
+                             device=cuda, _graphed=graphed)
+        trace = np.concatenate([s.execute_chunk_traced(2) for _ in range(2)])
+        return s, to_reference(s.state), trace, s.draws.state_dict()["generator"]
+
+    (graphed, *got), (_, *want) = run(True), run(False)
+    compare(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert torch.equal(got[2], want[2]) and len(graphed.program.graphs._units) == 1
 
 
 @pytest.mark.cuda

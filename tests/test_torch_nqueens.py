@@ -234,15 +234,18 @@ def test_perturb_and_init_match_jax(n):
 
 
 def test_factory_takes_the_jax_keywords():
-    """``use_pallas`` is accepted and ignored (the tensors' device picks the
-    kernel); the TPU-only ``col_sampling="approx"`` and ``block_impl`` forms
-    raise ``NotImplementedError``, an unknown ``block_impl`` ``ValueError``, as
-    the JAX package does; the defaults are the JAX package's."""
+    """Every option of the JAX package is accepted and gives the default's
+    neighborhood (``use_pallas``: the tensors' device picks the kernel;
+    ``col_sampling="approx"`` samples exactly, as ``approx_max_k`` does on the
+    CPU; the matrix forms of the block are exact); an unknown ``block_impl``
+    raises ``ValueError``, as the JAX package does; the defaults are the JAX
+    package's."""
     n = 12
     weights = reference_log_weights(n)
     plain = tnq.make_nqueens_problem(n, log_weights=weights)
     for kw in ({"use_pallas": True}, {"use_pallas": "interpret"},
-               {"col_sampling": "exact", "block_impl": "slice", "use_pallas": False}):
+               {"col_sampling": "exact", "block_impl": "slice", "use_pallas": False},
+               {"col_sampling": "approx"}, {"block_impl": "mxu_conv"}, {"block_impl": "mxu_toeplitz"}):
         problem = tnq.make_nqueens_problem(n, log_weights=weights, **kw)
         rows = torch.from_numpy(_boards(np.random.default_rng(0), 3, n)).long()
         state = tnq.build_state(rows)
@@ -253,11 +256,8 @@ def test_factory_takes_the_jax_keywords():
         a = problem.neighborhood(state, problem.score(state), draws_a, on)
         b = plain.neighborhood(state, plain.score(state), draws_b, on)
         assert torch.equal(a.scores, b.scores) and torch.equal(a.hint_idx, b.hint_idx)
-    with pytest.raises(NotImplementedError, match="approx_max_k"):
-        tnq.make_nqueens_problem(n, col_sampling="approx")
-    for impl in ("mxu_conv", "mxu_toeplitz"):
-        with pytest.raises(NotImplementedError, match=impl):
-            tnq.make_nqueens_problem(n, block_impl=impl)
+    with pytest.raises(ValueError, match="unknown col_sampling 'top_k'"):
+        tnq.make_nqueens_problem(n, col_sampling="top_k")
     with pytest.raises(ValueError, match="unknown block_impl 'gather'"):
         tnq.make_nqueens_problem(n, block_impl="gather")
     with pytest.raises(ValueError, match="unknown block_impl 'gather'"):  # the JAX package's error
