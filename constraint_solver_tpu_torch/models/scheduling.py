@@ -34,10 +34,14 @@ Divergences from the JAX package:
 - **Assignments are int64**, PyTorch's index type (int32 there), like boards.
 - **Gathers instead of one-hot contractions.** The TPU code writes per-move day
   lookups, the 27-day region slices and the weekday rows as one-hot × table
-  contractions and shift-matrix einsums, and the window counts of the dense
-  block as banded matmuls.  Here they are gathers of the padded tables and
-  cumulative sums.  Every value is a small integer in float32, so the results
-  are the same integers, bit for bit, and no matmul (so no TF32) is involved.
+  contractions and shift-matrix einsums.  Here they are gathers of the padded
+  tables.
+- **Window counts are banded 0/1 matmuls** (``_window_band``), in the region
+  deltas too, where the JAX package slides a cumulative sum; the dense block's
+  are the JAX package's own.  Both factors are 0/1, exact in TF32 as in
+  float32, so every product is 0 or 1 and every sum counts at most 14 ones in
+  a float32 accumulator: any order of summation, on any device, gives the
+  same integers bit for bit.
 - **One-hots are comparisons with ``arange``**: an out-of-range index (the −1
   and −2 padding, weekdays 5 and 6) gives a zero row, as ``jax.nn.one_hot``
   does.
@@ -102,6 +106,13 @@ def _shf(x: torch.Tensor, k: int, fill, dim: int) -> torch.Tensor:
     return torch.cat([pad, x.narrow(dim, 0, size + k)], dim=dim)
 
 
+def _window_band(n_days: int, width: int, device) -> torch.Tensor:
+    """float32[max(n_days - width + 1, 0), n_days]: 1 where window start s
+    contains day d (s <= d < s + width).  A product with it counts windows,
+    its transpose sums over the windows containing each day."""
+    return torch.ones(max(n_days - width + 1, 0), n_days, device=device).triu().tril(width - 1)
+
+
 def region_deltas(sl_old, wk_sl, d1, n1, d2, n2, e1, e2, dj, d_excl, use_excl: bool, d_days: int):
     """(hard_delta, s1_delta) [...] over the windows containing day ``dj``.
 
@@ -152,23 +163,35 @@ def region_deltas(sl_old, wk_sl, d1, n1, d2, n2, e1, e2, dj, d_excl, use_excl: b
         ],
         dim=-1,
     ).to(f32)
-
-    def csum4(sl):
-        ind = (sl[..., None, :] == emps[..., :, None]).to(f32)  # [..., 4, REG]
-        zero = torch.zeros(ind.shape[:-1] + (1,), dtype=f32, device=ind.device)
-        return torch.cat([zero, ind.cumsum(-1)], dim=-1)
-
-    cs_old, cs_new = csum4(sl_old), csum4(sl_new)
+    sl_both = torch.stack([sl_old, sl_new], dim=-2)  # [..., 2, REG]
+    ind = (sl_both[..., None, :] == emps[..., None, :, None]).to(f32)  # [..., 2, 4, REG]
 
     def d_fam(k, thresh):
-        def over(cs):
-            v = ((cs[..., k:] - cs[..., :-k]) > thresh).to(f32)  # [..., 4, REG+1-k]
-            return torch.nn.functional.pad(v, (0, k - 1))
-
-        per_emp = over(cs_new) - over(cs_old)
-        return (fam_mask(k)[..., None, :] * first[..., :, None] * per_emp).sum((-1, -2))
+        n_win = REG + 1 - k
+        over = (ind @ _window_band(REG, k, ind.device).T > thresh).to(f32)  # [..., 2, 4, n_win]
+        per_emp = over[..., 1, :, :] - over[..., 0, :, :]
+        return (fam_mask(k)[..., None, :n_win] * first[..., :, None] * per_emp).sum((-1, -2))
 
     return d_h2 + d_h3 + d_fam(14, 3), d_fam(7, 2)
+
+
+def move_region_deltas(a_pad, wk_pad, d1, n1, d2, n2, e1, e2, d_days: int):
+    """``region_deltas`` of both regions of W two-point moves per lane, in one
+    pass: (hard_delta, s1_delta) [P, 2, W], d1's region at [:, 0] (nothing
+    excluded), d2's at [:, 1] (the starts already counted for d1 left out).
+    ``a_pad`` [P, D + 2*PAD] is the assignment with employee -1 on PAD days at
+    either end, ``wk_pad`` [D + 2*PAD] its weekend flags; the moves are [P, W].
+    d1's region takes a ``d_excl`` so far below day 0 that it leaves out only
+    negative starts, which the region mask drops anyway."""
+    p, w = d1.shape
+    dj = torch.cat([d1, d2], dim=1)  # [P, 2W]
+    at = dj[..., None] + torch.arange(REG, device=a_pad.device)  # [P, 2W, REG] into the padded tables
+    sl = a_pad.gather(1, at.reshape(p, -1)).view(p, 2, w, REG)
+    d_excl = torch.cat([torch.full_like(d1, -2 * REG), d1], dim=1)
+    return region_deltas(
+        sl, wk_pad[at].view(p, 2, w, REG), *(x[:, None] for x in (d1, n1, d2, n2, e1, e2)),
+        dj.view(p, 2, w), d_excl.view(p, 2, w), True, d_days,
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -277,7 +300,8 @@ class _Tables(NamedTuple):
     wk_pad: torch.Tensor        # bool[D + 2*PAD]
     h_de0: torch.Tensor         # int64[D, E] position hash h(d, e), fingerprint lane 0
     h_de1: torch.Tensor         # int64[D, E] lane 1
-    windows: dict               # width -> (hi, lo) int64[D]: window-start ranges per day
+    band7: torch.Tensor         # float32[max(D - 6, 0), D]: window s of 7 days contains day d
+    band14: torch.Tensor        # float32[max(D - 13, 0), D]: the same for 14 days
 
 
 @lru_cache(maxsize=32)
@@ -305,10 +329,6 @@ def make_scheduling_problem(
             holiday_de = torch.as_tensor(spec.holiday_array().T, dtype=f32).contiguous()
             iota_d = torch.arange(d_days)
             h0, h1 = position_hash_planes(iota_d[:, None], torch.arange(n_emp).expand(d_days, n_emp))
-            windows = {}
-            for width in (7, 14):
-                n_win = d_days - width + 1
-                windows[width] = (iota_d.clamp(max=n_win - 1) + 1, (iota_d - width + 1).clamp(min=0))
             t = _Tables(
                 holiday_de=holiday_de,
                 weekend=weekend,
@@ -317,12 +337,10 @@ def make_scheduling_problem(
                 wk_pad=torch.cat([torch.zeros(PAD, dtype=torch.bool), weekend, torch.zeros(PAD, dtype=torch.bool)]),
                 h_de0=h0,
                 h_de1=h1,
-                windows=windows,
+                band7=_window_band(d_days, 7, "cpu"),
+                band14=_window_band(d_days, 14, "cpu"),
             )
-            tables[device] = t._replace(
-                **{f: getattr(t, f).to(device) for f in t._fields if f != "windows"},
-                windows={k: (hi.to(device), lo.to(device)) for k, (hi, lo) in windows.items()},
-            )
+            tables[device] = t._replace(**{f: getattr(t, f).to(device) for f in t._fields})
         return tables[device]
 
     def wd_counts_of(t: _Tables, oh: torch.Tensor) -> torch.Tensor:
@@ -385,17 +403,11 @@ def make_scheduling_problem(
         a_pad = torch.cat([edge, assign, edge], dim=1)
 
         is_swap, d1, d2, new_emp = moves
-        w = d1.shape[1]
         e1, e2 = assign.gather(1, d1), assign.gather(1, d2)
         n1 = torch.where(is_swap, e2, new_emp)
         n2 = torch.where(is_swap, e1, e2)  # identity for ChangeDay
-        reg = torch.arange(REG, device=assign.device)
-        at1, at2 = d1[..., None] + reg, d2[..., None] + reg  # [P, W, REG] into the padded tables
-        sl1 = a_pad.gather(1, at1.reshape(p, -1)).view(p, w, REG)
-        sl2 = a_pad.gather(1, at2.reshape(p, -1)).view(p, w, REG)
 
-        dh_a, ds1_a = region_deltas(sl1, t.wk_pad[at1], d1, n1, d2, n2, e1, e2, d1, d2, False, d_days)
-        dh_b, ds1_b = region_deltas(sl2, t.wk_pad[at2], d1, n1, d2, n2, e1, e2, d2, d1, True, d_days)
+        dh, ds1 = move_region_deltas(a_pad, t.wk_pad, d1, n1, d2, n2, e1, e2, d_days)  # [P, 2, W]
 
         def hol(d, e):
             return t.holiday_de.view(-1)[d * n_emp + e]
@@ -415,7 +427,7 @@ def make_scheduling_problem(
         d_s34 = s34_of(tot_new, wk_new) - s34_base[:, None]
 
         fpd = _swap_fp_delta_planes(d1, e1, n1, d2, e2, n2)
-        return d_h1 + dh_a + dh_b, ds1_a + ds1_b + d_s2 + d_s34, fpd
+        return d_h1 + dh[:, 0] + dh[:, 1], ds1[:, 0] + ds1[:, 1] + d_s2 + d_s34, fpd
 
     def neighborhood(assign, cur_score, draws, active):
         moves = sample_random_moves(draws, w_size, d_days, n_emp, active)
@@ -451,13 +463,6 @@ def make_scheduling_problem(
             scores=scores, moves=moves, valid=torch.ones((p, w), dtype=torch.bool, device=assign.device),
             fp_deltas=fpd,
         )
-
-    def window_sum(t: _Tables, x: torch.Tensor, width: int) -> torch.Tensor:
-        """out[:, d] = sum of x[:, s] over the window starts s whose window
-        [s, s + width) contains day d; x is [P, D-width+1, E]."""
-        hi, lo = t.windows[width]
-        cx = torch.cat([x.new_zeros((x.shape[0], 1, n_emp)), x.cumsum(1)], dim=1)
-        return cx[:, hi] - cx[:, lo]
 
     def neighborhood_dense(assign, cur_score, draws, active):
         """Every D × E ChangeDay delta as one dense block, ``n_rand`` random
@@ -504,21 +509,18 @@ def make_scheduling_problem(
             d_h3 += m_q[:, None] * (new_q - _shf(old3, -q, 0.0, 1)[..., None])
 
         # H4/S1: +1 on employee e flips a window iff its count is at the
-        # threshold; -1 on the old employee iff one above.
-        csum = torch.cat([oh.new_zeros((p, 1, n_emp)), oh.cumsum(1)], dim=1)
-
-        def crossings(width, thresh):
-            if d_days < width:
+        # threshold; -1 on the old employee iff one above.  The banded
+        # matmuls count each window and sum the flips over the windows
+        # containing each day.
+        def crossings(band, thresh):
+            if band.shape[0] == 0:
                 z = oh.new_zeros((p, d_days, n_emp))
                 return z, z
-            cnt = csum[:, width:] - csum[:, :-width]  # [P, D-width+1, E]
-            return (
-                window_sum(t, (cnt == thresh).to(f32), width),
-                window_sum(t, (cnt == thresh + 1).to(f32), width),
-            )
+            cnt = band @ oh  # [P, D-width+1, E]
+            return band.T @ (cnt == thresh).to(f32), band.T @ (cnt == thresh + 1).to(f32)
 
-        sp14, sm14 = crossings(14, 3)
-        sp7, sm7 = crossings(7, 2)
+        sp14, sm14 = crossings(t.band14, 3)
+        sp7, sm7 = crossings(t.band7, 2)
         d_h4 = sp14 - (sm14 * oh).sum(-1)[..., None]
         d_s1 = sp7 - (sm7 * oh).sum(-1)[..., None]
 
@@ -632,32 +634,30 @@ def make_scheduling_problem(
         blk = torch.stack([d_hard, d_s1])  # [2, P, D, E]
         blk_ext = torch.cat([blk, blk.new_zeros((2, p, d_days, n_emp))], dim=2)
         wd_oh5 = _one_hot(t.weekday, 5)  # [D, 5], 0 on weekends
-        hard_sw, soft_sw, a2s = [], [], []
-        for j in range(n_off):
-            day2 = delta[:, j : j + 1] + iota_d  # [P, D] (>= D: padding)
-            a2 = a_ext.gather(1, day2)
-            oh2 = _one_hot(a2, n_emp)  # -2 padding: a zero row
-            blk_sh = blk_ext.gather(2, day2[None, :, :, None].expand(2, p, d_days, n_emp))
-            term_a = (blk * oh2).sum(-1)   # block[d, a2]
-            term_b = (blk_sh * oh).sum(-1)  # block[d + delta, a1]
+        far = iota_d + delta[..., None]  # [P, n_off, D] (>= D: padding)
+        a2 = a_ext.gather(1, far.view(p, -1)).view(p, n_off, d_days)
+        oh2 = _one_hot(a2, n_emp)  # -2 padding: a zero row
+        blk_sh = blk_ext.gather(2, far.view(1, p, -1, 1).expand(2, p, -1, n_emp))
+        blk_sh = blk_sh.view(2, p, n_off, d_days, n_emp)
+        term_a = (blk[:, :, None] * oh2).sum(-1)      # block[d, a2]
+        term_b = (blk_sh * oh[:, None]).sum(-1)       # block[d + delta, a1]
 
-            wd2 = (t.weekday + delta[:, j : j + 1]) % 7  # [P, D]
-            diff = oh2 - oh
-            upd = (
-                c_base[:, None]
-                + wd_oh5[None, :, :, None] * diff[:, :, None, :]
-                - _one_hot(wd2, 5)[..., None] * diff[:, :, None, :]
-            )  # [P, D, 5, E]
-            s2_sw = s2_of(upd) - s2_base[:, None]
-            dw = (t.weekend_f - (wd2 >= 5).to(f32))[..., None]
-            s4_sw = spread_of(wk[:, None] + dw * diff, pres_b[:, None], np_b[:, None]) - s4_base[:, None]
-
-            noop_sw = a2 == a
-            hard_sw.append(torch.where(noop_sw, 0.0, term_a[0] + term_b[0]))
-            soft_sw.append(torch.where(noop_sw, 0.0, term_a[1] + term_b[1] + s2_sw + s4_sw))
-            a2s.append(a2)
-        hard_sw, soft_sw, a2 = (torch.stack(x, dim=1) for x in (hard_sw, soft_sw, a2s))  # [P, n_off, D]
-        far = iota_d + delta[..., None]
+        wd2 = (t.weekday + delta[..., None]) % 7  # [P, n_off, D]
+        diff = oh2 - oh[:, None]
+        upd = (
+            c_base[:, None, None]
+            + wd_oh5[:, :, None] * diff[..., None, :]
+            - _one_hot(wd2, 5)[..., None] * diff[..., None, :]
+        )  # [P, n_off, D, 5, E]
+        s2_sw = s2_of(upd) - s2_base[:, None, None]
+        dw = (t.weekend_f - (wd2 >= 5).to(f32))[..., None]
+        s4_sw = (
+            spread_of(wk[:, None, None] + dw * diff, pres_b[:, None, None], np_b[:, None, None])
+            - s4_base[:, None, None]
+        )
+        noop_sw = a2 == a[:, None]
+        hard_sw = torch.where(noop_sw, 0.0, term_a[0] + term_b[0])  # [P, n_off, D]
+        soft_sw = torch.where(noop_sw, 0.0, term_a[1] + term_b[1] + s2_sw + s4_sw)
         d2_sw = far.clamp(max=d_days - 1)
         d1_b = iota_d.expand(p, n_off, d_days)
         a_b = a[:, None, :].expand(p, n_off, d_days)
