@@ -921,6 +921,13 @@ def phase_graphs_domains(device, card=None, **sizes) -> dict:
             f"ms per iteration); capture {graph['capture_s']:.4f} s (host, inside the graphed wall); peak memory "
             f"eager {eager['peak_bytes']} B, graphed {graph['peak_bytes']} B, reserved after each "
             f"{eager['reserved_bytes']} B, {graph['reserved_bytes']} B; {card}")
+        if problem.in_place is not None:
+            sel = out[label]["select_form"] = select_form_pair(device, problem, config, kw, warm, chunks)
+            log(f"phase 4c: {label}: in place == select form (state bits, traces, stats), both "
+                f"{'graphed' if is_cuda(device) else 'eager'}; walls "
+                f"select {sel['select']['wall_s']:.4f} s, in place {sel['in_place']['wall_s']:.4f} s; peak memory "
+                f"above the start select {sel['select']['peak_bytes']} B, in place {sel['in_place']['peak_bytes']} B; "
+                f"{card}")
         if is_cuda(device) and "roster" in label:
             out[label]["second_round"] = {}
             for graphed in (False, True):
@@ -933,6 +940,47 @@ def phase_graphs_domains(device, card=None, **sizes) -> dict:
                     f"{trace['host_reads'] / trace['iterations']:.3f} host reads per iteration; top "
                     f"{[(o['name'][:40], round(o['ms'], 3), o['calls']) for o in trace['top_device_ops'][:5]]}; "
                     f"gaps {trace['idle_gaps']}; {card}")
+    return out
+
+
+def select_form_pair(device, problem, config, kw, warm, chunks) -> dict:
+    """4c's second comparison for a problem with a masked move and a keyed best
+    (QAP incremental): solves with ``in_place`` and with it stripped (the
+    select form, the JAX package's), each after its own warm-up, from one
+    seed; the state trees bit for bit, the traces and ``stats()`` must be
+    equal.  Each side's wall, and its peak memory above what the card held as
+    it started (the first side's state stays held for the comparison)."""
+    import torch
+
+    from constraint_solver_tpu_torch.parallel.population import PopulationSolver
+    from constraint_solver_tpu_torch.utils.tree import tree_leaves
+
+    cuda = is_cuda(device)
+    stripped = problem._replace(in_place=None)
+    out, states = {}, {}
+    for side, prob in (("select", stripped), ("in_place", problem)):
+        if warm:
+            PopulationSolver(prob, config, device=device, **kw).run(max_rounds=warm, chunk=warm)
+        base = 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+        s = PopulationSolver(prob, config, device=device, **kw)
+        sync(device)
+        t0 = time.time()
+        trace = np.concatenate([s.execute_chunk_traced(c) for c in chunks])
+        sync(device)
+        out[side] = {"wall_s": time.time() - t0, "trace": trace,
+                     "stats": {k: v for k, v in s.stats().items() if k != "moves_per_sec"},
+                     "peak_bytes": torch.cuda.max_memory_allocated(device) - base if cuda else None}
+        states[side] = s.state
+    sel, inp = out["select"], out["in_place"]
+    for i, (x, y) in enumerate(zip(tree_leaves(states["select"]), tree_leaves(states["in_place"]), strict=True)):
+        bits = (lambda t: t.view(torch.int32)) if x.dtype == torch.float32 else (lambda t: t)
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(bits(x), bits(y)):
+            raise AssertionError(f"phase 4c: {problem.name}: in place and select form differ at state leaf {i}")
+    if not np.array_equal(sel.pop("trace"), inp.pop("trace")) or sel["stats"] != inp["stats"]:
+        raise AssertionError(f"phase 4c: {problem.name}: in place and select form differ in traces or stats")
     return out
 
 

@@ -13,7 +13,9 @@ three graphs, split at that read:
 - the host reads ``need_any``; while it is set, **R** (``_retry``) replays, at
   most ``tabu_retries - 1`` times, writing its pick and mask over A's;
 - **B** (``_finish``): the move and the carry's selects, then the select by the
-  lanes still running, written in place into the static carry.
+  lanes still running, written in place into the static carry (a problem with
+  ``in_place`` has its move written there under the lane mask, and its state is
+  not selected again).
 
 Under the exact filter nothing is read, and B follows A at once.  The host
 checks whether any lane still runs every ``_DONE_CHECK_EVERY`` iterations, as
@@ -36,8 +38,9 @@ a replay that fails raises: nothing falls back to the eager loop.
 Every problem that declares itself ``capturable`` (N-Queens and QAP without
 ``nbr_axis``, scheduling with every proposer, Ackley, the diagram layout)
 takes this path; one unit serves whatever its problem's state tree holds (QAP
-incremental carries G and H, [P, n, n] each), and the phased solver, which
-switches problem at a round, makes one unit per phase.
+incremental carries G and H, [P, n, n] each, and its best as its permutation),
+and the phased solver, which switches problem at a round, makes one unit per
+phase.
 
 A unit runs its first iteration eagerly, on its static carry (that loads every
 kernel and fills every per-device cache, such as the N-Queens log table, the
@@ -79,6 +82,7 @@ from constraint_solver_tpu_torch.core.local_search import (
     _LsCarry,
     _retry,
     _retry_loop,
+    _selected,
 )
 from constraint_solver_tpu_torch.core.problem import Problem
 from constraint_solver_tpu_torch.ops import nqueens_kernel
@@ -202,10 +206,12 @@ class GraphedDescent:
 
     def _seg_b(self, a) -> None:
         """The move and the carry's selects, written into the static carry for
-        the lanes still running."""
+        the lanes still running (a masked move has written the state there
+        already)."""
         active, b = a
-        new = _finish(self.problem, self.params, self.carry, b)
-        for dst, src in zip(tree_leaves(self.carry), tree_leaves(new)):
+        new = _finish(self.problem, self.params, self.carry, b, active)
+        mine, fresh = _selected(self.problem, self.carry), _selected(self.problem, new)
+        for dst, src in zip(tree_leaves(mine), tree_leaves(fresh)):
             torch.where(active.view(active.shape + (1,) * (dst.dim() - 1)), src, dst, out=dst)
 
     def _captured(self, fn: Callable) -> Captured:

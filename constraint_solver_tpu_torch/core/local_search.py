@@ -28,12 +28,23 @@ only, as in the JAX package.
 Divergences: randomness comes from a ``Draws`` source (the noisy selection's
 Gumbel noise from ``draws.select_noise``, in the iteration's neighborhood
 draws), and ``fixed_trip`` is not needed: every loop here already has the
-masked form it asks for.  Under a mesh (``parallel/mesh.py``) the done check is
-world-agreed (``world_any``), the port's form of ``fixed_trip``: every rank runs
-the same number of iterations, so the neighborhood's collectives and draws stay
-matched.  The retry loop of pick-then-check needs no agreement: it draws
-nothing, and the problems that shard a neighborhood hand the engine moves that
-``move_fp`` resolves without a collective.
+masked form it asks for.  The JAX package selects the whole state tree per lane
+twice an iteration (the step's and the best's), and again by the lanes still
+running; XLA fuses those selects into the move.  Here each would be a pass of
+its own over the state, so a problem with ``in_place`` (QAP's incremental G
+and H, ``models/qap.py``) has its move written in place into the carry's own
+state, under the mask of lanes that step and still run, and its state is not
+selected again; the descent carries its best as its key (QAP's permutation)
+and ``ls_execute`` rebuilds the best state from it once, at the end.  The
+answers are the same bit for bit: the other lanes' state is left untouched,
+and the rebuilt state is the one the key stands for.
+
+Under a mesh (``parallel/mesh.py``) the done check is world-agreed
+(``world_any``), the port's form of ``fixed_trip``: every rank runs the same
+number of iterations, so the neighborhood's collectives and draws stay matched.
+The retry loop of pick-then-check needs no agreement: it draws nothing, and the
+problems that shard a neighborhood hand the engine moves that ``move_fp``
+resolves without a collective.
 """
 
 from __future__ import annotations
@@ -46,7 +57,7 @@ from constraint_solver_tpu_torch.core.history import TabuRing
 from constraint_solver_tpu_torch.core.problem import Problem
 from constraint_solver_tpu_torch.ops.lex import lex_argmin, lex_less, noisy_lex_select
 from constraint_solver_tpu_torch.parallel.mesh import world_any
-from constraint_solver_tpu_torch.utils.tree import lane_where, tree_where
+from constraint_solver_tpu_torch.utils.tree import lane_where, tree_map, tree_where
 
 _DONE_CHECK_EVERY = 8
 
@@ -171,9 +182,11 @@ def _retry_loop(params: LsParams, b: _Begun, retry) -> _Begun:
     return b
 
 
-def _finish(problem: Problem, params: LsParams, c: _LsCarry, b: _Begun) -> _LsCarry:
+def _finish(problem: Problem, params: LsParams, c: _LsCarry, b: _Begun, active) -> _LsCarry:
     """Apply each lane's pick and advance its carry (before the select by the
-    lanes still running)."""
+    lanes still running, ``_keep_running``).  With ``in_place`` the move is
+    written into ``c.state`` itself, in the lanes that step and still run, and
+    the best is carried as its key."""
     nb, pick, hit_best = b.nb, b.pick, b.hit_best
     lane = torch.arange(b.n_valid.shape[0], device=b.n_valid.device)
     if b.need is None:
@@ -181,18 +194,31 @@ def _finish(problem: Problem, params: LsParams, c: _LsCarry, b: _Begun) -> _LsCa
     else:
         exhausted_event, empty_nbr = ~pick.found & (b.n_valid > pick.tries), b.n_valid == 0
     cand_score = nb.scores[lane, pick.idx]
-    cand_state = problem.apply_move(c.state, nb.moves, pick.idx)
     improved = lex_less(cand_score, c.score) & pick.found
     step = pick.found & ~hit_best
     no_improve = torch.where(improved, 0, c.no_improve + 1).to(torch.int32)
     bail = ~improved & (no_improve >= params.allow_no_improvement_for)
     new_best = improved | hit_best
 
+    ip = problem.in_place
+    if ip is None:
+        cand_state = problem.apply_move(c.state, nb.moves, pick.idx)
+        state = tree_where(step, cand_state, c.state)
+        best_state = tree_where(new_best, tree_where(hit_best, c.state, cand_state), c.best_state)
+    else:
+        # A hit lane's new best is its old state: take its key before the
+        # move writes over the old state.  A lane that takes the moved state
+        # steps, so its state is the moved one after the call.
+        kept = tree_where(hit_best, ip.key(c.state), c.best_state)
+        ip.move(c.state, nb.moves, pick.idx, step & active)
+        state = c.state
+        best_state = tree_where(new_best & ~hit_best, ip.key(state), kept)
+
     return _LsCarry(
-        state=tree_where(step, cand_state, c.state),
+        state=state,
         score=lane_where(step, cand_score, c.score),
         fp=lane_where(step, pick.fp, c.fp),
-        best_state=tree_where(new_best, tree_where(hit_best, c.state, cand_state), c.best_state),
+        best_state=best_state,
         best_score=lane_where(new_best, lane_where(hit_best, c.score, cand_score), c.best_score),
         tabu=b.tabu,
         no_improve=torch.where(step | ~pick.found, no_improve, c.no_improve),
@@ -206,7 +232,21 @@ def _step(problem: Problem, params: LsParams, c: _LsCarry, draws, active) -> _Ls
     """One descent iteration for every lane (the JAX ``body``)."""
     b = _begin(problem, params, c, draws, active)
     b = _retry_loop(params, b, lambda b: _retry(problem, params, c, b, active))
-    return _finish(problem, params, c, b)
+    return _finish(problem, params, c, b, active)
+
+
+def _selected(problem: Problem, c: _LsCarry) -> _LsCarry:
+    """The part of carry ``c`` that the select by the lanes still running
+    writes: all of it, but the state when ``in_place`` wrote it."""
+    return c if problem.in_place is None else c._replace(state=())
+
+
+def _keep_running(problem: Problem, active, new: _LsCarry, old: _LsCarry) -> _LsCarry:
+    """``new`` in the lanes still running, ``old`` in the others (with
+    ``in_place``, ``old.state``: the move has been written there)."""
+    if problem.in_place is None:
+        return tree_where(active, new, old)
+    return tree_where(active, _selected(problem, new), _selected(problem, old))._replace(state=old.state)
 
 
 def ls_execute(problem: Problem, params: LsParams, start_state, tabu: TabuRing, draws, enabled, graphs=None):
@@ -214,14 +254,15 @@ def ls_execute(problem: Problem, params: LsParams, start_state, tabu: TabuRing, 
     ``enabled[p]`` False do nothing.  Returns ``(best_state, best_score, tabu,
     iterations_used [P], exhausted [P])``.  ``graphs`` (``core/graphed.py``'s
     ``DescentGraphs``, the solver's) replays the iterations as CUDA graphs
-    where its rule allows; otherwise, and without it, they run eagerly."""
+    where its rule allows; otherwise, and without it, they run eagerly.
+    ``start_state`` is left as it was."""
     start_score = problem.score(start_state)
     zeros = torch.zeros_like(enabled, dtype=torch.int32)
     c = _LsCarry(
         state=start_state,
         score=start_score,
         fp=problem.fingerprint(start_state),
-        best_state=start_state,
+        best_state=start_state if problem.in_place is None else problem.in_place.key(start_state),
         best_score=start_score,
         tabu=tabu,
         no_improve=zeros,
@@ -230,11 +271,14 @@ def ls_execute(problem: Problem, params: LsParams, start_state, tabu: TabuRing, 
         exhausted=zeros,
     )
     if graphs is not None and graphs.applies(problem, draws, enabled.device):
-        c = graphs.descend(problem, params, c, draws)
+        c = graphs.descend(problem, params, c, draws)  # copies c into the graphs' own carry
     else:
+        if problem.in_place is not None:  # the move writes the carry's state
+            c = c._replace(state=tree_map(torch.clone, start_state))
         for i in range(params.max_iterations):
             active = ~c.done
             if i % _DONE_CHECK_EVERY == 0 and not world_any(active):
                 break
-            c = tree_where(active, _step(problem, params, c, draws, active), c)
-    return c.best_state, c.best_score, c.tabu, c.it, c.exhausted
+            c = _keep_running(problem, active, _step(problem, params, c, draws, active), c)
+    best = c.best_state if problem.in_place is None else problem.in_place.rebuild(c.best_state)
+    return best, c.best_score, c.tabu, c.it, c.exhausted

@@ -18,7 +18,16 @@ Divergences:
   N-Queens moves are the sampled columns [P, A] plus n, and flat candidate
   ``idx`` is the move (column ``cols[idx // n]``, row ``idx % n``), so no
   [P, A·n] move arrays are built.  The engine only hands ``moves`` back to
-  ``move_fp`` and ``apply_move``.
+  ``move_fp`` and ``apply_move``;
+- the optional field ``in_place`` (an ``InPlace``) lets a problem whose state
+  is large (QAP's incremental G and H) skip the descent's whole-state selects.
+  The JAX package selects whole state trees per lane, and XLA fuses each select
+  into the update that feeds it; eagerly or in a CUDA graph each select is a
+  pass of its own over the state.  With the field the engine writes the move in
+  place under the lane mask and carries the descent's best as a key, from which
+  it rebuilds the state once at the end.  The answers are the same: the masked
+  move leaves the other lanes bit for bit as they were, and the rebuild gives
+  the state the key stands for.
 """
 
 from __future__ import annotations
@@ -51,6 +60,26 @@ class Neighborhood(NamedTuple):
     fp_deltas: torch.Tensor | None = None
 
 
+class InPlace(NamedTuple):
+    """A descent whose state is written in place and whose best is carried by
+    a key (``Problem.in_place``).
+
+    move:    (state, moves, idx[P], mask[P]) -> None.  ``apply_move`` in the
+             lanes of ``mask`` only, written into ``state``'s own buffers;
+             every other lane stays bit for bit as it was.  The engine owns the
+             descent's state, ignores what the call returns, and reads nothing
+             of the old state after it.
+    key:     (state) -> key, a smaller tree that stands for ``state``.
+    rebuild: (key) -> state, exactly the state the key stands for.  The
+             descent carries its best as the key and rebuilds it once, at its
+             end.
+    """
+
+    move: Callable
+    key: Callable
+    rebuild: Callable
+
+
 class Problem(NamedTuple):
     """A constraint problem as functions on lane-batched tensors.
 
@@ -74,6 +103,9 @@ class Problem(NamedTuple):
                   wraps ``neighborhood`` (a counter, a profiler span) still
                   sees one call per iteration (``replayable`` gives a
                   neighborhood that form).
+    in_place:     optional ``InPlace``: the descent writes its move in place
+                  under the lane mask and carries its best as a key, instead of
+                  selecting whole states per lane.
     """
 
     name: str
@@ -87,6 +119,7 @@ class Problem(NamedTuple):
     perturb: Callable
     width: int = 0
     capturable: bool = False
+    in_place: InPlace | None = None
 
 
 def replayable(neighborhood: Callable) -> Callable:

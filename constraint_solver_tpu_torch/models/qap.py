@@ -35,6 +35,18 @@ Divergences from the JAX package:
   ``st.h @ d`` with d = e_a - e_b are the column differences ``G[:, a] - G[:,
   b]``; G' = P G P is the swap of rows and columns a and b of G; H' is the
   rank-1 update with the two column fix-ups of the JAX code.  All exact.
+- **The incremental move in place, the best by its permutation.** The JAX
+  package's descent selects the whole state tree (p, G, H) per lane, for the
+  step, for the best and for the lanes still running, and XLA fuses those
+  selects into the update.  Eagerly or in a CUDA graph each select of G or H is
+  a pass of its own over [P, n, n] floats, ten an iteration.  So the incremental
+  problem has ``in_place`` (``core/problem.py``): the move is written into the
+  carry's own G, H and p, with b := a (a swap with itself) in the lanes that do
+  not step, and the descent carries its best as p and rebuilds G and H from it
+  once, at its end.  The answers
+  are unchanged bit for bit: the lanes outside the mask keep their G, H and p,
+  and G and H are functions of p whose every entry is an integer below 2^24,
+  so the rebuilt G and H equal the carried ones.
 - **Implicit moves.** ``QAPMoves(partner, n)``: a dense candidate ``idx`` is
   the swap (idx // n, idx % n); a compact one is (idx, partner[:, idx]).  No
   [P, n²] index arrays are built.
@@ -73,7 +85,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from constraint_solver_tpu_torch.core.problem import Neighborhood, Problem, replayable
+from constraint_solver_tpu_torch.core.problem import InPlace, Neighborhood, Problem, replayable
 from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32, fp_update
 from constraint_solver_tpu_torch.ops.lex import make_score
 from constraint_solver_tpu_torch.parallel.mesh import active_axis, all_gather, gather_best
@@ -326,6 +338,33 @@ def make_qap_problem(
             h2[lane, :, b] -= fix
             return QAPState(swap(st.p, a, b), g2, h2)
 
+        def move_in_place(st, moves, idx, mask):
+            # apply_move_inc in the lanes of mask, written into st's own
+            # buffers in the same order.  Every other lane swaps a with itself:
+            # its gu, hu and fu are +0, so H gains -(+0 * +0) = -0, which
+            # leaves every float as it was (±0 too), and its column fixes keep
+            # the old columns.
+            a, b = decode(moves, idx)
+            b = torch.where(mask, b, a)
+            flow = mats(st.g.device)[0]
+            lane = torch.arange(st.p.shape[0], device=st.p.device)
+            gu = st.g[lane, :, a] - st.g[lane, :, b]
+            hu = st.h[lane, :, a] - st.h[lane, :, b]
+            fu = flow[:, a].T - flow[:, b].T
+            s = gu[lane, a] - gu[lane, b]
+            for m, at_a, at_b in ((st.g, (lane, a), (lane, b)),                       # rows
+                                  (st.g, (lane, slice(None), a), (lane, slice(None), b)),  # columns
+                                  (st.p, (lane, a), (lane, b))):
+                va, vb = m[at_a], m[at_b]
+                m[at_a], m[at_b] = vb, va
+            st.h.addcmul_(fu[:, :, None], gu[:, None, :], value=-1.0)
+            fix = s[:, None] * fu - hu
+            keep = ~mask[:, None]
+            col_a = st.h[lane, :, a]
+            st.h[lane, :, a] = torch.where(keep, col_a, col_a + fix)
+            col_b = st.h[lane, :, b]
+            st.h[lane, :, b] = torch.where(keep, col_b, col_b - fix)
+
         def perturb_inc(st, is_elite, draws):
             # Perturb the permutation, then rebuild G and H (once per round).
             p2 = perturb(st.p, is_elite, draws)
@@ -343,6 +382,8 @@ def make_qap_problem(
             perturb=perturb_inc,
             width=n * n,
             capturable=True,
+            in_place=InPlace(move_in_place, key=lambda st: st.p,
+                             rebuild=lambda p: QAPState(p, *gh_from_p(p))),
         )
 
     if nbr_axis is not None:

@@ -281,16 +281,25 @@ def _plant(monkeypatch, plant):
     def make(spec, **kw):
         prob = real(spec, **kw)
         if plant == "state_unchanged":  # the move's score is carried, its state is not
-            return prob._replace(apply_move=lambda st, moves, idx: st)
-        if plant in ("g_drift", "h_drift"):  # one entry of every lane's G or H one off after each move
+            return prob._replace(in_place=prob.in_place._replace(move=lambda st, moves, idx, mask: None))
+        if plant in ("g_drift", "h_drift"):
+            # One entry of every lane's G or H one off in the state the solver
+            # carries out of a descent, which is rebuilt from the best's p.
+            def rebuild(p):
+                st = prob.in_place.rebuild(p)
+                getattr(st, plant[0])[:, 0, 1] += 1.0
+                return st
 
-            def apply_move(st, moves, idx):
-                out = prob.apply_move(st, moves, idx)
-                m = getattr(out, plant[0]).clone()
-                m[:, 0, 1] += 1.0
-                return out._replace(**{plant[0]: m})
+            return prob._replace(in_place=prob.in_place._replace(rebuild=rebuild))
+        if plant == "move_g_drift":
+            # G's entry (0, 1) one more in every lane the in-place move writes,
+            # after each move.  The check does not read the descent's own G:
+            # the drift reaches it only through the costs of the moves taken.
+            def move(st, moves, idx, mask):
+                prob.in_place.move(st, moves, idx, mask)
+                st.g[:, 0, 1] += mask.to(st.g.dtype)
 
-            return prob._replace(apply_move=apply_move)
+            return prob._replace(in_place=prob.in_place._replace(move=move))
 
         def neighborhood(*args):  # no valid move for every lane, or for the upper half
             nb = prob.neighborhood(*args)
@@ -307,6 +316,7 @@ def _plant(monkeypatch, plant):
     ("state_unchanged", 8, "carried cost"),
     ("g_drift", 8, "carried G differs"),
     ("h_drift", 8, "carried H differs"),
+    ("move_g_drift", 8, "carried cost"),
     ("never_accepts", 256, "lanes [0, 1]: best cost"),
     ("half_lanes", 256, "lanes [1]: best cost"),
 ])
@@ -317,6 +327,24 @@ def test_qap_check_fails_a_planted_fault(monkeypatch, plant, n, message):
     rec = _run_cell(cell, {})
     assert not rec["correct"]
     assert any(message in f for f in rec["failures"]), rec["failures"]
+
+
+def test_qap_plant_script_reads_the_check(capsys):
+    """``scripts/qap_plant.py`` on the CPU at n = 8: the control passes the
+    runner's check, a G drift planted in the rebuilt best fails it on G, and
+    the in-place move's G drift fails it through the cost."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "scripts", "qap_plant.py")
+    spec = importlib.util.spec_from_file_location("qap_plant", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.main(["--device", "cpu", "--n", "8", "--plants", "none", "rebuild_g_drift", "move_g_drift"]) == 0
+    reading = json.loads(capsys.readouterr().out.splitlines()[-1])
+    none, rebuild, move = reading["plants"]
+    assert none["correct"] and none["cost_gap"] == {"best": 0.0, "lanes_max": 0.0} and none["iterations"] == 300
+    assert not rebuild["correct"] and "carried G differs" in rebuild["failures"][0]
+    assert not move["correct"] and all("carried cost" in f for f in move["failures"])
 
 
 def test_unknown_metric_or_solver_raises():

@@ -22,7 +22,9 @@ replayed as CUDA graphs equals the eager loop bit for bit, after a checkpoint's
 Ackley and the diagram layout; so does PMC's step loop (full block and sampled
 columns), which ``ParallelMinConflictsSolver`` replays by default.  The matrix
 forms of the N-Queens block (``block_impl="mxu_conv"``, ``"mxu_toeplitz"``)
-equal the kernel's block bit for bit and replay as graphs too.  Two gloo
+equal the kernel's block bit for bit and replay as graphs too.  QAP's
+incremental move written in place, with the best carried by its permutation,
+equals the select form bit for bit.  Two gloo
 ranks sharing the card run the pop- and nbr-sharded N-Queens solves, equal to
 the same sharded solves on the CPU (the rank bodies are in
 ``tests/torch_ranks.py``)."""
@@ -550,6 +552,30 @@ def test_cuda_graphed_domains_equal_eager(cuda, domain, exact):
     np.testing.assert_array_equal(got[1], want[1])
     assert got[2] == want[2] and torch.equal(got[3], want[3])
     assert len(graphed.program.graphs._units) == 1 and graphed.program.graphs.capture_s > 0
+
+
+@pytest.mark.cuda
+def test_cuda_qap_inplace_move_and_keyed_best_equal_the_select_form(cuda):
+    """QAP incremental at n = 512, P = 4, graphed, two rounds: with the masked
+    in-place move and the best carried by its permutation, and with
+    ``in_place`` stripped (the select form), the state trees are equal bit for bit,
+    and so are the traces and ``stats()``."""
+    from constraint_solver_tpu_torch.utils.tree import tree_leaves
+
+    problem = make_qap_problem(QAPSpec.random(512, seed=0), incremental=True)
+    config = SolverConfig(seed="qap-inplace", local_search_max_iterations=50, best_solutions_capacity=4,
+                          all_solutions_capacity=64, max_allow_no_improvement_for=5)
+    runs = []
+    for prob in (problem, problem._replace(in_place=None)):
+        s = PopulationSolver(prob, config, population=4, device=cuda)
+        runs.append((s.execute_chunk_traced(2), s.state, s.stats()))
+        assert len(s.program.graphs._units) == 1 and s.program.graphs.capture_s > 0
+    (trace, state, stats), (trace0, state0, stats0) = runs
+    np.testing.assert_array_equal(trace, trace0)
+    assert stats == stats0 and stats["ls_iterations"] > 0
+    for x, y in zip(tree_leaves(state), tree_leaves(state0), strict=True):
+        bits = (lambda t: t.view(torch.int32)) if x.dtype == torch.float32 else (lambda t: t)
+        assert x.dtype == y.dtype and torch.equal(bits(x), bits(y))
 
 
 @pytest.mark.cuda
