@@ -2,13 +2,13 @@
 """Smoke run of the PyTorch port (``constraint_solver_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py                # every phase
-    python3 chip_smoke.py --kernel-only  # phases 1, 2 and 2b, no result line
+    python3 chip_smoke.py --kernel-only  # phases 1, 2, 2b and 2c, no result line
 
 Phases, each printing its own lines; any failure raises and exits nonzero:
 
-1. builds the two CUDA libraries from ``constraint_solver_tpu_torch/csrc``
-   (``nqueens_scores.cu`` and ``nqueens_probes.cu``, one ``nvcc`` each, started
-   together) and prints the card's name and power limit (``nvidia-smi``);
+1. builds the three CUDA libraries from ``constraint_solver_tpu_torch/csrc``
+   (``nqueens_scores.cu``, ``nqueens_probes.cu`` and ``qap_row_min.cu``, one
+   ``nvcc`` each, started together) and prints the card's name and power limit (``nvidia-smi``);
    without a CUDA device it stops before printing any result;
 2. holds the kernel against its plain PyTorch version on the card, bit for bit,
    at the shapes the solvers give it (phase 13's sharded (128, 25, 1000) and
@@ -30,6 +30,13 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    ``main(["--packed", "--i16", "--mxu"])`` with the probes' launch counts from
    0: each arm's ms/iter, and every probe arm's sums equal to the plain slice
    block's;
+2c. K1, QAP's swap row minimum (``ops/qap_row_min.py``, ``csrc/qap_row_min.cu``),
+   at qap4096_inc_p4's (4, 4096) and at (16, 1024) and (64, 256): equal to its
+   plain version bit for bit on the solver's data and on non-integer floats;
+   on the solver's data its device-only ms per launch (its events in a
+   ``torch.profiler`` trace), the wrapper's host us, its time and the plain
+   version's (the eager chain it replaces) by CUDA events in turns, and the
+   DRAM bound with the share reached;
 3. runs a few rounds of nqueens-64 with 8 lanes on the card and on the CPU from
    the same host-side draws, in both tabu modes: the states must be equal;
 4. drives the main path, ``PopulationSolver(make_nqueens_problem(1000), ...,
@@ -53,7 +60,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    the roster cell's configuration (365 d x 20 e, dense, 64 lanes, 8 rounds
    after a 4-round warm-up), qap-64 with 8 lanes (dense, compact,
    incremental), qap-256 with 64 (dense, compact) and qap-4096 incremental
-   with 4 (2 rounds; G and H are 268 MB each), Ackley d = 10 with 64 lanes
+   with 4 (2 rounds; G and H are 268 MB each; every compact and incremental
+   case must launch K1, as often graphed as eager), Ackley d = 10 with 64 lanes
    (6 rounds of descents of at most 40 iterations) and the diagram layout (8
    boxes with 4 lanes, 64 boxes with 64, 3 rounds): state trees, traces,
    ``stats()`` and the generator's state equal; both walls and ms per
@@ -101,7 +109,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    (which rebuilds H) timed apart and the carried G and H exact.  For (b)-(d)
    the recorded best must be a permutation whose carried cost is within 1e-3
    of an int64 host cost, and the timed run's peak and reserved memory are
-   printed; one more round of each runs under ``torch.profiler``;
+   printed; one more round of each runs under ``torch.profiler`` (K1's events
+   timed apart); every compact and incremental run on the card must launch K1;
 9. Ackley d=10, 64 lanes, the JAX CLI's configuration, until |f| <= 1e-2 or
    ``ACKLEY_WALL_S``: the recorded best equal to the float64 function of its
    point within 2e-5;
@@ -112,7 +121,7 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
     random window until round 16: each program runs exactly in its rounds and
     the best equals the date-based rescore; (b) checkpoints on the card:
     2 rounds, save, load into a fresh solver, 2 rounds == 4 rounds straight,
-    for qap-1024 compact and for the nqueens main path;
+    for qap-1024 compact (K1 launched) and for the nqueens main path;
 12. the user surface on the card: the five CLIs run in this process with
     ``--device cuda``, each printed result checked apart (the nqueens board at
     n = 1000, P = 256 and PMC's board by the numpy attacking-pair count, the
@@ -125,8 +134,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
     ``utils/profiling.trace``, whose Chrome trace must hold the kernel's
     events; and ``roofline()`` of the main path's solver, of a main-path
     solver after one round and of qap-4096 incremental with 4 lanes: every
-    share at most 1.05, the state unchanged, the kernel's counted bytes
-    ``kernel_bytes`` times its launches;
+    share at most 1.05, the state unchanged, each kernel's counted bytes its
+    bytes per call times its launches (B1 ``kernel_bytes``, K1 ``kernel_work``);
 13. multi-device solving (``parallel/``): four ranks, spawned processes on the
     one card with the gloo backend, every mesh over all four, each sub-phase
     timed on every rank with its kernel launches (per shape), collectives and
@@ -155,8 +164,9 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
     ``correct``, the device must be the card, and every metric the benchmark
     names for the cell must hold a number, the kernel's from its own events.
 
-Each path's kernel launches are counted from 0 just before it runs.  The line
-before the last is a JSON object with each kernel's measurements; the last line
+Each path's kernel launches are counted from 0 just before it runs: B1's on the
+N-Queens paths, K1's on phases 4c, 8, 11b and the QAP CLI.  The line before the
+last is a JSON object with each kernel's measurements; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -197,6 +207,11 @@ PROBE_SHAPES = ((MAIN_P, MAIN_A, MAIN_N), (16, 819, 16384))
 PROBE_LAUNCHES = {PROBE_SHAPES[0]: (TIMED_LAUNCHES, 20), PROBE_SHAPES[1]: (20, 3)}
 HARNESS_ARGV = ["--packed", "--i16", "--mxu"]  # the ported harness at its default n, P and K
 BENCH_CELL = "nqueens1000_p256"  # phase 14: the benchmark's headline cell
+# Phase 2c: K1 (QAP's swap row minimum) at qap4096_inc_p4's shape and at phase
+# 8's compact qap-1024 and qap-256 lanes; its events in a profiler trace.
+K1_SHAPES = ((4, 4096), (16, 1024), (64, 256))
+K1_EVENT = "qap_row_min"
+K1_REPLACES = "constraint_solver_tpu/models/qap.py:202-224, :325-341 (XLA fusion, no Pallas call)"
 
 
 def log(msg: str) -> None:
@@ -571,6 +586,108 @@ def phase_probes(device) -> tuple[list, dict]:
     return entries, {"x".join(map(str, s)): v for s, v in b1.items()}
 
 
+def k1_inputs(kind: str, p: int, n: int, device) -> tuple:
+    """K1's arguments (h, g, flow, cur) at (P, n): "qap" is the solver's own
+    data, G = D[p][:, p] and H = F G of random permutations of
+    ``QAPSpec.random(n, seed=0)`` with each lane's cost, cur a strided view of
+    the score as the neighborhoods pass it; "float" holds non-integer floats,
+    whose operations round."""
+    import torch
+
+    from constraint_solver_tpu_torch.models.qap import QAPSpec
+
+    gen = torch.Generator(device=device).manual_seed(p * 100_003 + n)
+    if kind == "qap":
+        flow_np, dist_np = QAPSpec.random(n, seed=0).arrays()
+        flow, dist = torch.from_numpy(flow_np).to(device), torch.from_numpy(dist_np).to(device)
+        perm = torch.argsort(torch.rand((p, n), generator=gen, device=device), dim=1)
+        rows = dist[perm]
+        g = rows.gather(2, perm[:, None, :].expand(rows.shape)).contiguous()
+        h = torch.matmul(flow, g)
+        score = torch.stack([(flow * g).sum(dim=(1, 2)), torch.zeros(p, device=device)], dim=1)
+        return h, g, flow, score[:, 0]
+    h = torch.randn((p, n, n), generator=gen, device=device) * 1e3
+    g = torch.randn((p, n, n), generator=gen, device=device)
+    flow = torch.randn((n, n), generator=gen, device=device) * 10.0
+    return h, g, flow, torch.randn((p,), generator=gen, device=device) * 1e3 + 1e5
+
+
+def k1_bound(p: int, n: int) -> tuple[float, str]:
+    """K1's least time on the card, ms (``kernel_work``'s bytes over the HBM
+    rate or its operations over the float32 rate, the larger), and which."""
+    from constraint_solver_tpu_torch.ops import qap_row_min as qrm
+
+    ops, nbytes = qrm.kernel_work(p, n)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def assert_k1_equal(got, want, what: str) -> float:
+    """rmin's bits and rarg equal (NaNs compared as NaN); returns the largest
+    |rmin - plain| over the finite entries."""
+    import torch
+
+    (rmin, rarg), (wmin, warg) = got, want
+    nan = rmin.isnan()
+    if not (rarg.dtype == warg.dtype == torch.int64 and torch.equal(rarg, warg) and torch.equal(nan, wmin.isnan())
+            and torch.equal(rmin[~nan].view(torch.int32), wmin[~nan].view(torch.int32))):
+        raise AssertionError(f"phase 2c: K1 != its plain version ({what})")
+    finite = rmin.isfinite() & wmin.isfinite()
+    return float((rmin[finite] - wmin[finite]).abs().max()) if bool(finite.any()) else 0.0
+
+
+def phase_k1(device, shapes=K1_SHAPES) -> dict:
+    """2c. K1 against its plain version bit for bit at each shape, on the
+    solver's data and on non-integer floats; then, on the solver's data, its
+    device-only ms per launch, the wrapper's host us, its time and the plain
+    version's (the eager chain it replaces) by CUDA events in turns, the bound
+    and the share.  Returns K1's entry of the kernels line (its launches are
+    filled in by the paths)."""
+    import torch
+
+    from constraint_solver_tpu_torch.ops import qap_row_min as qrm
+
+    t0 = time.time()
+    per, max_err = {}, 0.0
+    kern_fn, plain_fn = qrm.qap_swap_row_min, qrm.qap_swap_row_min_ref
+    for p, n in shapes:
+        for kind in ("float", "qap"):
+            args = k1_inputs(kind, p, n, device)
+            got = kern_fn(*args)
+            torch.cuda.synchronize()
+            max_err = max(max_err, assert_k1_equal(got, plain_fn(*args), f"{kind} at (P, n) = {(p, n)}"))
+            log(f"phase 2c: K1 == plain version bit for bit at (P, n) = {(p, n)}, {kind} inputs")
+        calls, plain_calls = (20, 10) if n >= 4096 else (TIMED_LAUNCHES, TIMED_LAUNCHES)
+        for fn in (kern_fn, plain_fn):
+            time_ms(fn, args, 3)  # warm-up
+        plain = [time_ms(plain_fn, args, plain_calls)]
+        kern = [time_ms(kern_fn, args, calls) for _ in range(2)]
+        plain.append(time_ms(plain_fn, args, plain_calls))
+        dev, how = device_ms(kern_fn, args, calls, K1_EVENT)
+        host = min(host_us(kern_fn, args, calls) for _ in range(2))
+        bound, by = k1_bound(p, n)
+        per[(p, n)] = {"ms": sum(kern) / 2, "plain_ms": sum(plain) / 2, "device_ms": dev, "host_us": host,
+                       "bound_ms": bound, "bound_by": by, "bound_share": bound / dev}
+        log(f"phase 2c: K1 at (P, n) = {(p, n)}: {kern} ms, eager chain (the plain version) {plain} ms (CUDA "
+            f"events, {calls} / {plain_calls} calls); device-only {dev:.6f} ms per launch ({how}); host {host:.1f} "
+            f"us per call; bound {bound:.6f} ms ({qrm.kernel_work(p, n)[1]} bytes at {HBM_BYTES_PER_S / 1e12} "
+            f"TB/s), share {bound / dev:.3f}; eager chain / K1 {per[(p, n)]['plain_ms'] / per[(p, n)]['ms']:.2f}x")
+        del args, got
+        torch.cuda.empty_cache()
+    main = per[shapes[0]]
+    log(f"phase 2c: {time.time() - t0:.1f} s")
+    return {
+        "name": qrm.KERNEL_NAME,
+        "route": "cuda",
+        "source": "constraint_solver_tpu_torch/csrc/qap_row_min.cu",
+        "replaces": K1_REPLACES,
+        "max_abs_err": max_err,
+        **main,
+        "library_ms": None,
+        "shapes": {"x".join(map(str, s)): v for s, v in per.items()},
+    }
+
+
 def run_rounds(device, exact, chunks=3):
     """nqueens-64, 8 lanes, from draws made on the host; returns the state in
     the reference layout and the per-round traces."""
@@ -704,11 +821,12 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
     """4b's and 4c's comparison: ``drive`` on an eager solver (``_graphed=False``)
     and on a graphed one, each from ``make(graphed)``; the final state trees,
     what ``drive`` returns (the traces), ``stats()``, the generator's state and
-    the kernel's launches must be equal.  Each side's wall, its peak memory, and
-    the graphed side's capture time."""
+    the launches of B1 and of K1 must be equal.  Each side's wall, its peak
+    memory, and the graphed side's capture time."""
     import torch
 
     from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+    from constraint_solver_tpu_torch.ops import qap_row_min as qrm
     from constraint_solver_tpu_torch.utils.convert import to_reference
 
     out = {}
@@ -718,7 +836,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
     for graphed in (False, True):
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
-        launches0 = nk.nqueens_neighborhood_scores.launches
+        launches0, k1_launches0 = nk.nqueens_neighborhood_scores.launches, qrm.qap_swap_row_min.launches
         s = make(graphed)
         sync(device)
         t0 = time.time()
@@ -731,6 +849,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
             "stats": {k: v for k, v in s.stats().items() if k != "moves_per_sec"},  # that one is the wall's
             "generator": s.draws.state_dict()["generator"],
             "launches": nk.nqueens_neighborhood_scores.launches - launches0,
+            "k1_launches": qrm.qap_swap_row_min.launches - k1_launches0,
             "peak_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
             "reserved_bytes": torch.cuda.memory_reserved(device) if cuda else None,
             "capture_s": graphs.capture_s if graphs is not None else None,
@@ -740,14 +859,15 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
     assert_tree_equal(graph["state"], eager["state"])
     if not np.array_equal(np.asarray(graph["result"]), np.asarray(eager["result"])):
         raise AssertionError(f"phase {label}: graphed and eager traces differ")
-    for key in ("stats", "launches"):
+    for key in ("stats", "launches", "k1_launches"):
         if graph[key] != eager[key]:
             raise AssertionError(f"phase {label}: graphed and eager {key} differ: {graph[key]} != {eager[key]}")
     if not torch.equal(graph["generator"], eager["generator"]):
         raise AssertionError(f"phase {label}: the generator's state differs after the graphed run")
     if is_cuda(device) and graph["units"] != 1:
         raise AssertionError(f"phase {label}: the graphed solver made {graph['units']} graphed descents, not 1")
-    return {side: {k: v[k] for k in ("wall_s", "peak_bytes", "reserved_bytes", "capture_s", "launches", "stats")}
+    return {side: {k: v[k] for k in ("wall_s", "peak_bytes", "reserved_bytes", "capture_s", "launches", "k1_launches",
+                                     "stats")}
             for side, v in (("eager", eager), ("graphed", graph))}
 
 
@@ -911,12 +1031,15 @@ def phase_graphs_domains(device, card=None, **sizes) -> dict:
         pair = graphs_pair(device, make, lambda s: np.concatenate([s.execute_chunk_traced(c) for c in chunks]),
                            label="4c")
         eager, graph = pair["eager"], pair["graphed"]
+        if is_cuda(device) and label.startswith("qap") and ("compact" in label or "incremental" in label) \
+                and graph["k1_launches"] == 0:
+            raise AssertionError(f"phase 4c: {label}: K1 (qap_swap_row_min) never launched")
         iterations = counters.calls  # the graphed side's, which equal the eager side's (stats)
         out[label] = {**pair, "iterations": iterations, "warm_up_s": warm_s,
                       "ms_per_iteration": {k: 1e3 * v["wall_s"] / max(iterations, 1) for k, v in pair.items()}}
         log(f"phase 4c: {label}: graphed == eager (state, traces, stats, generator) after {graph['stats']['rounds']} "
-            f"rounds, {iterations} lockstep iterations, {graph['stats']['ls_iterations']} descent iterations; "
-            f"walls eager {eager['wall_s']:.4f} s, graphed {graph['wall_s']:.4f} s "
+            f"rounds, {iterations} lockstep iterations, {graph['stats']['ls_iterations']} descent iterations, "
+            f"K1 launches {graph['k1_launches']}; walls eager {eager['wall_s']:.4f} s, graphed {graph['wall_s']:.4f} s "
             f"({out[label]['ms_per_iteration']['eager']:.4f} / {out[label]['ms_per_iteration']['graphed']:.4f} "
             f"ms per iteration); capture {graph['capture_s']:.4f} s (host, inside the graphed wall); peak memory "
             f"eager {eager['peak_bytes']} B, graphed {graph['peak_bytes']} B, reserved after each "
@@ -1478,8 +1601,8 @@ def profile_round(solver, counters) -> dict:
         solver.execute_round()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = copies = reads = 0
-    busy_us = 0.0
+    kernels = copies = reads = k1_events = 0
+    busy_us = k1_us = 0.0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             if e.name.startswith(("Memcpy", "Memset")):
@@ -1487,6 +1610,9 @@ def profile_round(solver, counters) -> dict:
             else:
                 kernels += 1
             busy_us += e.time_range.elapsed_us()
+            if K1_EVENT in e.name:
+                k1_events += 1
+                k1_us += e.time_range.elapsed_us()
         elif e.name == "aten::_local_scalar_dense":
             reads += 1
     it = max(counters.calls, 1)
@@ -1500,6 +1626,8 @@ def profile_round(solver, counters) -> dict:
         "host_reads_per_iteration": reads / it,
         "busy_ms_per_iteration": busy_us / 1e3 / it if kernels else None,
         "idle_share": 1.0 - busy_us / 1e6 / wall if kernels else None,
+        "k1_events": k1_events,
+        "k1_ms_per_launch": k1_us / 1e3 / k1_events if k1_events else None,
     }
     if not kernels:
         log("  profile: the trace holds no device events; device busy and idle not measured")
@@ -1527,8 +1655,10 @@ def qap_host_cost(flow, dist, p) -> int:
 
 def run_qap(device, mode, n=64, population=8, rounds=4):
     """qap-n from host-side draws; the state in the reference layout, the
-    per-round traces and the stats."""
+    per-round traces and the stats.  On the card the compact and incremental
+    modes must launch K1."""
     from constraint_solver_tpu_torch.models.qap import QAPSpec, make_qap_problem
+    from constraint_solver_tpu_torch.ops import qap_row_min as qrm
     from constraint_solver_tpu_torch.parallel.population import PopulationSolver
     from constraint_solver_tpu_torch.utils.convert import to_reference
     from constraint_solver_tpu_torch.utils.draws import TorchDraws
@@ -1538,7 +1668,10 @@ def run_qap(device, mode, n=64, population=8, rounds=4):
         make_qap_problem(QAPSpec.random(n, seed=0), **QAP_MODES[mode]), config, population=population,
         device=device, draws=TorchDraws(config.seed, population, device, draw_device="cpu"),
     )
+    launches0 = qrm.qap_swap_row_min.launches
     traces = [solver.execute_chunk_traced(2) for _ in range(rounds // 2)]
+    if is_cuda(device) and mode != "dense" and qrm.qap_swap_row_min.launches == launches0:
+        raise AssertionError(f"phase 8a: qap-{n} {mode} on the card never launched K1")
     return to_reference(solver.state), np.concatenate(traces), solver.stats()
 
 
@@ -1549,6 +1682,7 @@ def qap_arm(device, n, population, mode, warm, rounds, label, capacity=8):
     import torch
 
     from constraint_solver_tpu_torch.models.qap import QAPSpec, make_qap_problem
+    from constraint_solver_tpu_torch.ops import qap_row_min as qrm
     from constraint_solver_tpu_torch.parallel.population import PopulationSolver
 
     spec = QAPSpec.random(n, seed=0)
@@ -1564,10 +1698,14 @@ def qap_arm(device, n, population, mode, warm, rounds, label, capacity=8):
         torch.cuda.reset_peak_memory_stats(device)
     s = PopulationSolver(problem, config, population=population, device=device)
     counters.reset()
+    k1_launches0 = qrm.qap_swap_row_min.launches
     t0 = time.time()
     s.run(max_rounds=rounds, chunk=2)
     sync(device)
     wall = time.time() - t0
+    k1_launches = qrm.qap_swap_row_min.launches - k1_launches0
+    if is_cuda(device) and mode != "dense" and k1_launches == 0:
+        raise AssertionError(f"phase 8{label}: qap-{n} {mode} never launched K1")
     stats = s.stats()
     calls, perturb_s = counters.calls, counters.perturb_s()
     memory = (torch.cuda.max_memory_allocated(device), torch.cuda.memory_reserved(device)) if is_cuda(device) else None
@@ -1584,7 +1722,7 @@ def qap_arm(device, n, population, mode, warm, rounds, label, capacity=8):
         "wall_per_round_s": wall / rounds, "best_carried": cost, "best_int64": exact,
         "lockstep_iterations": calls, "ms_per_iteration": 1e3 * wall / max(calls, 1),
         "ls_iterations": stats["ls_iterations"], "moves_per_sec": stats["moves_evaluated"] / wall,
-        "peak_bytes": memory and memory[0], "reserved_bytes": memory and memory[1],
+        "peak_bytes": memory and memory[0], "reserved_bytes": memory and memory[1], "k1_launches": k1_launches,
     }
     if mode == "incremental":
         out["perturb_s"] = perturb_s
@@ -1594,7 +1732,7 @@ def qap_arm(device, n, population, mode, warm, rounds, label, capacity=8):
     log(
         f"phase 8{label}: qap-{n} {mode} P={population}: {rounds} rounds in {wall:.3f} s, "
         f"{calls} lockstep iterations ({out['ms_per_iteration']:.3f} ms each), best {cost:.0f} "
-        f"(int64 host cost {exact}), moves/s {out['moves_per_sec']:.4g}, peak memory {out['peak_bytes']} B, "
+        f"(int64 host cost {exact}), moves/s {out['moves_per_sec']:.4g}, K1 launches {k1_launches}, peak memory {out['peak_bytes']} B, "
         f"reserved {out['reserved_bytes']} B"
         + (f", perturbation with H rebuild {perturb_s:.3f} s ({out['rebuild_share']:.3f} of the wall)"
            if mode == "incremental" else "")
@@ -1873,13 +2011,14 @@ def phase_phased(device, population=64, switch=8, total=16, chunk=3, days=365, e
 
 def phase_checkpoint(device, qap_n=1024, qap_p=16, nq_n=MAIN_N, nq_p=MAIN_P) -> dict:
     """(b) save after 2 rounds, load into a fresh solver, 2 more rounds: equal
-    to 4 rounds run straight, leaf for leaf, for qap-1024 compact and for the
-    nqueens main path (which launches the kernel)."""
+    to 4 rounds run straight, leaf for leaf, for qap-1024 compact (which
+    launches K1) and for the nqueens main path (which launches B1)."""
     import os
 
     from constraint_solver_tpu_torch.models.nqueens import make_nqueens_problem
     from constraint_solver_tpu_torch.models.qap import QAPSpec, make_qap_problem
     from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+    from constraint_solver_tpu_torch.ops import qap_row_min as qrm
     from constraint_solver_tpu_torch.parallel.population import PopulationSolver
     from constraint_solver_tpu_torch.utils.convert import to_reference
 
@@ -1893,7 +2032,7 @@ def phase_checkpoint(device, qap_n=1024, qap_p=16, nq_n=MAIN_N, nq_p=MAIN_P) -> 
         def solver():
             return PopulationSolver(problem, config, population=population, device=device, **kw)
 
-        nk.nqueens_neighborhood_scores.launches = 0
+        nk.nqueens_neighborhood_scores.launches = qrm.qap_swap_row_min.launches = 0
         t0 = time.time()
         straight = solver()
         for _ in range(4):
@@ -1908,17 +2047,18 @@ def phase_checkpoint(device, qap_n=1024, qap_p=16, nq_n=MAIN_N, nq_p=MAIN_P) -> 
         for _ in range(2):
             resumed.execute_round()
         sync(device)
-        launches = nk.nqueens_neighborhood_scores.launches
+        launches, k1_launches = nk.nqueens_neighborhood_scores.launches, qrm.qap_swap_row_min.launches
         assert_tree_equal(to_reference(straight.state), to_reference(resumed.state))
         size = os.path.getsize(path)
         os.remove(path)
-        out[name] = {"launches": launches, "file_bytes": size, "wall_s": time.time() - t0}
+        out[name] = {"launches": launches, "k1_launches": k1_launches, "file_bytes": size,
+                     "wall_s": time.time() - t0}
         log(
             f"phase 11b: {problem.name} P={population}: 2 rounds, save ({size} bytes), load, 2 rounds == 4 rounds "
-            f"straight, leaf for leaf; kernel launches {launches}"
+            f"straight, leaf for leaf; launches B1 {launches}, K1 {k1_launches}"
         )
-    if is_cuda(device) and out["nqueens"]["launches"] == 0:
-        raise AssertionError("phase 11b: the nqueens checkpoint run never launched the kernel")
+    if is_cuda(device) and (out["nqueens"]["launches"] == 0 or out["qap"]["k1_launches"] == 0):
+        raise AssertionError(f"phase 11b: a checkpoint run never launched its kernel: {out}")
     return out
 
 
@@ -2006,8 +2146,14 @@ def cli_qap(device, n=4096, rounds=6) -> dict:
     from constraint_solver_tpu_torch.cli import qap
     from constraint_solver_tpu_torch.models.qap import QAPSpec
 
+    from constraint_solver_tpu_torch.ops import qap_row_min as qrm
+
     argv = ["--size", str(n), "--rounds", str(rounds)]
+    qrm.qap_swap_row_min.launches = 0
     rc, text, wall, _ = run_cli(qap, argv, device)  # the CLI asserts its best against its host oracle
+    k1_launches = qrm.qap_swap_row_min.launches
+    if is_cuda(device) and k1_launches == 0:
+        raise AssertionError("phase 12 qap CLI: K1 never launched")
     perm = np.array(json.loads(printed(text, "result.permutation:")))
     cost = float(printed(text, "result.cost:"))
     flow, dist = QAPSpec.random(n, seed=0).arrays()
@@ -2015,8 +2161,9 @@ def cli_qap(device, n=4096, rounds=6) -> dict:
     if rc != 0 or sorted(perm.tolist()) != list(range(n)) or abs(exact - cost) > 1e-3 * max(1.0, exact):
         raise AssertionError(f"phase 12 qap CLI: printed cost {cost} != int64 host cost {exact} (rc {rc})")
     log(f"phase 12 qap CLI: {' '.join(argv)}: cost {cost:.0f}, int64 host cost {exact}; wall {wall:.3f} s; "
-        f"{printed(text, 'stats:')}")
-    return {"cost": cost, "cost_int64": exact, "wall_s": wall, "stats": printed(text, "stats:")}
+        f"K1 launches {k1_launches}; {printed(text, 'stats:')}")
+    return {"cost": cost, "cost_int64": exact, "wall_s": wall, "stats": printed(text, "stats:"),
+            "k1_launches": k1_launches}
 
 
 def cli_diagram(device, boxes=64, edges=96, grid=32, max_size=4, population=64, rounds=6) -> dict:
@@ -2190,31 +2337,37 @@ def phase_trace(device, n=MAIN_N, population=MAIN_P) -> dict:
     return {"kernel_events": kernel_events, "events": sum(names.values()), "wall_s": wall}
 
 
-def checked_roofline(solver, label, kernel_shape=None) -> dict:
+def checked_roofline(solver, label, kernel_shape=None, k1_shape=None) -> dict:
     """``solver.roofline()`` with every share at most 1.05, the solver's state
-    unchanged, and the kernel's counted calls equal to its launches in the
-    chunk and its counted bytes to ``kernel_bytes(*kernel_shape)`` times them."""
+    unchanged, and each kernel's counted calls equal to its launches in the
+    chunk and its counted bytes to its bytes per call (B1 ``kernel_bytes(
+    *kernel_shape)``, K1 ``kernel_work(*k1_shape)``) times them."""
     from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+    from constraint_solver_tpu_torch.ops import qap_row_min as qrm
     from constraint_solver_tpu_torch.utils.convert import to_reference
     from constraint_solver_tpu_torch.utils.roofline import format_roofline
 
     before = to_reference(solver.state)
-    nk.nqueens_neighborhood_scores.launches = 0
+    kernels = {nk.KERNEL_NAME: (nk.nqueens_neighborhood_scores, kernel_shape and kernel_bytes(*kernel_shape)),
+               qrm.KERNEL_NAME: (qrm.qap_swap_row_min, k1_shape and qrm.kernel_work(*k1_shape)[1])}
+    for wrapper, _ in kernels.values():
+        wrapper.launches = 0
     r = solver.roofline()
-    launches = nk.nqueens_neighborhood_scores.launches
     assert_tree_equal(before, to_reference(solver.state))
     shares = {k: r[k] for k in ("mfu_bf16", "mfu_f32", "hbm_frac")}
     if not all(0.0 <= v <= 1.05 for v in shares.values()):
         raise AssertionError(f"phase 12 roofline {label}: a share above 1.05: {shares}")
-    kern = r["kernels"].get(nk.KERNEL_NAME, {"calls": 0, "bytes": 0})
-    if is_cuda(solver.device) and kern["calls"] != launches:
-        raise AssertionError(f"phase 12 roofline {label}: {kern['calls']} kernel calls counted, {launches} launched")
-    if kern["calls"]:
-        want = kernel_bytes(*kernel_shape) * kern["calls"]
-        if kern["bytes"] != want:
-            raise AssertionError(f"phase 12 roofline {label}: kernel bytes {kern['bytes']} != {want}")
+    counted = {}
+    for name, (wrapper, per_call) in kernels.items():
+        kern = counted[name] = r["kernels"].get(name, {"calls": 0, "bytes": 0})
+        if is_cuda(solver.device) and kern["calls"] != wrapper.launches:
+            raise AssertionError(f"phase 12 roofline {label}: {kern['calls']} {name} calls counted, "
+                                 f"{wrapper.launches} launched")
+        if kern["calls"] and kern["bytes"] != per_call * kern["calls"]:
+            raise AssertionError(f"phase 12 roofline {label}: {name} bytes {kern['bytes']} != "
+                                 f"{per_call} x {kern['calls']}")
     log(f"phase 12 roofline {label}: {format_roofline(r)}; per round {r['flops_per_round']:.4g} operations, "
-        f"{r['hbm_bytes_per_round']:.4g} bytes; kernel {kern}; state unchanged")
+        f"{r['hbm_bytes_per_round']:.4g} bytes; kernels {counted}; state unchanged")
     return r
 
 
@@ -2237,7 +2390,9 @@ def phase_roofline(device, main_solver, n=MAIN_N, population=MAIN_P, qap_n=4096)
     qap = PopulationSolver(make_qap_problem(QAPSpec.random(qap_n, seed=0), incremental=True), qap_config(),
                            population=4, device=device)
     qap.run(max_rounds=2, chunk=2)
-    out[f"qap_{qap_n}_incremental"] = checked_roofline(qap, f"qap-{qap_n} incremental P=4")
+    out[f"qap_{qap_n}_incremental"] = r = checked_roofline(qap, f"qap-{qap_n} incremental P=4", k1_shape=(4, qap_n))
+    if r["kernels"].get("qap_swap_row_min", {}).get("calls", 0) == 0:
+        raise AssertionError(f"phase 12 roofline: qap-{qap_n} incremental's chunk never ran K1")
     return out
 
 
@@ -2636,12 +2791,13 @@ def phase_bench(device, cell=BENCH_CELL) -> dict:
 
 
 def build_kernels() -> None:
-    """Phase 1: compile both kernel libraries from the checkout's sources, one
-    ``nvcc`` each, started together."""
+    """Phase 1: compile the three kernel libraries from the checkout's sources,
+    one ``nvcc`` each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
     from constraint_solver_tpu_torch.ops import nqueens_probes as npr
+    from constraint_solver_tpu_torch.ops import qap_row_min as qrm
 
     def build(module):
         t = time.time()
@@ -2649,14 +2805,14 @@ def build_kernels() -> None:
         return module._LIB_PATH.name, report, time.time() - t
 
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        built = [f.result() for f in [pool.submit(build, nk), pool.submit(build, npr)]]
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        built = [f.result() for f in [pool.submit(build, m) for m in (nk, npr, qrm)]]
     for name, report, secs in built:
         log(f"phase 1: built {name} in {secs:.1f} s")
         for line in report.splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "spill")) or "error" in line.lower():
                 log(f"  nvcc: {line.strip()}")
-    log(f"phase 1: both libraries in {time.time() - t0:.1f} s")
+    log(f"phase 1: all three libraries in {time.time() - t0:.1f} s")
 
 
 def main() -> None:
@@ -2665,11 +2821,12 @@ def main() -> None:
     import torch
 
     from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+    from constraint_solver_tpu_torch.ops import qap_row_min as qrm
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--kernel-only", action="store_true",
-        help="run phases 1, 2 and 2b only, print the kernels' measurements and stop (no result line)",
+        help="run phases 1, 2, 2b and 2c only, print the kernels' measurements and stop (no result line)",
     )
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -2683,21 +2840,26 @@ def main() -> None:
 
     kernel = phase_kernel(device)
     probe_entries, kernel["probe_shapes"] = phase_probes(device)
+    k1 = phase_k1(device)
     if args.kernel_only:
         log(card)
-        log(json.dumps({"kernels": [kernel, *probe_entries]}))
+        log(json.dumps({"kernels": [kernel, *probe_entries, k1]}))
         return
     phase_cross_device(device)
     main_run, main_solver = phase_main(device)
     nk.nqueens_neighborhood_scores.launches = 0
     graphs = phase_graphs(device, card=card)
     graphs_launches = nk.nqueens_neighborhood_scores.launches
+    qrm.qap_swap_row_min.launches = 0
     graphs_domains = phase_graphs_domains(device, card=card)
+    k1_paths = {"graphs_domains": qrm.qap_swap_row_min.launches}
     matrix_forms = phase_matrix_forms(device, card=card)
     pmc_run = phase_pmc(device, card=card)
     phase_schedule_cross_device(device)
     sched = phase_schedule_bench(device)
+    qrm.qap_swap_row_min.launches = 0
     qap = phase_qap(device)
+    k1_paths["qap"] = qrm.qap_swap_row_min.launches
     ackley = phase_ackley(device)
     diagram = phase_diagram(device)
     phased = phase_phased(device)
@@ -2720,6 +2882,9 @@ def main() -> None:
     }
     kernel["launches"] = sum(paths.values())
     kernel["launches_by_path"] = paths
+    k1_paths.update(checkpoint_resume=ckpt["qap"]["k1_launches"], cli_qap=surface["cli_qap"]["k1_launches"])
+    k1["launches"] = sum(k1_paths.values())
+    k1["launches_by_path"] = k1_paths
 
     log(json.dumps({
         "main_path": main_run, "graphs": graphs, "graphs_domains": graphs_domains, "matrix_forms": matrix_forms,
@@ -2728,7 +2893,7 @@ def main() -> None:
         "bench": bench, "card": card,
     }, default=str))
     log(card)
-    log(json.dumps({"kernels": [kernel, *probe_entries]}))
+    log(json.dumps({"kernels": [kernel, *probe_entries, k1]}))
     log(json.dumps({
         "ok": True,
         "device": {

@@ -8,7 +8,7 @@ rate, not the device, sets its time.  Here an iteration replays as two or
 three graphs, split at that read:
 
 - **A** (``_begin``): the tabu push, ``is_best``, the neighborhood (its draws
-  and every op of the proposer, N-Queens' kernel included), the first pick
+  and every op of the proposer, its hand-written kernel included), the first pick
   and, with pick-then-check, the ``need`` mask with its ``any``;
 - the host reads ``need_any``; while it is set, **R** (``_retry``) replays, at
   most ``tabu_retries - 1`` times, writing its pick and mask over A's;
@@ -52,8 +52,8 @@ descent, or a checkpoint's ``load``, never meets stale buffers.  Captures run on
 a side stream in ``thread_local`` error mode, so the service's other handler
 threads may launch work meanwhile; the side stream is ordered after the
 current stream's queued replays, and before its next work (``capture``).  The
-kernel's launch counters
-(``ops/nqueens_kernel.py``) count nothing at a capture and what it captured at
+launch counters of the hand-written kernels (``ops/launch_count.py``: N-Queens'
+B1, QAP's row minimum) count nothing at a capture and what it captured at
 each replay, so they equal the eager run's.  A replayed iteration runs no
 ``neighborhood``; it calls ``neighborhood(None, None, None, None)`` once, so
 that whatever wraps the problem's ``neighborhood`` counts iterations as in the
@@ -85,7 +85,7 @@ from constraint_solver_tpu_torch.core.local_search import (
     _selected,
 )
 from constraint_solver_tpu_torch.core.problem import Problem
-from constraint_solver_tpu_torch.ops import nqueens_kernel
+from constraint_solver_tpu_torch.ops import launch_count
 from constraint_solver_tpu_torch.parallel.mesh import current_mesh
 from constraint_solver_tpu_torch.utils import roofline
 from constraint_solver_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -110,7 +110,8 @@ def eager_reason(problem: Problem | None, draws, device: torch.device) -> str | 
 
 class Captured(NamedTuple):
     """One captured segment: the graph, the tensors its capture left (each
-    replay rewrites them), and its kernel launches per replay."""
+    replay rewrites them), and its launches of hand-written kernels per
+    replay, per (wrapper, shape)."""
 
     graph: Any
     out: Any
@@ -118,15 +119,15 @@ class Captured(NamedTuple):
 
     def replay(self) -> None:
         self.graph.replay()
-        if self.launches:  # the domains without N-Queens' kernel capture none
-            nqueens_kernel.count_replay(self.launches)
+        if self.launches:  # a graph without a hand-written kernel captures none
+            launch_count.count_replay(self.launches)
 
 
 def capture(fn: Callable, graph, stream=None, pool=None, generator=None) -> Captured:
     """Capture ``fn()`` into ``graph`` (a ``torch.cuda.CUDAGraph``) on
     ``stream`` (None: the current one, for a stand-in graph), in the memory
-    ``pool``, with ``generator`` registered.  The kernel's counters see nothing
-    of it.  Raises what the capture raises.
+    ``pool``, with ``generator`` registered.  The kernels' launch counters see
+    nothing of it.  Raises what the capture raises.
 
     ``stream`` waits for the work queued on the current stream before the
     capture, and the current stream for ``stream`` after it: ``capture_begin``
@@ -143,7 +144,7 @@ def capture(fn: Callable, graph, stream=None, pool=None, generator=None) -> Capt
         stream.wait_stream(current)
         on_stream = torch.cuda.stream(stream)
     try:
-        with nqueens_kernel.captured_launches() as launches, on_stream:
+        with launch_count.captured() as launches, on_stream:
             graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
                 out = fn()

@@ -47,6 +47,17 @@ Divergences from the JAX package:
   are unchanged bit for bit: the lanes outside the mask keep their G, H and p,
   and G and H are functions of p whose every entry is an integer below 2^24,
   so the rebuilt G and H equal the carried ones.
+- **The row minimum is a kernel (K1).** The compact and incremental
+  neighborhoods reduce the swap-delta block to each row's best partner with
+  ``ops/qap_row_min.py`` ``qap_swap_row_min``: on the card one pass of the
+  hand-written CUDA kernel ``csrc/qap_row_min.cu`` over H, G and F, which
+  stands for the fused delta + min + argmin that XLA makes of the JAX
+  package's ``neighborhood_compact`` and ``neighborhood_inc``
+  (``constraint_solver_tpu/models/qap.py:202-224`` and ``:325-341``); on the
+  CPU its plain version, the eager expression of ``swap_deltas``, the mask and
+  ``torch.min``.  The two are equal bit for bit.  The dense neighborhood keeps
+  ``swap_deltas`` and the sharded one its row-block form as torch ops: they
+  take no row minimum.
 - **Implicit moves.** ``QAPMoves(partner, n)``: a dense candidate ``idx`` is
   the swap (idx // n, idx % n); a compact one is (idx, partner[:, idx]).  No
   [P, n²] index arrays are built.
@@ -86,6 +97,7 @@ import numpy as np
 import torch
 
 from constraint_solver_tpu_torch.core.problem import InPlace, Neighborhood, Problem, replayable
+from constraint_solver_tpu_torch.ops import qap_row_min as row_min_ops
 from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32, fp_update
 from constraint_solver_tpu_torch.ops.lex import make_score
 from constraint_solver_tpu_torch.parallel.mesh import active_axis, all_gather, gather_best
@@ -185,25 +197,15 @@ def make_qap_problem(
         g = permuted_dist(p)
         return g, torch.matmul(mats(p.device)[0], g)
 
-    def swap_deltas(h, g):
-        """delta[a, b] of every swap, [P, n, n] (F and G symmetric, so H.T
-        is F G's transpose)."""
-        flow = mats(h.device)[0]
-        hd = torch.diagonal(h, dim1=1, dim2=2)
-        return 2.0 * (h + h.transpose(1, 2) - hd[:, :, None] - hd[:, None, :] + 2.0 * flow * g)
-
-    def row_min(cur_score, delta):
-        """The compact list: each row's best partner b > a."""
-        iota = torch.arange(n, device=delta.device)
-        upper = iota[:, None] < iota[None, :]
-        w = torch.where(upper, cur_score[:, 0, None, None] + delta, torch.inf)
-        rmin, rarg = torch.min(w, dim=2)  # first index on ties
-        p = delta.shape[0]
+    def row_min(h, g, cur_score):
+        """The compact list: each row's best partner b > a, from K1 on the
+        card (``ops/qap_row_min.py``), its plain version on the CPU."""
+        rmin, rarg = row_min_ops.qap_swap_row_min(h, g, mats(h.device)[0], cur_score[:, 0])
         return Neighborhood(
             scores=make_score(rmin),
             moves=QAPMoves(rarg, n),
             valid=torch.isfinite(rmin),  # row n-1 has no partner b > a
-            n_valid=torch.full((p,), n - 1, dtype=torch.int64, device=delta.device),
+            n_valid=torch.full((h.shape[0],), n - 1, dtype=torch.int64, device=h.device),
         )
 
     def init(draws):
@@ -218,7 +220,7 @@ def make_qap_problem(
     def neighborhood(p, cur_score, draws, active):
         draws.advance(active)
         g, h = gh_from_p(p)
-        cand = cur_score[:, 0, None, None] + swap_deltas(h, g)
+        cand = cur_score[:, 0, None, None] + row_min_ops.swap_deltas(h, g, mats(p.device)[0])
         iota = torch.arange(n, device=p.device)
         valid = (iota[:, None] < iota[None, :]).reshape(1, n * n).expand(p.shape[0], n * n)
         return Neighborhood(
@@ -231,7 +233,7 @@ def make_qap_problem(
     def neighborhood_compact(p, cur_score, draws, active):
         draws.advance(active)
         g, h = gh_from_p(p)
-        return row_min(cur_score, swap_deltas(h, g))
+        return row_min(h, g, cur_score)
 
     def neighborhood_sharded(p, cur_score, draws, active):
         draws.advance(active)
@@ -315,7 +317,7 @@ def make_qap_problem(
 
         def neighborhood_inc(st, cur_score, draws, active):
             draws.advance(active)
-            return row_min(cur_score, swap_deltas(st.h, st.g))
+            return row_min(st.h, st.g, cur_score)
 
         def apply_move_inc(st, moves, idx):
             # With d = e_a - e_b: gu = G d, fu = F d, hu = H d (column

@@ -14,8 +14,8 @@ integer in float32, so both versions are exact and equal the TPU kernel bit for 
   CPU, and for tensors on a CUDA device launches the kernel in
   ``csrc/nqueens_scores.cu`` or raises: there is no fallback.
   ``nqueens_neighborhood_scores.launches`` counts its kernel launches, and
-  ``.shapes`` them per (P, A, n).  A CUDA graph's capture counts nothing
-  (``captured_launches``); each replay adds what it captured (``count_replay``).
+  ``.shapes`` them per (P, A, n), through ``ops/launch_count.py``: a CUDA
+  graph's capture counts nothing, and each replay adds what it captured.
 - ``nqueens_neighborhood_scores_ref`` is the plain version: windowed gathers of
   the diagonal tables, ``amin`` and first-index ``argmin``.
 - ``build_library`` compiles the kernel with ``nvcc`` into ``build/kernels/`` at
@@ -50,19 +50,18 @@ calls its kernel per lane under ``vmap``); ``cur`` is float32[P]; the unused
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import os
 import shutil
 import subprocess
 import threading
-from collections import Counter
 from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
+from constraint_solver_tpu_torch.ops import launch_count
 from constraint_solver_tpu_torch.utils import roofline
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "nqueens_scores.cu"
@@ -80,7 +79,6 @@ _SMEM_LIMIT = 232_448  # the 227 KB of shared memory one block may use on Hopper
 _launch_fn = None
 KERNEL_NAME = "nqueens_neighborhood_scores"
 _BUILD_LOCK = threading.Lock()  # the lazy build and load of the library
-_COUNT_LOCK = threading.Lock()  # the launch counters
 
 
 def _nvcc() -> str:
@@ -241,41 +239,7 @@ def _launch(tensors, p: int, a: int, n: int, plan: LaunchPlan) -> None:
             err = fn(*ptrs, p, a, n, g, grid_x, smem, staged, vector, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"nqueens_scores_launch failed: cudaError_t {err} for {plan}")
-    count_launch((p, a, n))
-
-
-_capturing = threading.local()  # .shapes: this thread's tally while it captures a CUDA graph
-
-
-def count_launch(shape: tuple[int, int, int]) -> None:
-    """One launch at (P, A, n) on the counters, or, while this thread captures
-    a CUDA graph (``captured_launches``), on the capture's tally: a capture
-    records the kernel, it does not launch it."""
-    tally = getattr(_capturing, "shapes", None)
-    if tally is not None:
-        tally[shape] += 1
-        return
-    with _COUNT_LOCK:  # the service's handler threads launch at once
-        nqueens_neighborhood_scores.launches += 1
-        nqueens_neighborhood_scores.shapes[shape] += 1
-
-
-@contextlib.contextmanager
-def captured_launches():
-    """Within the block this thread's launches go to the yielded Counter (per
-    (P, A, n)) instead of the counters; ``count_replay`` adds them per replay."""
-    tally = _capturing.shapes = Counter()
-    try:
-        yield tally
-    finally:
-        _capturing.shapes = None
-
-
-def count_replay(tally: Counter) -> None:
-    """The launches of one replay of a graph that captured ``tally``."""
-    with _COUNT_LOCK:
-        nqueens_neighborhood_scores.launches += sum(tally.values())
-        nqueens_neighborhood_scores.shapes.update(tally)
+    launch_count.count(nqueens_neighborhood_scores, (p, a, n))
 
 
 def nqueens_neighborhood_scores(rc, dc, ac, c, r, removed, cur):
@@ -310,5 +274,4 @@ def _scores(rc, dc, ac, c, r, removed, cur, p: int, a: int, n: int):
     return scores, row_min, row_arg
 
 
-nqueens_neighborhood_scores.launches = 0
-nqueens_neighborhood_scores.shapes = Counter()  # launches per (P, A, n)
+launch_count.counted(nqueens_neighborhood_scores)  # .launches, and .shapes per (P, A, n)

@@ -31,7 +31,8 @@ exact and equal the TPU kernels bit for bit, padding columns included.
   ``row_arg`` int32[P, A] for B2d and B2e.  On CPU tensors it computes the plain
   version (``kern_*_ref``); on CUDA tensors it launches its kernel in
   ``csrc/nqueens_probes.cu`` or raises: there is no fallback.  ``.launches``
-  counts its kernel launches.
+  counts its kernel launches and ``.shapes`` them per (P, A, n)
+  (``ops/launch_count.py``).
 - ``launch_plan(name, p, a, n)`` is each kernel's launch, a pure function: B1's
   grid of (⌈A/G⌉, P) blocks of G warps, one sampled column each; the lane's
   tables staged in shared memory where their format fits the 227 KB a block may
@@ -54,6 +55,7 @@ from typing import NamedTuple
 
 import torch
 
+from constraint_solver_tpu_torch.ops import launch_count
 from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
 from constraint_solver_tpu_torch.utils import roofline
 
@@ -226,7 +228,7 @@ def _launch(name: str, tables: tuple, c, r, removed, cur, outs: tuple, p: int, a
             err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{PROBES[name].entry} failed: cudaError_t {err} for {plan}")
-    WRAPPERS[name].launches += 1
+    launch_count.count(WRAPPERS[name], (p, a, n))
 
 
 def _call(name: str, rc, dc, ac, c, r, removed, cur) -> tuple:
@@ -314,4 +316,4 @@ WRAPPERS = {"kern_base": kern_base, "kern_noroll": kern_noroll, "kern_i16": kern
 REFS = {"kern_base": kern_base_ref, "kern_noroll": kern_noroll_ref, "kern_i16": kern_i16_ref,
         "kern_i16min": kern_i16min_ref, "kern_packed": kern_packed_ref}
 for _fn in WRAPPERS.values():
-    _fn.launches = 0
+    launch_count.counted(_fn)

@@ -13,7 +13,11 @@ Divergences from the JAX package:
   op: its bytes are the op's tensor inputs plus its outputs, its operations
   ``torch.utils.flop_counter``'s formula for products and one per output
   element for everything else.  Views (``func.is_view``) alias their input
-  and move nothing, so they count nothing.
+  and move nothing, so they count nothing.  Indexing moves only the elements
+  its integer indices select (``_indexing_work``): ``x[idx]`` counts the
+  indices and the selected elements read and written, ``x[idx] = v`` in
+  place the indices, ``v`` and the elements written, not the whole of ``x``
+  (QAP's in-place move indexes rows and columns of [P, n, n] tensors).
 - **Kernels count by their own formula.** A kernel wrapper reports each call
   through ``active_count().kernel(name, operations, bytes)`` and the ops it
   issues inside are not counted: its ``ctypes`` launch is invisible to the
@@ -96,6 +100,25 @@ def _numel(tree) -> int:
     return sum(t.numel() for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
 
 
+def _indexing_work(func, args, out) -> tuple[int, int] | None:
+    """(operations, bytes) of an indexing op by the elements it selects, or
+    None for any other op and for boolean indices (counted as whole tensors)."""
+    name = func._overloadpacket.__name__
+    if name not in ("index", "index_put_", "_index_put_impl_"):
+        return None
+    x, indices = args[0], [i for i in args[1] if i is not None]
+    if any(i.dtype == torch.bool for i in indices):
+        return None
+    index_bytes = _nbytes(indices)
+    if name == "index":  # x[indices]: each output element read once and written once
+        return _numel(out), index_bytes + 2 * _nbytes(out)
+    # x[indices] = values, in place: the indexed dims give way to the indices' broadcast shape.
+    kept = x.numel() // max(1, int(torch.Size([x.shape[d] for d, i in enumerate(args[1]) if i is not None]).numel()))
+    written = kept * torch.broadcast_shapes(*(i.shape for i in indices)).numel()
+    accumulate = len(args) > 3 and bool(args[3])  # reads the old elements too
+    return written, index_bytes + _nbytes(args[2]) + (1 + accumulate) * written * x.element_size()
+
+
 class WorkCount(TorchDispatchMode):
     """Operations and bytes of the aten ops run under it, plus the work that
     kernel wrappers report by formula (``kernel``).  ``kernels`` holds, per
@@ -117,6 +140,11 @@ class WorkCount(TorchDispatchMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         if not self._muted and not func.is_view:
+            indexing = _indexing_work(func, args, out)
+            if indexing is not None:
+                self.flops += indexing[0]
+                self.bytes += indexing[1]
+                return out
             self.bytes += _nbytes((args, kwargs)) + _nbytes(out)
             formula = self._formulas.get(func._overloadpacket)
             self.flops += formula(*args, **kwargs, out_val=out) if formula is not None else _numel(out)

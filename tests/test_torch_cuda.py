@@ -364,6 +364,115 @@ def test_cuda_qap_incremental_state_stays_exact(cuda):
         np.testing.assert_array_equal(st.h[k].cpu().numpy().astype(np.float64), flow.astype(np.float64) @ g)
 
 
+K1_SHAPES = [(1, 7), (3, 130), (4, 1000), (64, 256), (16, 1024), (4, 4096)]
+
+
+def _k1_inputs(kind, p, n, device, seed=0):
+    """(h, g, flow, cur_score [P, 2]) on ``device``: "ties" holds values of 0
+    and 1, so most rows' minima tie between partners; "float" non-integer
+    floats, whose operations round; "nan" those with NaNs planted in a few
+    rows, directly and through H's transpose, and one below the diagonal."""
+    rng = np.random.default_rng(seed)
+    if kind == "ties":
+        h, g = (rng.integers(0, 2, (p, n, n)).astype(np.float32) for _ in range(2))
+        flow = rng.integers(0, 2, (n, n)).astype(np.float32)
+    else:
+        h = rng.normal(0.0, 1e3, (p, n, n)).astype(np.float32)
+        g = rng.normal(0.0, 1.0, (p, n, n)).astype(np.float32)
+        flow = rng.normal(0.0, 10.0, (n, n)).astype(np.float32)
+    if kind == "nan" and n > 4:
+        g[0, 1, n - 1] = g[0, 1, 3] = h[p - 1, n - 1, 2] = g[p - 1, 4, 0] = np.nan
+    cur = np.stack([rng.normal(1e5, 1e3, p), np.zeros(p)], 1).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (h, g, flow, cur))
+
+
+def _k1_equal(got, want):
+    """rmin's bits and rarg equal (NaNs compared as NaN, whatever their payload)."""
+    (rmin, rarg), (wmin, warg) = got, want
+    assert rarg.dtype == warg.dtype == torch.int64 and torch.equal(rarg, warg)
+    nan = rmin.isnan()
+    assert torch.equal(nan, wmin.isnan())
+    assert torch.equal(rmin[~nan].view(torch.int32), wmin[~nan].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ties", "float", "nan"])
+@pytest.mark.parametrize("p, n", K1_SHAPES)
+def test_cuda_qap_row_min_matches_plain_version(cuda, p, n, kind):
+    """K1 equals its plain version bit for bit, ``cur`` a strided view as the
+    neighborhoods pass it; ties go to the smaller partner, a NaN to the first
+    NaN, row n - 1 gives (inf, 0)."""
+    from constraint_solver_tpu_torch.ops import qap_row_min as qrm
+
+    h, g, flow, cur_score = _k1_inputs(kind, p, n, cuda)
+    before = qrm.qap_swap_row_min.launches
+    got = qrm.qap_swap_row_min(h, g, flow, cur_score[:, 0])
+    torch.cuda.synchronize()
+    assert qrm.qap_swap_row_min.launches == before + 1
+    _k1_equal(got, qrm.qap_swap_row_min_ref(h, g, flow, cur_score[:, 0]))
+    assert got[0][:, -1].isinf().all() and (got[1][:, -1] == 0).all()
+    if kind == "nan" and n > 4:
+        assert got[0][0, 1].isnan() and int(got[1][0, 1]) == 3 and int(got[1][p - 1, 2]) == n - 1
+
+
+@pytest.mark.cuda
+def test_cuda_qap_row_min_launches_count_through_graph_replays(cuda):
+    """A capture counts no K1 launch; each replay counts what it captured and
+    rewrites the plain version's result.  A graphed QAP solve (compact and
+    incremental) launches K1 as often as the eager one, bit for bit the same
+    trajectory."""
+    from collections import Counter
+
+    from constraint_solver_tpu_torch.core import graphed
+    from constraint_solver_tpu_torch.ops import qap_row_min as qrm
+
+    fn = qrm.qap_swap_row_min
+    h, g, flow, cur_score = _k1_inputs("float", 4, 256, cuda)
+    want = qrm.qap_swap_row_min_ref(h, g, flow, cur_score[:, 0])
+    fn(h, g, flow, cur_score[:, 0])  # built and loaded before the capture
+    torch.cuda.synchronize()
+    before = fn.launches
+    seg = graphed.capture(lambda: fn(h, g, flow, cur_score[:, 0]), torch.cuda.CUDAGraph(), torch.cuda.Stream(cuda))
+    assert fn.launches == before and seg.launches == Counter({(fn, (4, 256)): 1})
+    for _ in range(3):
+        seg.out[0].fill_(0.0)
+        seg.replay()
+    torch.cuda.synchronize()
+    assert fn.launches == before + 3
+    _k1_equal(seg.out, want)
+    for domain in ("qap-compact", "qap-incremental"):
+        counts = {}
+        for graphed_run in (False, True):
+            before = fn.launches
+            s, *out = _domain_run(cuda, domain, None, graphed_run)
+            counts[graphed_run] = (fn.launches - before, out)
+        (eager_launches, want_out), (graph_launches, got_out) = counts[False], counts[True]
+        assert graph_launches == eager_launches > 0 and len(s.program.graphs._units) == 1
+        compare(got_out[0], want_out[0])
+        np.testing.assert_array_equal(got_out[1], want_out[1])
+
+
+@pytest.mark.cuda
+def test_cuda_qap_row_min_raises_instead_of_falling_back(cuda, tmp_path, monkeypatch):
+    """A build that fails raises, and so does a bad input: no plain version on
+    the card."""
+    from constraint_solver_tpu_torch.ops import qap_row_min as qrm
+
+    h, g, flow, cur_score = _k1_inputs("float", 2, 16, cuda)
+    with pytest.raises(TypeError):
+        qrm.qap_swap_row_min(h.double(), g, flow, cur_score[:, 0])
+    with pytest.raises(ValueError):
+        qrm.qap_swap_row_min(h, g.cpu(), flow, cur_score[:, 0])
+    monkeypatch.setattr(qrm, "_LIB_PATH", tmp_path / "libqap_row_min.so")
+    monkeypatch.setattr(qrm, "_launch_fn", None)
+    monkeypatch.setattr(nk.subprocess, "run",
+                        lambda cmd, **kw: nk.subprocess.CompletedProcess(cmd, 1, "", "error: planted"))
+    before = qrm.qap_swap_row_min.launches
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        qrm.qap_swap_row_min(h, g, flow, cur_score[:, 0])
+    assert qrm.qap_swap_row_min.launches == before
+
+
 @pytest.mark.cuda
 def test_cuda_diagram_layout_equals_cpu(cuda):
     def run(device):

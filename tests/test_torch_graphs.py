@@ -39,8 +39,9 @@ from constraint_solver_tpu_torch.core import graphed
 from constraint_solver_tpu_torch.core.ils import Solver, SolverConfig
 from constraint_solver_tpu_torch.models.nqueens import make_nqueens_problem
 from constraint_solver_tpu_torch.models.scheduling import ScheduleSpec, make_scheduling_problem
-from constraint_solver_tpu_torch.ops import lex
+from constraint_solver_tpu_torch.ops import launch_count, lex
 from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+from constraint_solver_tpu_torch.ops import qap_row_min as qrm
 from constraint_solver_tpu_torch.parallel.mesh import use_mesh
 from constraint_solver_tpu_torch.parallel.population import PopulationSolver
 from constraint_solver_tpu_torch.utils import roofline
@@ -244,30 +245,35 @@ class StandIn:
 
 
 def test_capture_counts_no_launch_and_each_replay_counts_what_it_captured():
-    fn = nk.nqueens_neighborhood_scores
-    launches0, shapes0 = fn.launches, Counter(fn.shapes)
+    """Every hand-written kernel's launches (B1's and K1's here) go to the
+    capture's tally, and each replay adds them to that kernel's counters."""
+    fn, k1 = nk.nqueens_neighborhood_scores, qrm.qap_swap_row_min
+    saved = {w: (w.launches, Counter(w.shapes)) for w in (fn, k1)}
 
     def segment():
-        nk.count_launch((2, 3, 8))  # what the wrapper's launch does
-        nk.count_launch((2, 3, 8))
-        nk.count_launch((1, 8, 8))
+        launch_count.count(fn, (2, 3, 8))  # what the wrappers' launches do
+        launch_count.count(fn, (2, 3, 8))
+        launch_count.count(fn, (1, 8, 8))
+        launch_count.count(k1, (4, 64))
         return "out"
 
     g = StandIn()
     seg = graphed.capture(segment, g, pool="pool", generator="gen")
     assert g.calls == [("register", "gen"), ("begin", "pool", "thread_local"), ("end",)]
-    assert seg.out == "out" and seg.launches == Counter({(2, 3, 8): 2, (1, 8, 8): 1})
-    assert fn.launches == launches0 and fn.shapes == shapes0
+    assert seg.out == "out"
+    assert seg.launches == Counter({(fn, (2, 3, 8)): 2, (fn, (1, 8, 8)): 1, (k1, (4, 64)): 1})
+    assert all((w.launches, w.shapes) == saved[w] for w in (fn, k1))
     for _ in range(3):
         seg.replay()
     assert g.calls[3:] == [("replay",)] * 3
-    assert fn.launches == launches0 + 9
-    want = Counter(shapes0)
+    assert fn.launches == saved[fn][0] + 9 and k1.launches == saved[k1][0] + 3
+    want = Counter(saved[fn][1])
     want.update({(2, 3, 8): 6, (1, 8, 8): 3})
-    assert fn.shapes == want
-    nk.count_launch((2, 3, 8))  # outside a capture: on the counters
-    assert fn.launches == launches0 + 10
-    fn.launches, fn.shapes = launches0, shapes0
+    assert fn.shapes == want and k1.shapes[(4, 64)] == saved[k1][1][(4, 64)] + 3
+    launch_count.count(fn, (2, 3, 8))  # outside a capture: on the counters
+    assert fn.launches == saved[fn][0] + 10
+    for w, (launches, shapes) in saved.items():
+        w.launches, w.shapes = launches, shapes
 
 
 def test_failed_capture_raises_its_error_and_counts_nothing():
@@ -275,7 +281,7 @@ def test_failed_capture_raises_its_error_and_counts_nothing():
     launches0 = fn.launches
 
     def segment():
-        nk.count_launch((2, 3, 8))
+        launch_count.count(fn, (2, 3, 8))
         raise ValueError("boom")
 
     g = StandIn()
@@ -283,7 +289,7 @@ def test_failed_capture_raises_its_error_and_counts_nothing():
         graphed.capture(segment, g)
     assert g.calls == [("begin", None, "thread_local"), ("end",)]
     assert fn.launches == launches0
-    nk.count_launch((2, 3, 8))
+    launch_count.count(fn, (2, 3, 8))
     assert fn.launches == launches0 + 1
     fn.launches = launches0
 

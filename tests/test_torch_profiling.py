@@ -77,6 +77,26 @@ def test_counting_uses_product_formulas_and_skips_views():
     assert count.flops == 32 and count.bytes == 4 * 64
 
 
+def test_counting_indexing_moves_only_the_selected_elements():
+    """Integer indexing reads and writes the elements it selects, not the whole
+    tensor it indexes; a boolean index counts the whole tensors."""
+    x = torch.zeros(4, 16, 16)
+    lane, a, v = torch.arange(4), torch.tensor([1, 5, 7, 2]), torch.ones(4, 16)
+    with rl.counting() as count:
+        col = x[lane, :, a]  # [4, 16]
+    assert col.shape == (4, 16) and (count.flops, count.bytes) == (64, 2 * 8 * 4 + 2 * 4 * 64)
+    with rl.counting() as count:
+        x[lane, :, a] = v
+    assert (count.flops, count.bytes) == (64, 2 * 8 * 4 + 4 * 64 + 4 * 64)
+    with rl.counting() as count:
+        x.index_put_((lane, a), v, accumulate=True)  # rows: read and written
+    assert (count.flops, count.bytes) == (64, 2 * 8 * 4 + 4 * 64 + 2 * 4 * 64)
+    mask = torch.zeros(4, 16, 16, dtype=torch.bool)
+    with rl.counting() as count:
+        x[mask] = 1.0
+    assert count.bytes >= 2 * x.numel() * 4
+
+
 def _nqueens_solver(cls, **kw):
     problem = make_nqueens_problem(24)
     if cls is Solver:
