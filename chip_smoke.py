@@ -31,12 +31,15 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    0: each arm's ms/iter, and every probe arm's sums equal to the plain slice
    block's;
 2c. K1, QAP's swap row minimum (``ops/qap_row_min.py``, ``csrc/qap_row_min.cu``),
-   at qap4096_inc_p4's (4, 4096) and at (16, 1024) and (64, 256): equal to its
+   at qap4096_inc_p4's (4, 4096), at (16, 1024) and (64, 256) and at the ragged
+   (5, 1003), each with the path its launch plan takes (the ring of stages, or
+   the strip loop where n % 4 != 0): equal to its
    plain version bit for bit on the solver's data and on non-integer floats;
    on the solver's data its device-only ms per launch (its events in a
    ``torch.profiler`` trace), the wrapper's host us, its time and the plain
    version's (the eager chain it replaces) by CUDA events in turns, and the
-   DRAM bound with the share reached;
+   DRAM bound with the share reached; at (4, 4096) also the rate of a plain
+   ``torch.sum`` over H beside K1's, a yardstick of what the card streams;
 3. runs a few rounds of nqueens-64 with 8 lanes on the card and on the CPU from
    the same host-side draws, in both tabu modes: the states must be equal;
 4. drives the main path, ``PopulationSolver(make_nqueens_problem(1000), ...,
@@ -208,8 +211,9 @@ PROBE_LAUNCHES = {PROBE_SHAPES[0]: (TIMED_LAUNCHES, 20), PROBE_SHAPES[1]: (20, 3
 HARNESS_ARGV = ["--packed", "--i16", "--mxu"]  # the ported harness at its default n, P and K
 BENCH_CELL = "nqueens1000_p256"  # phase 14: the benchmark's headline cell
 # Phase 2c: K1 (QAP's swap row minimum) at qap4096_inc_p4's shape and at phase
-# 8's compact qap-1024 and qap-256 lanes; its events in a profiler trace.
-K1_SHAPES = ((4, 4096), (16, 1024), (64, 256))
+# 8's compact qap-1024 and qap-256 lanes (the ring path), and at a ragged n (the
+# strip loop); its events in a profiler trace.
+K1_SHAPES = ((4, 4096), (16, 1024), (64, 256), (5, 1003))
 K1_EVENT = "qap_row_min"
 K1_REPLACES = "constraint_solver_tpu/models/qap.py:202-224, :325-341 (XLA fusion, no Pallas call)"
 
@@ -651,12 +655,13 @@ def phase_k1(device, shapes=K1_SHAPES) -> dict:
     per, max_err = {}, 0.0
     kern_fn, plain_fn = qrm.qap_swap_row_min, qrm.qap_swap_row_min_ref
     for p, n in shapes:
+        plan = qrm._launch_plan(p, n)
         for kind in ("float", "qap"):
             args = k1_inputs(kind, p, n, device)
             got = kern_fn(*args)
             torch.cuda.synchronize()
             max_err = max(max_err, assert_k1_equal(got, plain_fn(*args), f"{kind} at (P, n) = {(p, n)}"))
-            log(f"phase 2c: K1 == plain version bit for bit at (P, n) = {(p, n)}, {kind} inputs")
+            log(f"phase 2c: K1 == plain version bit for bit at (P, n) = {(p, n)}, {kind} inputs, {plan.path} path")
         calls, plain_calls = (20, 10) if n >= 4096 else (TIMED_LAUNCHES, TIMED_LAUNCHES)
         for fn in (kern_fn, plain_fn):
             time_ms(fn, args, 3)  # warm-up
@@ -667,8 +672,15 @@ def phase_k1(device, shapes=K1_SHAPES) -> dict:
         host = min(host_us(kern_fn, args, calls) for _ in range(2))
         bound, by = k1_bound(p, n)
         per[(p, n)] = {"ms": sum(kern) / 2, "plain_ms": sum(plain) / 2, "device_ms": dev, "host_us": host,
-                       "bound_ms": bound, "bound_by": by, "bound_share": bound / dev}
-        log(f"phase 2c: K1 at (P, n) = {(p, n)}: {kern} ms, eager chain (the plain version) {plain} ms (CUDA "
+                       "bound_ms": bound, "bound_by": by, "bound_share": bound / dev, "launch_plan": list(plan),
+                       "k1_tb_per_s": qrm.kernel_work(p, n)[1] / dev / 1e9}
+        if (p, n) == shapes[0]:
+            # What this card streams on a plain read: torch.sum over H (not K1's function; a yardstick of the rate).
+            sum_ms = time_ms(lambda t: t.sum(), args[:1], calls)
+            per[(p, n)]["sum_h_tb_per_s"] = args[0].numel() * 4 / sum_ms / 1e9
+            log(f"phase 2c: read yardstick at (P, n) = {(p, n)}: torch.sum over H ({args[0].numel() * 4} bytes) "
+                f"{sum_ms:.6f} ms, {per[(p, n)]['sum_h_tb_per_s']:.3f} TB/s; K1 {per[(p, n)]['k1_tb_per_s']:.3f} TB/s")
+        log(f"phase 2c: K1 at (P, n) = {(p, n)}, plan {plan}: {kern} ms, eager chain (the plain version) {plain} ms (CUDA "
             f"events, {calls} / {plain_calls} calls); device-only {dev:.6f} ms per launch ({how}); host {host:.1f} "
             f"us per call; bound {bound:.6f} ms ({qrm.kernel_work(p, n)[1]} bytes at {HBM_BYTES_PER_S / 1e12} "
             f"TB/s), share {bound / dev:.3f}; eager chain / K1 {per[(p, n)]['plain_ms'] / per[(p, n)]['ms']:.2f}x")

@@ -364,25 +364,38 @@ def test_cuda_qap_incremental_state_stays_exact(cuda):
         np.testing.assert_array_equal(st.h[k].cpu().numpy().astype(np.float64), flow.astype(np.float64) @ g)
 
 
-K1_SHAPES = [(1, 7), (3, 130), (4, 1000), (64, 256), (16, 1024), (4, 4096)]
+# The ring path (n % 4 == 0) at the solvers' shapes and at a stage edge (4100:
+# an odd strip count, a last tile of 4 columns), the ragged path at n % 4 != 0.
+K1_SHAPES = [(1, 7), (3, 130), (4, 1000), (64, 256), (16, 1024), (4, 4096), (2, 30), (5, 1003), (3, 4098),
+             (1, 4100)]
 
 
 def _k1_inputs(kind, p, n, device, seed=0):
     """(h, g, flow, cur_score [P, 2]) on ``device``: "ties" holds values of 0
-    and 1, so most rows' minima tie between partners; "float" non-integer
+    and 1, so most rows' minima tie between partners; "zeros" signed zeros in
+    every table and cur = -0.0, so every row ties at ±0; "float" non-integer
     floats, whose operations round; "nan" those with NaNs planted in a few
-    rows, directly and through H's transpose, and one below the diagonal."""
+    rows, directly and through H's transpose, one below the diagonal, and on
+    the first and last column of a tile (row 33 at b = 96 through G, row 40 at
+    b = 159 through H[b, a])."""
     rng = np.random.default_rng(seed)
     if kind == "ties":
         h, g = (rng.integers(0, 2, (p, n, n)).astype(np.float32) for _ in range(2))
         flow = rng.integers(0, 2, (n, n)).astype(np.float32)
+    elif kind == "zeros":
+        h, g = (np.where(rng.random((p, n, n)) < 0.5, -0.0, 0.0).astype(np.float32) for _ in range(2))
+        flow = np.where(rng.random((n, n)) < 0.5, -0.0, 0.0).astype(np.float32)
     else:
         h = rng.normal(0.0, 1e3, (p, n, n)).astype(np.float32)
         g = rng.normal(0.0, 1.0, (p, n, n)).astype(np.float32)
         flow = rng.normal(0.0, 10.0, (n, n)).astype(np.float32)
     if kind == "nan" and n > 4:
         g[0, 1, n - 1] = g[0, 1, 3] = h[p - 1, n - 1, 2] = g[p - 1, 4, 0] = np.nan
+    if kind == "nan" and n > 200:
+        g[0, 33, 96] = h[p - 1, 159, 40] = np.nan
     cur = np.stack([rng.normal(1e5, 1e3, p), np.zeros(p)], 1).astype(np.float32)
+    if kind == "zeros":
+        cur[:, 0] = -0.0
     return tuple(torch.from_numpy(a).to(device) for a in (h, g, flow, cur))
 
 
@@ -396,12 +409,12 @@ def _k1_equal(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["ties", "float", "nan"])
+@pytest.mark.parametrize("kind", ["ties", "zeros", "float", "nan"])
 @pytest.mark.parametrize("p, n", K1_SHAPES)
 def test_cuda_qap_row_min_matches_plain_version(cuda, p, n, kind):
-    """K1 equals its plain version bit for bit, ``cur`` a strided view as the
-    neighborhoods pass it; ties go to the smaller partner, a NaN to the first
-    NaN, row n - 1 gives (inf, 0)."""
+    """K1 equals its plain version bit for bit on both paths of its plan,
+    ``cur`` a strided view as the neighborhoods pass it; ties go to the smaller
+    partner (±0 included), a NaN to the first NaN, row n - 1 gives (inf, 0)."""
     from constraint_solver_tpu_torch.ops import qap_row_min as qrm
 
     h, g, flow, cur_score = _k1_inputs(kind, p, n, cuda)
@@ -413,6 +426,26 @@ def test_cuda_qap_row_min_matches_plain_version(cuda, p, n, kind):
     assert got[0][:, -1].isinf().all() and (got[1][:, -1] == 0).all()
     if kind == "nan" and n > 4:
         assert got[0][0, 1].isnan() and int(got[1][0, 1]) == 3 and int(got[1][p - 1, 2]) == n - 1
+    if kind == "nan" and n > 200:
+        assert got[0][0, 33].isnan() and int(got[1][0, 33]) == 96
+        assert got[0][p - 1, 40].isnan() and int(got[1][p - 1, 40]) == 159
+    if kind == "zeros":
+        assert (got[1][:, :-1] == torch.arange(1, n, device=cuda)).all() and (got[0][:, :-1] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_qap_row_min_takes_the_ragged_path_off_16_bytes(cuda):
+    """Tables that start 4 bytes past 16 (a view with a storage offset) at n %
+    4 == 0: the plan takes the ragged path, bit for bit the plain version."""
+    from constraint_solver_tpu_torch.ops import qap_row_min as qrm
+
+    p, n = 3, 256
+    h, g, flow, cur_score = _k1_inputs("float", p, n, cuda)
+    h = torch.cat([h.new_zeros(1), h.flatten()])[1:].view(p, n, n)
+    assert h.data_ptr() % 16 == 4 and qrm._launch_plan(p, n, False).path == "ragged"
+    got = qrm.qap_swap_row_min(h, g, flow, cur_score[:, 0])
+    torch.cuda.synchronize()
+    _k1_equal(got, qrm.qap_swap_row_min_ref(h, g, flow, cur_score[:, 0]))
 
 
 @pytest.mark.cuda

@@ -251,11 +251,13 @@ def fake_build(tmp_path, monkeypatch):
     class Library:
         def __init__(self, path):
             self.qap_row_min_launch = type("Entry", (), {})()
+            self.qap_row_min_init = type("Entry", (), {})()
 
     monkeypatch.setattr(nk, "_nvcc", lambda: "nvcc")
     monkeypatch.setattr(nk.ctypes, "CDLL", Library)
     monkeypatch.setattr(qrm, "_LIB_PATH", tmp_path / "libqap_row_min.so")
     monkeypatch.setattr(qrm, "_launch_fn", None)
+    monkeypatch.setattr(qrm, "_init_fn", None)
     return compiled
 
 
@@ -275,7 +277,9 @@ def test_launcher_builds_once_with_the_c_signature(fake_build, monkeypatch):
     params = re.search(r'extern "C" int qap_row_min_launch\(([^)]*)\)', src).group(1).split(",")
     kinds = {"void*": ctypes.c_void_p, "longlong": ctypes.c_longlong, "int": ctypes.c_int}
     want = [kinds[re.sub(r"const|\s|\b[a-z_]+$", "", q.strip())] for q in params]
-    assert list(fn.argtypes) == want and len(want) == 10
+    assert list(fn.argtypes) == want and len(want) == 17
+    init = re.search(r'extern "C" int qap_row_min_init\(([^)]*)\)', src).group(1)
+    assert init.strip() == "" and qrm._init_fn.argtypes == [] and qrm._init_fn.restype is ctypes.c_int
 
 
 def test_a_failed_build_raises(fake_build, monkeypatch):
