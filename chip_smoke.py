@@ -2,13 +2,13 @@
 """Smoke run of the PyTorch port (``constraint_solver_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py                # every phase
-    python3 chip_smoke.py --kernel-only  # phases 1, 2, 2b and 2c, no result line
+    python3 chip_smoke.py --kernel-only  # phases 1, 2, 2b, 2c and 2d, no result line
 
 Phases, each printing its own lines; any failure raises and exits nonzero:
 
-1. builds the three CUDA libraries from ``constraint_solver_tpu_torch/csrc``
-   (``nqueens_scores.cu``, ``nqueens_probes.cu`` and ``qap_row_min.cu``, one
-   ``nvcc`` each, started together) and prints the card's name and power limit (``nvidia-smi``);
+1. builds the four CUDA libraries from ``constraint_solver_tpu_torch/csrc``
+   (``nqueens_scores.cu``, ``nqueens_probes.cu``, ``qap_row_min.cu`` and
+   ``fingerprint.cu``, one ``nvcc`` each, started together) and prints the card's name and power limit (``nvidia-smi``);
    without a CUDA device it stops before printing any result;
 2. holds the kernel against its plain PyTorch version on the card, bit for bit,
    at the shapes the solvers give it (phase 13's sharded (128, 25, 1000) and
@@ -40,6 +40,18 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    version's (the eager chain it replaces) by CUDA events in turns, and the
    DRAM bound with the share reached; at (4, 4096) also the rate of a plain
    ``torch.sum`` over H beside K1's, a yardstick of what the card streams;
+2d. K2, the fingerprint hash (``ops/fingerprint.py``, ``csrc/fingerprint.cu``):
+   K2a (``hash_xor``) at the solvers' shapes, ``fp_update`` at [256] and [16],
+   QAP's swap at [4], the roster's random swaps [64, 256], swap diagonals [64,
+   4, 365] (expanded views) and dense block [64, 365, 20], and K2b
+   (``fingerprint_i32``) on rows of (256, 1000), (16, 16384), (4, 4096) and
+   (64, 365), each equal to its plain version bit for bit; then on adversarial
+   values (negative int32, -0.0, NaN payloads, values at and past 2^32 - 1,
+   strided rows); at the solvers' shapes each kernel's device-only time (its
+   events in a profiler trace), the wrapper's host us, the wrapper and the
+   plain chain by CUDA events, and the bound (bytes over 3.35 TB/s or integer
+   operations over 67 T/s, the larger) with the share, beside the card's name
+   and power limit;
 3. runs a few rounds of nqueens-64 with 8 lanes on the card and on the CPU from
    the same host-side draws, in both tabu modes: the states must be equal;
 4. drives the main path, ``PopulationSolver(make_nqueens_problem(1000), ...,
@@ -47,14 +59,15 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    best board has zero conflicts (cancelled at ``WALL_CAP_S``), then checks the
    board with an independent numpy count, every lane's carried counters against
    a rebuild from its board, the carried fingerprints against a full
-   recomputation, and that the kernel was launched in the run;
+   recomputation by K2b and by the plain version, and that the kernel and K2a
+   and K2b were launched in the run;
 4b. the descent replayed as CUDA graphs (``core/graphed.py``, the solvers'
    default on the card) against the eager loop (the solvers' private
    ``_graphed=False``), from one seed, drawing on the card: nqueens-64 with 8
    lanes in both tabu modes, 3 chunks of 2 rounds, and the main path's
    ``run(chunk=2)`` to zero after a warm-up of each: the final state trees,
-   the traces, ``stats()``, the generator's state and the kernel's launches
-   must be equal; it prints both walls, the capture time and both peak
+   the traces, ``stats()``, the generator's state and the launches of the
+   kernel and of K2a and K2b must be equal, and K2 must have launched; it prints both walls, the capture time and both peak
    memories, each with the card's name and power limit, then the benchmark's
    traced round on the second round of a fresh solver on each path;
 4c. the same comparison for the other domains that replay their descents as
@@ -64,7 +77,9 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    after a 4-round warm-up), qap-64 with 8 lanes (dense, compact,
    incremental), qap-256 with 64 (dense, compact) and qap-4096 incremental
    with 4 (2 rounds; G and H are 268 MB each; every compact and incremental
-   case must launch K1, as often graphed as eager), Ackley d = 10 with 64 lanes
+   case must launch K1, as often graphed as eager; every case K2, as often
+   graphed as eager, K2b alone for the systematic proposer, whose moves are
+   whole states), Ackley d = 10 with 64 lanes
    (6 rounds of descents of at most 40 iterations) and the diagram layout (8
    boxes with 4 lanes, 64 boxes with 64, 3 rounds): state trees, traces,
    ``stats()`` and the generator's state equal; both walls and ms per
@@ -113,7 +128,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    the recorded best must be a permutation whose carried cost is within 1e-3
    of an int64 host cost, and the timed run's peak and reserved memory are
    printed; one more round of each runs under ``torch.profiler`` (K1's events
-   timed apart); every compact and incremental run on the card must launch K1;
+   timed apart); every compact and incremental run on the card must launch K1,
+   and every run K2a and K2b;
 9. Ackley d=10, 64 lanes, the JAX CLI's configuration, until |f| <= 1e-2 or
    ``ACKLEY_WALL_S``: the recorded best equal to the float64 function of its
    point within 2e-5;
@@ -124,7 +140,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
     random window until round 16: each program runs exactly in its rounds and
     the best equals the date-based rescore; (b) checkpoints on the card:
     2 rounds, save, load into a fresh solver, 2 rounds == 4 rounds straight,
-    for qap-1024 compact (K1 launched) and for the nqueens main path;
+    for qap-1024 compact (K1 launched) and for the nqueens main path (K2a
+    and K2b launched in both);
 12. the user surface on the card: the five CLIs run in this process with
     ``--device cuda``, each printed result checked apart (the nqueens board at
     n = 1000, P = 256 and PMC's board by the numpy attacking-pair count, the
@@ -135,10 +152,12 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
     request step their solvers at the same time (checked likewise), then a
     64-box diagram and its SVG; one main-path round under
     ``utils/profiling.trace``, whose Chrome trace must hold the kernel's
-    events; and ``roofline()`` of the main path's solver, of a main-path
-    solver after one round and of qap-4096 incremental with 4 lanes: every
-    share at most 1.05, the state unchanged, each kernel's counted bytes its
-    bytes per call times its launches (B1 ``kernel_bytes``, K1 ``kernel_work``);
+    and K2's events; and ``roofline()`` of the main path's solver, of a
+    main-path solver after one round and of qap-4096 incremental with 4 lanes:
+    every share at most 1.05, the state unchanged, each kernel's counted bytes
+    its bytes per call times its launches (B1 ``kernel_bytes``, K1
+    ``kernel_work``, K2 each launch plan's ``work``); the nqueens and qap CLIs
+    must launch K2a and K2b;
 13. multi-device solving (``parallel/``): four ranks, spawned processes on the
     one card with the gloo backend, every mesh over all four, each sub-phase
     timed on every rank with its kernel launches (per shape), collectives and
@@ -168,7 +187,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
     names for the cell must hold a number, the kernel's from its own events.
 
 Each path's kernel launches are counted from 0 just before it runs: B1's on the
-N-Queens paths, K1's on phases 4c, 8, 11b and the QAP CLI.  The line before the
+N-Queens paths, K1's on phases 4c, 8, 11b and the QAP CLI, K2a's and K2b's on
+phases 4, 4b, 4c, 8, 11b and the nqueens and QAP CLIs.  The line before the
 last is a JSON object with each kernel's measurements; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -216,6 +236,12 @@ BENCH_CELL = "nqueens1000_p256"  # phase 14: the benchmark's headline cell
 K1_SHAPES = ((4, 4096), (16, 1024), (64, 256), (5, 1003))
 K1_EVENT = "qap_row_min"
 K1_REPLACES = "constraint_solver_tpu/models/qap.py:202-224, :325-341 (XLA fusion, no Pallas call)"
+# Phase 2d: K2 (the fingerprint hash), K2a's and K2b's events in a profiler trace.
+K2A_EVENT, K2B_EVENT = "fp_hash_xor", "fingerprint_rows"
+K2A_REPLACES = ("constraint_solver_tpu/ops/fingerprint.py:30-59, :89-95 (_mix32, position_hash_planes, "
+                "position_hash, fp_update; XLA fusion, no Pallas call)")
+K2B_REPLACES = ("constraint_solver_tpu/ops/fingerprint.py:30-86 (_mix32, position_hash, _xor_reduce, "
+                "fingerprint_i32, fingerprint_f32; XLA fusion, no Pallas call)")
 
 
 def log(msg: str) -> None:
@@ -700,6 +726,161 @@ def phase_k1(device, shapes=K1_SHAPES) -> dict:
     }
 
 
+def k2_wrappers() -> dict:
+    """K2's two counted wrappers: K2a ``hash_xor`` and K2b ``fingerprint_i32``."""
+    from constraint_solver_tpu_torch.ops import fingerprint as fpk
+
+    return {"K2a": fpk.hash_xor, "K2b": fpk.fingerprint_i32}
+
+
+def k2_reset() -> None:
+    """K2's launch counters (and their plans) to 0."""
+    for wrapper in k2_wrappers().values():
+        wrapper.launches = 0
+        wrapper.shapes = Counter()
+
+
+def k2_launches() -> dict:
+    return {name: wrapper.launches for name, wrapper in k2_wrappers().items()}
+
+
+def require_k2(launches: dict, what: str, kernels=("K2a", "K2b")) -> None:
+    """On the card, each of ``kernels`` must have launched."""
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{what}: K2 ({', '.join(missing)}) never launched: {launches}")
+
+
+def k2_cases(device) -> list:
+    """(label, kernel, wrapper call, plain call, arguments, timed) at the shapes
+    the solvers give K2, then on adversarial values."""
+    import torch
+
+    from constraint_solver_tpu_torch.ops import fingerprint as fpk
+
+    gen = torch.Generator(device=device).manual_seed(17)
+
+    def ints(shape, high, dtype=torch.int64):
+        return torch.randint(0, high, shape, generator=gen, device=device, dtype=dtype)
+
+    def planes(base, terms):
+        return fpk.hash_xor(base, terms, planes=True)
+
+    def planes_ref(base, terms):
+        return fpk.hash_xor_ref(base, terms, planes=True)
+
+    cases = []
+    for p, n in ((MAIN_P, MAIN_N), (16, 16384)):  # the N-Queens move: fp_update at [P]
+        args = (ints((p, 2), 2**32), ints((p,), n), ints((p,), n), ints((p,), n))
+        cases.append((f"fp_update [{p}]", "K2a", fpk.fp_update, fpk.fp_update_ref, args, True))
+    a, b, pa, pb = (ints((4,), 4096) for _ in range(4))  # QAP's swap: base and four terms at [4]
+    cases.append(("qap swap [4]", "K2a", fpk.hash_xor, fpk.hash_xor_ref,
+                  (ints((4, 2), 2**32), ((a, pa), (a, pb), (b, pb), (b, pa))), True))
+    p, d, e, off, rand = 64, 365, 20, 4, 256  # the roster cell's neighborhood
+    asg = ints((p, d), e)
+    d1, d2 = ints((p, rand), d), ints((p, rand), d)
+    e1, e2 = asg.gather(1, d1), asg.gather(1, d2)
+    cases.append(("roster swaps [64, 256]", "K2a", planes, planes_ref,
+                  (None, ((d1, e1), (d1, e2), (d2, e2), (d2, e1))), True))
+    iota = torch.arange(d, device=device)
+    d1_b, a_b = iota.expand(p, off, d), asg[:, None, :].expand(p, off, d)  # expanded views, as the proposer passes them
+    a2, d2_sw = ints((p, off, d), e), ints((p, off, d), d)
+    cases.append(("roster diagonals [64, 4, 365]", "K2a", planes, planes_ref,
+                  (None, ((d1_b, a_b), (d1_b, a2), (d2_sw, a2), (d2_sw, a_b))), True))
+    cases.append(("roster dense block [64, 365, 20]", "K2a", planes, planes_ref,
+                  (None, ((iota[:, None], asg[..., None]), (iota[:, None], torch.arange(e, device=device)))), True))
+    # Adversarial: Ackley's move on float bits (-0.0, NaN payloads, infinities, negative int32 views) at
+    # [64, 20], positions and values at and past 2^32 - 1 in int64.
+    bits = torch.randn((64, 20), generator=gen, device=device) * 1e3
+    bits[0, :6] = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"), -1.0], device=device)
+    bits = bits.view(torch.int32)
+    bits[1, :3] = torch.tensor([0x7FC00123, -0x00400001, -2**31], dtype=torch.int32, device=device)  # NaN payloads
+    big = torch.tensor([2**32 - 1, 2**32, 2**33 + 5, -1, -2**40, 2**31], device=device)
+    pos = ints((64, 20), 2**62)
+    pos[0, :6] = big
+    cases.append(("adversarial [64, 20]", "K2a", fpk.hash_xor, fpk.hash_xor_ref,
+                  (ints((64, 1, 2), 2**32), ((pos, bits), (pos, bits.flip(1)), (big[:1], -pos))), False))
+    for shape in ((MAIN_P, MAIN_N), (16, 16384), (4, 4096), (64, 365)):  # each descent's start, the archive
+        cases.append((f"rows {shape}", "K2b", fpk.fingerprint_i32, fpk.fingerprint_i32_ref, (ints(shape, shape[1]),),
+                      True))
+    cases.append(("rows adversarial float bits [64, 20]", "K2b", fpk.fingerprint_i32, fpk.fingerprint_i32_ref,
+                  (bits,), False))
+    cases.append(("rows adversarial int64 [8, 1000]", "K2b", fpk.fingerprint_i32, fpk.fingerprint_i32_ref,
+                  (torch.cat([big.expand(8, 6), ints((8, 994), 2**62) - 2**61], dim=1),), False))
+    cases.append(("rows adversarial strided int32 [8, 777]", "K2b", fpk.fingerprint_i32, fpk.fingerprint_i32_ref,
+                  (ints((8, 1554), 2**31, torch.int32).sub(2**30)[:, ::2],), False))
+    return cases
+
+
+def phase_k2(device, cases=None) -> list:
+    """2d. K2a and K2b against their plain versions bit for bit at the solvers'
+    shapes and on adversarial values; then, at the solvers' shapes, each
+    kernel's device-only ms per launch (its events in a ``torch.profiler``
+    trace), the wrapper's host us, its time and the plain chain's by CUDA events
+    in turns, and the bound with the share reached.  Returns K2a's and K2b's
+    entries of the kernels line (main shapes: the headline's ``fp_update`` at
+    [256] and its (256, 1000) rows; launches filled in by the paths)."""
+    import torch
+
+    from constraint_solver_tpu_torch.ops import fingerprint as fpk
+    from constraint_solver_tpu_torch.utils import roofline
+
+    t0 = time.time()
+    names = {"K2a": fpk.HASH_KERNEL, "K2b": fpk.ROWS_KERNEL}
+    events = {"K2a": K2A_EVENT, "K2b": K2B_EVENT}
+    per = {"K2a": {}, "K2b": {}}
+    max_err = {"K2a": 0.0, "K2b": 0.0}
+    card = card_line() if is_cuda(device) else "cpu"
+    for label, kernel, fn, plain, args, timed in cases or k2_cases(device):
+        got, want = fn(*args), plain(*args)
+        sync(device)
+        if got.dtype != torch.int64 or not torch.equal(got, want):
+            raise AssertionError(f"phase 2d: {kernel} != its plain version ({label})")
+        max_err[kernel] = max(max_err[kernel], float((got - want).abs().max()))
+        log(f"phase 2d: {kernel} == plain version bit for bit at {label}, output {tuple(got.shape)}")
+        if not timed:
+            continue
+        with roofline.counting() as count:
+            fn(*args)
+        work = count.kernels[names[kernel]]
+        by_bytes, by_ops = work["bytes"] / HBM_BYTES_PER_S * 1e3, work["flops"] / FP32_OPS_PER_S * 1e3
+        bound, by = max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+        if not is_cuda(device):
+            per[kernel][label] = {"bound_ms": bound, "bound_by": by, "bytes": work["bytes"], "operations": work["flops"]}
+            continue
+        for f in (fn, plain):
+            time_ms(f, args, 3)  # warm-up
+        plain_ms = [time_ms(plain, args, TIMED_LAUNCHES)]
+        kern = [time_ms(fn, args, TIMED_LAUNCHES) for _ in range(2)]
+        plain_ms.append(time_ms(plain, args, TIMED_LAUNCHES))
+        dev, how = device_ms(fn, args, TIMED_LAUNCHES, events[kernel])
+        host = min(host_us(fn, args, TIMED_LAUNCHES) for _ in range(2))
+        per[kernel][label] = {"ms": sum(kern) / 2, "plain_ms": sum(plain_ms) / 2, "device_ms": dev, "host_us": host,
+                              "bound_ms": bound, "bound_by": by, "bound_share": bound / dev, "bytes": work["bytes"],
+                              "operations": work["flops"]}
+        log(f"phase 2d: {kernel} at {label}: {kern} ms by CUDA events over {TIMED_LAUNCHES} calls (host-bound: "
+            f"the wrapper's enqueue), plain chain {plain_ms} ms; device-only {dev * 1e3:.3f} us per launch ({how}); "
+            f"host {host:.1f} us per call; bound {bound * 1e3:.4f} us ({work['bytes']} bytes at "
+            f"{HBM_BYTES_PER_S / 1e12} TB/s, {work['flops']} operations at {FP32_OPS_PER_S / 1e12} T/s: {by}), share "
+            f"{bound / dev:.3f}; plain chain / wrapper {per[kernel][label]['plain_ms'] / per[kernel][label]['ms']:.2f}x; "
+            f"{card}")
+    log(f"phase 2d: {time.time() - t0:.1f} s")
+    entries = []
+    for kernel, main, replaces in (("K2a", f"fp_update [{MAIN_P}]", K2A_REPLACES),
+                                   ("K2b", f"rows {(MAIN_P, MAIN_N)}", K2B_REPLACES)):
+        entries.append({
+            "name": names[kernel],
+            "route": "cuda",
+            "source": "constraint_solver_tpu_torch/csrc/fingerprint.cu",
+            "replaces": replaces,
+            "max_abs_err": max_err[kernel],
+            **per[kernel][main],
+            "library_ms": None,
+            "shapes": per[kernel],
+        })
+    return entries
+
+
 def run_rounds(device, exact, chunks=3):
     """nqueens-64, 8 lanes, from draws made on the host; returns the state in
     the reference layout and the per-round traces."""
@@ -769,7 +950,7 @@ def phase_main(device, n=MAIN_N, population=MAIN_P, wall_cap=WALL_CAP_S):
 
     from constraint_solver_tpu_torch.models.nqueens import make_nqueens_problem
     from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
-    from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32
+    from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32, fingerprint_i32_ref
     from constraint_solver_tpu_torch.parallel.population import PopulationSolver
 
     problem = make_nqueens_problem(n)
@@ -783,6 +964,7 @@ def phase_main(device, n=MAIN_N, population=MAIN_P, wall_cap=WALL_CAP_S):
     log(f"phase 4: warm-up (2 rounds) {time.time() - t0:.3f} s")
 
     nk.nqueens_neighborhood_scores.launches = 0
+    k2_reset()
     s = solver()
     timer = threading.Timer(wall_cap, s.cancel)
     timer.start()
@@ -795,6 +977,7 @@ def phase_main(device, n=MAIN_N, population=MAIN_P, wall_cap=WALL_CAP_S):
         timer.cancel()
         timer.join()
     launches = nk.nqueens_neighborhood_scores.launches
+    k2 = k2_launches()
     stats = s.stats()
     (hard, soft), best = s.get_best_solution()
     if hard != 0:
@@ -806,19 +989,23 @@ def phase_main(device, n=MAIN_N, population=MAIN_P, wall_cap=WALL_CAP_S):
     for name, want in zip(("rc", "dc", "ac", "cs"), numpy_counts(cur.rows.cpu().numpy())):
         if not np.array_equal(getattr(cur, name).cpu().numpy(), want):
             raise AssertionError(f"carried {name} differs from a rebuild from the boards")
-    if not torch.equal(s.state.current_fp, fingerprint_i32(cur.rows)):
-        raise AssertionError("carried fingerprints differ from a full recomputation")
-    elite = s.state.elite
-    if not torch.equal(elite.fps[elite.valid], fingerprint_i32(elite.states.rows)[elite.valid]):
-        raise AssertionError("archived fingerprints differ from a full recomputation")
-    if torch.device(device).type == "cuda" and launches == 0:
-        raise AssertionError("the main path never launched the kernel")
+    # Carried fingerprints (K2a's updates) against a full recomputation by K2b and by the plain version.
+    for full in (fingerprint_i32, fingerprint_i32_ref):
+        if not torch.equal(s.state.current_fp, full(cur.rows)):
+            raise AssertionError(f"carried fingerprints differ from a full recomputation ({full.__name__})")
+        elite = s.state.elite
+        if not torch.equal(elite.fps[elite.valid], full(elite.states.rows)[elite.valid]):
+            raise AssertionError(f"archived fingerprints differ from a full recomputation ({full.__name__})")
+    if torch.device(device).type == "cuda":
+        if launches == 0:
+            raise AssertionError("the main path never launched the kernel")
+        require_k2(k2, "phase 4: the main path")
     log(
         f"phase 4: nqueens-{n} P={population} solved: time to zero {ttz:.3f} s, "
         f"{stats['rounds']} rounds, {stats['ls_iterations']} descent iterations, "
-        f"moves/s {stats.get('moves_per_sec')}, kernel launches {launches}"
+        f"moves/s {stats.get('moves_per_sec')}, kernel launches {launches}, K2 launches {k2}"
     )
-    return {"ttz_s": ttz, "launches": launches, **stats}, s
+    return {"ttz_s": ttz, "launches": launches, "k2_launches": k2, **stats}, s
 
 
 def card_line() -> str:
@@ -833,7 +1020,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
     """4b's and 4c's comparison: ``drive`` on an eager solver (``_graphed=False``)
     and on a graphed one, each from ``make(graphed)``; the final state trees,
     what ``drive`` returns (the traces), ``stats()``, the generator's state and
-    the launches of B1 and of K1 must be equal.  Each side's wall, its peak
+    the launches of B1, of K1 and of K2a and K2b must be equal.  Each side's wall, its peak
     memory, and the graphed side's capture time."""
     import torch
 
@@ -849,6 +1036,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
         launches0, k1_launches0 = nk.nqueens_neighborhood_scores.launches, qrm.qap_swap_row_min.launches
+        k2_0 = k2_launches()
         s = make(graphed)
         sync(device)
         t0 = time.time()
@@ -862,6 +1050,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
             "generator": s.draws.state_dict()["generator"],
             "launches": nk.nqueens_neighborhood_scores.launches - launches0,
             "k1_launches": qrm.qap_swap_row_min.launches - k1_launches0,
+            "k2_launches": {k: v - k2_0[k] for k, v in k2_launches().items()},
             "peak_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
             "reserved_bytes": torch.cuda.memory_reserved(device) if cuda else None,
             "capture_s": graphs.capture_s if graphs is not None else None,
@@ -871,7 +1060,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
     assert_tree_equal(graph["state"], eager["state"])
     if not np.array_equal(np.asarray(graph["result"]), np.asarray(eager["result"])):
         raise AssertionError(f"phase {label}: graphed and eager traces differ")
-    for key in ("stats", "launches", "k1_launches"):
+    for key in ("stats", "launches", "k1_launches", "k2_launches"):
         if graph[key] != eager[key]:
             raise AssertionError(f"phase {label}: graphed and eager {key} differ: {graph[key]} != {eager[key]}")
     if not torch.equal(graph["generator"], eager["generator"]):
@@ -879,7 +1068,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
     if is_cuda(device) and graph["units"] != 1:
         raise AssertionError(f"phase {label}: the graphed solver made {graph['units']} graphed descents, not 1")
     return {side: {k: v[k] for k in ("wall_s", "peak_bytes", "reserved_bytes", "capture_s", "launches", "k1_launches",
-                                     "stats")}
+                                     "k2_launches", "stats")}
             for side, v in (("eager", eager), ("graphed", graph))}
 
 
@@ -907,8 +1096,11 @@ def phase_graphs(device, n=MAIN_N, population=MAIN_P, small_n=64, small_p=8, car
                                              exchange_every=2, device=device, _graphed=graphed),
             lambda s: np.concatenate([s.execute_chunk_traced(2) for _ in range(3)]),
         )
+        if is_cuda(device):
+            require_k2(out[mode]["graphed"]["k2_launches"], f"phase 4b: nqueens-{small_n} ({mode})")
         log(f"phase 4b: nqueens-{small_n} P={small_p} ({mode}): graphed == eager (state, traces, stats, "
-            f"generator, {out[mode]['graphed']['launches']} kernel launches); walls eager "
+            f"generator, {out[mode]['graphed']['launches']} kernel launches, K2 "
+            f"{out[mode]['graphed']['k2_launches']}); walls eager "
             f"{out[mode]['eager']['wall_s']:.3f} s, graphed {out[mode]['graphed']['wall_s']:.3f} s")
 
     problem, config = make_nqueens_problem(n), main_config()
@@ -934,8 +1126,10 @@ def phase_graphs(device, n=MAIN_N, population=MAIN_P, small_n=64, small_p=8, car
 
     main = out["main"] = graphs_pair(device, make, solve)
     eager, graph = main["eager"], main["graphed"]
+    if is_cuda(device):
+        require_k2(graph["k2_launches"], f"phase 4b: nqueens-{n}")
     log(f"phase 4b: nqueens-{n} P={population} run(chunk=2) to zero: graphed == eager (state, stats, generator, "
-        f"{graph['launches']} kernel launches, {graph['stats']['rounds']} rounds, "
+        f"{graph['launches']} kernel launches, K2 {graph['k2_launches']}, {graph['stats']['rounds']} rounds, "
         f"{graph['stats']['ls_iterations']} descent iterations)")
     log(f"phase 4b: wall eager {eager['wall_s']:.4f} s, graphed {graph['wall_s']:.4f} s; {card}")
     log(f"phase 4b: capture {graph['capture_s']:.4f} s (host, inside the graphed wall); {card}")
@@ -1046,12 +1240,15 @@ def phase_graphs_domains(device, card=None, **sizes) -> dict:
         if is_cuda(device) and label.startswith("qap") and ("compact" in label or "incremental" in label) \
                 and graph["k1_launches"] == 0:
             raise AssertionError(f"phase 4c: {label}: K1 (qap_swap_row_min) never launched")
+        if is_cuda(device):
+            require_k2(graph["k2_launches"], f"phase 4c: {label}", ("K2b",) if "systematic" in label else ("K2a", "K2b"))
         iterations = counters.calls  # the graphed side's, which equal the eager side's (stats)
         out[label] = {**pair, "iterations": iterations, "warm_up_s": warm_s,
                       "ms_per_iteration": {k: 1e3 * v["wall_s"] / max(iterations, 1) for k, v in pair.items()}}
         log(f"phase 4c: {label}: graphed == eager (state, traces, stats, generator) after {graph['stats']['rounds']} "
             f"rounds, {iterations} lockstep iterations, {graph['stats']['ls_iterations']} descent iterations, "
-            f"K1 launches {graph['k1_launches']}; walls eager {eager['wall_s']:.4f} s, graphed {graph['wall_s']:.4f} s "
+            f"K1 launches {graph['k1_launches']}, K2 {graph['k2_launches']}; walls eager {eager['wall_s']:.4f} s, "
+            f"graphed {graph['wall_s']:.4f} s "
             f"({out[label]['ms_per_iteration']['eager']:.4f} / {out[label]['ms_per_iteration']['graphed']:.4f} "
             f"ms per iteration); capture {graph['capture_s']:.4f} s (host, inside the graphed wall); peak memory "
             f"eager {eager['peak_bytes']} B, graphed {graph['peak_bytes']} B, reserved after each "
@@ -1680,10 +1877,12 @@ def run_qap(device, mode, n=64, population=8, rounds=4):
         make_qap_problem(QAPSpec.random(n, seed=0), **QAP_MODES[mode]), config, population=population,
         device=device, draws=TorchDraws(config.seed, population, device, draw_device="cpu"),
     )
-    launches0 = qrm.qap_swap_row_min.launches
+    launches0, k2_0 = qrm.qap_swap_row_min.launches, k2_launches()
     traces = [solver.execute_chunk_traced(2) for _ in range(rounds // 2)]
     if is_cuda(device) and mode != "dense" and qrm.qap_swap_row_min.launches == launches0:
         raise AssertionError(f"phase 8a: qap-{n} {mode} on the card never launched K1")
+    if is_cuda(device):
+        require_k2({k: v - k2_0[k] for k, v in k2_launches().items()}, f"phase 8a: qap-{n} {mode}")
     return to_reference(solver.state), np.concatenate(traces), solver.stats()
 
 
@@ -1710,14 +1909,17 @@ def qap_arm(device, n, population, mode, warm, rounds, label, capacity=8):
         torch.cuda.reset_peak_memory_stats(device)
     s = PopulationSolver(problem, config, population=population, device=device)
     counters.reset()
-    k1_launches0 = qrm.qap_swap_row_min.launches
+    k1_launches0, k2_0 = qrm.qap_swap_row_min.launches, k2_launches()
     t0 = time.time()
     s.run(max_rounds=rounds, chunk=2)
     sync(device)
     wall = time.time() - t0
     k1_launches = qrm.qap_swap_row_min.launches - k1_launches0
+    k2 = {k: v - k2_0[k] for k, v in k2_launches().items()}
     if is_cuda(device) and mode != "dense" and k1_launches == 0:
         raise AssertionError(f"phase 8{label}: qap-{n} {mode} never launched K1")
+    if is_cuda(device):
+        require_k2(k2, f"phase 8{label}: qap-{n} {mode}")
     stats = s.stats()
     calls, perturb_s = counters.calls, counters.perturb_s()
     memory = (torch.cuda.max_memory_allocated(device), torch.cuda.memory_reserved(device)) if is_cuda(device) else None
@@ -1735,6 +1937,7 @@ def qap_arm(device, n, population, mode, warm, rounds, label, capacity=8):
         "lockstep_iterations": calls, "ms_per_iteration": 1e3 * wall / max(calls, 1),
         "ls_iterations": stats["ls_iterations"], "moves_per_sec": stats["moves_evaluated"] / wall,
         "peak_bytes": memory and memory[0], "reserved_bytes": memory and memory[1], "k1_launches": k1_launches,
+        "k2_launches": k2,
     }
     if mode == "incremental":
         out["perturb_s"] = perturb_s
@@ -1744,7 +1947,7 @@ def qap_arm(device, n, population, mode, warm, rounds, label, capacity=8):
     log(
         f"phase 8{label}: qap-{n} {mode} P={population}: {rounds} rounds in {wall:.3f} s, "
         f"{calls} lockstep iterations ({out['ms_per_iteration']:.3f} ms each), best {cost:.0f} "
-        f"(int64 host cost {exact}), moves/s {out['moves_per_sec']:.4g}, K1 launches {k1_launches}, peak memory {out['peak_bytes']} B, "
+        f"(int64 host cost {exact}), moves/s {out['moves_per_sec']:.4g}, K1 launches {k1_launches}, K2 {k2}, peak memory {out['peak_bytes']} B, "
         f"reserved {out['reserved_bytes']} B"
         + (f", perturbation with H rebuild {perturb_s:.3f} s ({out['rebuild_share']:.3f} of the wall)"
            if mode == "incremental" else "")
@@ -2045,6 +2248,7 @@ def phase_checkpoint(device, qap_n=1024, qap_p=16, nq_n=MAIN_N, nq_p=MAIN_P) -> 
             return PopulationSolver(problem, config, population=population, device=device, **kw)
 
         nk.nqueens_neighborhood_scores.launches = qrm.qap_swap_row_min.launches = 0
+        k2_reset()
         t0 = time.time()
         straight = solver()
         for _ in range(4):
@@ -2059,18 +2263,21 @@ def phase_checkpoint(device, qap_n=1024, qap_p=16, nq_n=MAIN_N, nq_p=MAIN_P) -> 
         for _ in range(2):
             resumed.execute_round()
         sync(device)
-        launches, k1_launches = nk.nqueens_neighborhood_scores.launches, qrm.qap_swap_row_min.launches
+        launches, k1_launches, k2 = nk.nqueens_neighborhood_scores.launches, qrm.qap_swap_row_min.launches, k2_launches()
         assert_tree_equal(to_reference(straight.state), to_reference(resumed.state))
         size = os.path.getsize(path)
         os.remove(path)
-        out[name] = {"launches": launches, "k1_launches": k1_launches, "file_bytes": size,
+        out[name] = {"launches": launches, "k1_launches": k1_launches, "k2_launches": k2, "file_bytes": size,
                      "wall_s": time.time() - t0}
         log(
             f"phase 11b: {problem.name} P={population}: 2 rounds, save ({size} bytes), load, 2 rounds == 4 rounds "
-            f"straight, leaf for leaf; launches B1 {launches}, K1 {k1_launches}"
+            f"straight, leaf for leaf; launches B1 {launches}, K1 {k1_launches}, K2 {k2}"
         )
     if is_cuda(device) and (out["nqueens"]["launches"] == 0 or out["qap"]["k1_launches"] == 0):
         raise AssertionError(f"phase 11b: a checkpoint run never launched its kernel: {out}")
+    if is_cuda(device):
+        for name in out:
+            require_k2(out[name]["k2_launches"], f"phase 11b: {name}")
     return out
 
 
@@ -2094,6 +2301,7 @@ def run_cli(module, argv, device) -> tuple:
 
     buf = io.StringIO()
     nk.nqueens_neighborhood_scores.launches = 0
+    k2_reset()  # read by the caller through ``k2_launches()``
     t0 = time.time()
     with contextlib.redirect_stdout(buf):
         rc = module.main([*argv, "--device", str(torch.device(device).type)])
@@ -2125,6 +2333,7 @@ def cli_nqueens(device, argv, n, label) -> dict:
     from constraint_solver_tpu_torch.cli import nqueens
 
     rc, text, wall, launches = run_cli(nqueens, argv, device)
+    k2 = k2_launches()
     rows = parse_board(text, n)
     score = int(printed(text, "result.score:"))
     pairs = attacking_pairs(rows)
@@ -2132,9 +2341,11 @@ def cli_nqueens(device, argv, n, label) -> dict:
         raise AssertionError(f"phase 12 {label}: printed score {score} (rc {rc}) != 2 x {pairs} attacking pairs")
     if is_cuda(device) and launches == 0:
         raise AssertionError(f"phase 12 {label}: the CLI never launched the kernel")
+    if is_cuda(device) and "pmc" not in argv:  # min-conflicts keeps no fingerprints
+        require_k2(k2, f"phase 12 {label}")
     log(f"phase 12 {label}: {' '.join(argv)}: score {score} == 2 x numpy attacking pairs; wall {wall:.3f} s; "
-        f"kernel launches {launches}; {printed(text, 'stats:')}")
-    return {"score": score, "wall_s": wall, "launches": launches, "stats": printed(text, "stats:")}
+        f"kernel launches {launches}, K2 {k2}; {printed(text, 'stats:')}")
+    return {"score": score, "wall_s": wall, "launches": launches, "k2_launches": k2, "stats": printed(text, "stats:")}
 
 
 def cli_scheduling(device, days=31, emps=7, population=64, rounds=5) -> dict:
@@ -2163,9 +2374,11 @@ def cli_qap(device, n=4096, rounds=6) -> dict:
     argv = ["--size", str(n), "--rounds", str(rounds)]
     qrm.qap_swap_row_min.launches = 0
     rc, text, wall, _ = run_cli(qap, argv, device)  # the CLI asserts its best against its host oracle
-    k1_launches = qrm.qap_swap_row_min.launches
+    k1_launches, k2 = qrm.qap_swap_row_min.launches, k2_launches()
     if is_cuda(device) and k1_launches == 0:
         raise AssertionError("phase 12 qap CLI: K1 never launched")
+    if is_cuda(device):
+        require_k2(k2, "phase 12 qap CLI")
     perm = np.array(json.loads(printed(text, "result.permutation:")))
     cost = float(printed(text, "result.cost:"))
     flow, dist = QAPSpec.random(n, seed=0).arrays()
@@ -2173,9 +2386,9 @@ def cli_qap(device, n=4096, rounds=6) -> dict:
     if rc != 0 or sorted(perm.tolist()) != list(range(n)) or abs(exact - cost) > 1e-3 * max(1.0, exact):
         raise AssertionError(f"phase 12 qap CLI: printed cost {cost} != int64 host cost {exact} (rc {rc})")
     log(f"phase 12 qap CLI: {' '.join(argv)}: cost {cost:.0f}, int64 host cost {exact}; wall {wall:.3f} s; "
-        f"K1 launches {k1_launches}; {printed(text, 'stats:')}")
+        f"K1 launches {k1_launches}, K2 {k2}; {printed(text, 'stats:')}")
     return {"cost": cost, "cost_int64": exact, "wall_s": wall, "stats": printed(text, "stats:"),
-            "k1_launches": k1_launches}
+            "k1_launches": k1_launches, "k2_launches": k2}
 
 
 def cli_diagram(device, boxes=64, edges=96, grid=32, max_size=4, population=64, rounds=6) -> dict:
@@ -2342,18 +2555,25 @@ def phase_trace(device, n=MAIN_N, population=MAIN_P) -> dict:
     size = os.path.getsize(path)
     os.remove(path)  # some 200 MB for a main-path round
     kernel_events = sum(c for name, c in names.items() if KERNEL_EVENT in name)
-    if (is_cuda(device) and kernel_events == 0) or names["smoke-round"] == 0:
-        raise AssertionError(f"phase 12 trace: {kernel_events} kernel events, {names['smoke-round']} spans in {path}")
+    k2_events = {event: sum(c for name, c in names.items() if event in name) for event in (K2A_EVENT, K2B_EVENT)}
+    if (is_cuda(device) and (kernel_events == 0 or 0 in k2_events.values())) or names["smoke-round"] == 0:
+        raise AssertionError(f"phase 12 trace: {kernel_events} kernel events, K2 {k2_events}, "
+                             f"{names['smoke-round']} spans in {path}")
     log(f"phase 12 trace: one nqueens-{n} P={population} round traced in {wall:.3f} s: {kernel_events} "
-        f"{KERNEL_EVENT} events, {sum(names.values())} events in all, {size} bytes")
-    return {"kernel_events": kernel_events, "events": sum(names.values()), "wall_s": wall}
+        f"{KERNEL_EVENT} events, K2 {k2_events}, {sum(names.values())} events in all, {size} bytes")
+    return {"kernel_events": kernel_events, "k2_events": k2_events, "events": sum(names.values()), "wall_s": wall}
 
 
 def checked_roofline(solver, label, kernel_shape=None, k1_shape=None) -> dict:
     """``solver.roofline()`` with every share at most 1.05, the solver's state
     unchanged, and each kernel's counted calls equal to its launches in the
     chunk and its counted bytes to its bytes per call (B1 ``kernel_bytes(
-    *kernel_shape)``, K1 ``kernel_work(*k1_shape)``) times them."""
+    *kernel_shape)``, K1 ``kernel_work(*k1_shape)``) times them; K2a's and
+    K2b's to the sum of each launch plan's ``work`` bytes times its launches.
+    A solved solver's chunk runs from a fresh initial state, made outside the
+    count, whose fingerprint launches K2b: there K2's counted calls and bytes
+    may fall short of the launched ones, never exceed them."""
+    from constraint_solver_tpu_torch.ops import fingerprint as fpk
     from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
     from constraint_solver_tpu_torch.ops import qap_row_min as qrm
     from constraint_solver_tpu_torch.utils.convert import to_reference
@@ -2364,6 +2584,7 @@ def checked_roofline(solver, label, kernel_shape=None, k1_shape=None) -> dict:
                qrm.KERNEL_NAME: (qrm.qap_swap_row_min, k1_shape and qrm.kernel_work(*k1_shape)[1])}
     for wrapper, _ in kernels.values():
         wrapper.launches = 0
+    k2_reset()
     r = solver.roofline()
     assert_tree_equal(before, to_reference(solver.state))
     shares = {k: r[k] for k in ("mfu_bf16", "mfu_f32", "hbm_frac")}
@@ -2378,6 +2599,18 @@ def checked_roofline(solver, label, kernel_shape=None, k1_shape=None) -> dict:
         if kern["calls"] and kern["bytes"] != per_call * kern["calls"]:
             raise AssertionError(f"phase 12 roofline {label}: {name} bytes {kern['bytes']} != "
                                  f"{per_call} x {kern['calls']}")
+    for name, wrapper in ((fpk.HASH_KERNEL, fpk.hash_xor), (fpk.ROWS_KERNEL, fpk.fingerprint_i32)):
+        kern = counted[name] = r["kernels"].get(name, {"calls": 0, "bytes": 0})
+        if not is_cuda(solver.device):
+            continue
+        launched = sum(plan.work[1] * k for plan, k in wrapper.shapes.items())  # each plan's bytes x its launches
+        if r["counted_from"] == "current":
+            ok = (kern["calls"], kern["bytes"]) == (wrapper.launches, launched)
+        else:
+            ok = kern["calls"] <= wrapper.launches and kern["bytes"] <= launched
+        if kern["calls"] == 0 or not ok:
+            raise AssertionError(f"phase 12 roofline {label}: K2 {name} counted {kern['calls']} calls and "
+                                 f"{kern['bytes']} bytes, launched {wrapper.launches} moving {launched}")
     log(f"phase 12 roofline {label}: {format_roofline(r)}; per round {r['flops_per_round']:.4g} operations, "
         f"{r['hbm_bytes_per_round']:.4g} bytes; kernels {counted}; state unchanged")
     return r
@@ -2803,10 +3036,11 @@ def phase_bench(device, cell=BENCH_CELL) -> dict:
 
 
 def build_kernels() -> None:
-    """Phase 1: compile the three kernel libraries from the checkout's sources,
+    """Phase 1: compile the four kernel libraries from the checkout's sources,
     one ``nvcc`` each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from constraint_solver_tpu_torch.ops import fingerprint as fpk
     from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
     from constraint_solver_tpu_torch.ops import nqueens_probes as npr
     from constraint_solver_tpu_torch.ops import qap_row_min as qrm
@@ -2817,14 +3051,14 @@ def build_kernels() -> None:
         return module._LIB_PATH.name, report, time.time() - t
 
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        built = [f.result() for f in [pool.submit(build, m) for m in (nk, npr, qrm)]]
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        built = [f.result() for f in [pool.submit(build, m) for m in (nk, npr, qrm, fpk)]]
     for name, report, secs in built:
         log(f"phase 1: built {name} in {secs:.1f} s")
         for line in report.splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "spill")) or "error" in line.lower():
                 log(f"  nvcc: {line.strip()}")
-    log(f"phase 1: all three libraries in {time.time() - t0:.1f} s")
+    log(f"phase 1: all four libraries in {time.time() - t0:.1f} s")
 
 
 def main() -> None:
@@ -2838,7 +3072,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--kernel-only", action="store_true",
-        help="run phases 1, 2, 2b and 2c only, print the kernels' measurements and stop (no result line)",
+        help="run phases 1, 2, 2b, 2c and 2d only, print the kernels' measurements and stop (no result line)",
     )
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -2853,25 +3087,33 @@ def main() -> None:
     kernel = phase_kernel(device)
     probe_entries, kernel["probe_shapes"] = phase_probes(device)
     k1 = phase_k1(device)
+    k2 = phase_k2(device)
     if args.kernel_only:
         log(card)
-        log(json.dumps({"kernels": [kernel, *probe_entries, k1]}))
+        log(json.dumps({"kernels": [kernel, *probe_entries, k1, *k2]}))
         return
     phase_cross_device(device)
     main_run, main_solver = phase_main(device)
+    k2_paths = {"nqueens_population": main_run["k2_launches"]}  # counted from 0 inside phase 4
     nk.nqueens_neighborhood_scores.launches = 0
+    k2_reset()
     graphs = phase_graphs(device, card=card)
     graphs_launches = nk.nqueens_neighborhood_scores.launches
+    k2_paths["graphs_vs_eager"] = k2_launches()
     qrm.qap_swap_row_min.launches = 0
+    k2_reset()
     graphs_domains = phase_graphs_domains(device, card=card)
     k1_paths = {"graphs_domains": qrm.qap_swap_row_min.launches}
+    k2_paths["graphs_domains"] = k2_launches()
     matrix_forms = phase_matrix_forms(device, card=card)
     pmc_run = phase_pmc(device, card=card)
     phase_schedule_cross_device(device)
     sched = phase_schedule_bench(device)
     qrm.qap_swap_row_min.launches = 0
+    k2_reset()
     qap = phase_qap(device)
     k1_paths["qap"] = qrm.qap_swap_row_min.launches
+    k2_paths["qap"] = k2_launches()
     ackley = phase_ackley(device)
     diagram = phase_diagram(device)
     phased = phase_phased(device)
@@ -2897,6 +3139,12 @@ def main() -> None:
     k1_paths.update(checkpoint_resume=ckpt["qap"]["k1_launches"], cli_qap=surface["cli_qap"]["k1_launches"])
     k1["launches"] = sum(k1_paths.values())
     k1["launches_by_path"] = k1_paths
+    k2_paths.update(checkpoint_resume_qap=ckpt["qap"]["k2_launches"],
+                    checkpoint_resume_nqueens=ckpt["nqueens"]["k2_launches"],
+                    cli_nqueens=surface["cli_nqueens"]["k2_launches"], cli_qap=surface["cli_qap"]["k2_launches"])
+    for entry, key in zip(k2, ("K2a", "K2b")):
+        entry["launches_by_path"] = {path: counts[key] for path, counts in k2_paths.items()}
+        entry["launches"] = sum(entry["launches_by_path"].values())
 
     log(json.dumps({
         "main_path": main_run, "graphs": graphs, "graphs_domains": graphs_domains, "matrix_forms": matrix_forms,
@@ -2905,7 +3153,7 @@ def main() -> None:
         "bench": bench, "card": card,
     }, default=str))
     log(card)
-    log(json.dumps({"kernels": [kernel, *probe_entries, k1]}))
+    log(json.dumps({"kernels": [kernel, *probe_entries, k1, *k2]}))
     log(json.dumps({
         "ok": True,
         "device": {

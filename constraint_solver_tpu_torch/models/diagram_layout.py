@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from constraint_solver_tpu_torch.core.problem import Neighborhood, Problem, replayable
-from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32, fp_update
+from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32, hash_xor
 from constraint_solver_tpu_torch.ops.lex import make_score
 
 
@@ -204,8 +204,8 @@ def make_diagram_layout_problem(spec: DiagramLayoutSpec) -> Problem:
         flat = (idx.shape[0], -1)
         old = pos.gather(1, b.reshape(flat)[..., None].expand(-1, -1, 2)).view(*idx.shape, 2)
         fp = cur_fp.view(cur_fp.shape[0], *(1,) * (idx.dim() - 1), 2)
-        fp = fp_update(fp, 2 * b, old[..., 0], x)
-        return fp_update(fp, 2 * b + 1, old[..., 1], y)
+        bx, by = 2 * b, 2 * b + 1
+        return hash_xor(fp, ((bx, old[..., 0]), (bx, x), (by, old[..., 1]), (by, y)))
 
     def apply_move(pos, _moves, idx):
         b, x, y = decode(idx)

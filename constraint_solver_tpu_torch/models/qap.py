@@ -98,7 +98,7 @@ import torch
 
 from constraint_solver_tpu_torch.core.problem import InPlace, Neighborhood, Problem, replayable
 from constraint_solver_tpu_torch.ops import qap_row_min as row_min_ops
-from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32, fp_update
+from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32, hash_xor
 from constraint_solver_tpu_torch.ops.lex import make_score
 from constraint_solver_tpu_torch.parallel.mesh import active_axis, all_gather, gather_best
 
@@ -275,7 +275,7 @@ def make_qap_problem(
         pa = p.gather(1, a.reshape(flat)).view(idx.shape)
         pb = p.gather(1, b.reshape(flat)).view(idx.shape)
         fp = cur_fp.view(cur_fp.shape[0], *(1,) * (idx.dim() - 1), 2)
-        return fp_update(fp_update(fp, a, pa, pb), b, pb, pa)
+        return hash_xor(fp, ((a, pa), (a, pb), (b, pb), (b, pa)))  # one K2a launch for both positions
 
     def swap(p, a, b):
         lane = torch.arange(p.shape[0], device=p.device)

@@ -66,7 +66,7 @@ import numpy as np
 import torch
 
 from constraint_solver_tpu_torch.core.problem import Neighborhood, Problem, replayable
-from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32, fp_update, position_hash_planes
+from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32, hash_xor
 from constraint_solver_tpu_torch.ops.lex import make_score
 
 # Delta-evaluation region: the widest window is 14 days (H4), so windows
@@ -247,12 +247,8 @@ def sample_random_moves(draws, w_size: int, d_days: int, n_emp: int, active) -> 
 
 def _swap_fp_delta_planes(d1, e1, n1, d2, e2, n2):
     """XOR fingerprint delta of a two-point move as two int64 planes of uint32
-    values (ChangeDay has n2 == e2, whose hash terms cancel)."""
-    a0, a1 = position_hash_planes(d1, e1)
-    b0, b1 = position_hash_planes(d1, n1)
-    c0, c1 = position_hash_planes(d2, e2)
-    f0, f1 = position_hash_planes(d2, n2)
-    return a0 ^ b0 ^ c0 ^ f0, a1 ^ b1 ^ c1 ^ f1
+    values (ChangeDay has n2 == e2, whose hash terms cancel), in one K2a launch."""
+    return tuple(hash_xor(None, ((d1, e1), (d1, n1), (d2, e2), (d2, n2)), planes=True))
 
 
 def _cat_blocks(blocks) -> Neighborhood:
@@ -298,8 +294,6 @@ class _Tables(NamedTuple):
     weekend_f: torch.Tensor     # float32[D]
     weekday: torch.Tensor       # int64[D]
     wk_pad: torch.Tensor        # bool[D + 2*PAD]
-    h_de0: torch.Tensor         # int64[D, E] position hash h(d, e), fingerprint lane 0
-    h_de1: torch.Tensor         # int64[D, E] lane 1
     band7: torch.Tensor         # float32[max(D - 6, 0), D]: window s of 7 days contains day d
     band14: torch.Tensor        # float32[max(D - 13, 0), D]: the same for 14 days
 
@@ -327,16 +321,12 @@ def make_scheduling_problem(
         if device not in tables:
             weekend = torch.as_tensor(spec.is_weekend())
             holiday_de = torch.as_tensor(spec.holiday_array().T, dtype=f32).contiguous()
-            iota_d = torch.arange(d_days)
-            h0, h1 = position_hash_planes(iota_d[:, None], torch.arange(n_emp).expand(d_days, n_emp))
             t = _Tables(
                 holiday_de=holiday_de,
                 weekend=weekend,
                 weekend_f=weekend.to(f32),
                 weekday=torch.as_tensor(spec.weekdays(), dtype=torch.int64),
                 wk_pad=torch.cat([torch.zeros(PAD, dtype=torch.bool), weekend, torch.zeros(PAD, dtype=torch.bool)]),
-                h_de0=h0,
-                h_de1=h1,
                 band7=_window_band(d_days, 7, "cpu"),
                 band14=_window_band(d_days, 14, "cpu"),
             )
@@ -600,12 +590,12 @@ def make_scheduling_problem(
             iota_d.repeat_interleave(n_emp).expand(p, -1),
             iota_e.repeat(d_days).expand(p, -1),
         )
-        # Dense batch fingerprints: fp' = fp ^ h(d, a[d]) ^ h(d, e).
-        h_old0, h_old1 = position_hash_planes(iota_d.expand(p, -1), a)
+        # Dense batch fingerprints: fp' = fp ^ h(d, a[d]) ^ h(d, e), one K2a launch.
+        fd0, fd1 = hash_xor(None, ((iota_d[:, None], a[..., None]), (iota_d[:, None], iota_e)), planes=True)
         blocks = [(
             cur_h + d_hard.reshape(p, -1), cur_s + d_soft.reshape(p, -1), ch_moves,
             torch.ones((p, d_days * n_emp), dtype=torch.bool, device=dev),
-            (h_old0[..., None] ^ t.h_de0).reshape(p, -1), (h_old1[..., None] ^ t.h_de1).reshape(p, -1),
+            fd0.reshape(p, -1), fd1.reshape(p, -1),
         )]
         dr = draws.dense_swaps(n_rand, n_off, d_days, active)
 
@@ -677,7 +667,7 @@ def make_scheduling_problem(
     def move_fp(assign, cur_fp, moves, idx):
         d1, e1, n1, d2, e2, n2 = resolve_move(assign, moves, idx)
         fp = cur_fp.view(cur_fp.shape[0], *(1,) * (idx.dim() - 1), 2)
-        return fp_update(fp_update(fp, d1, e1, n1), d2, e2, n2)
+        return hash_xor(fp, ((d1, e1), (d1, n1), (d2, e2), (d2, n2)))
 
     def apply_move(assign, moves, idx):
         d1, _e1, n1, d2, _e2, n2 = resolve_move(assign, moves, idx)

@@ -1,5 +1,6 @@
 """Dense 64-bit solution fingerprints, two 32-bit lanes
-(port of ``constraint_solver_tpu/ops/fingerprint.py``).
+(port of ``constraint_solver_tpu/ops/fingerprint.py``): CUDA on the card, plain
+PyTorch on the CPU.
 
     fp(x) = XOR_i h(i, x_i)    per lane, h = murmur3 fmix32 of the salted position
                                mixed with the value bits
@@ -12,15 +13,76 @@ the CPU.  ``_mix32`` works in int64 and masks to 32 bits after every multiply
 (the product wraps, and its low 32 bits stay right), so every value equals the
 JAX package's uint32 bit for bit.  PyTorch has no XOR reduction either, so
 ``_xor_reduce`` halves the axis pairwise.
+
+K2, the hash as two hand-written kernels (``csrc/fingerprint.cu``).  In the JAX
+package XLA fuses each use of this arithmetic into one pass; eager PyTorch runs
+it as 34-96 int64 passes a use, so the port has a kernel for it:
+
+- ``hash_xor(base, terms, planes=False)`` is K2a's wrapper: ``base ^ XOR_k
+  h(idx_k, val_k)`` for 1-4 (position, value) terms, both lanes, over the
+  broadcast of its operands (at most 4 dimensions); ``[..., 2]``, or ``[2, ...]``
+  with ``planes``.  ``fp_update``, ``position_hash`` and
+  ``position_hash_planes`` are its one- and two-term forms; the descents call it
+  with four terms for a two-position move.
+- ``fingerprint_i32(values)`` is K2b's wrapper: each row of ``values`` [..., n]
+  hashed and XOR-reduced, ``[..., 2]``; ``fingerprint_f32`` hashes float bits
+  through it.
+- Each wrapper checks its operands (int32 or int64; the base int64 [..., 2]; at
+  most 4 dimensions) through a plan that is a pure function of shapes, strides
+  and dtypes (``_hash_plan``, ``_rows_plan``), takes the plain version for
+  tensors on the CPU, and for tensors on a CUDA device launches its kernel or
+  raises: there is no fallback.  The kernel reads every operand by the plan's
+  strides (0 on a broadcast dimension) and width, so expanded views and int32
+  bit views are taken as they are, with no copy.  Operands with no element
+  give an empty result (no row positions: zeros) without a launch.
+  ``.launches`` counts each wrapper's kernel launches and ``.shapes`` them per
+  plan, through ``ops/launch_count.py``, so CUDA graph replays count too.  Under
+  ``utils/roofline.py`` each call counts its plan's ``work`` by formula: each
+  distinct operand's bytes once, however many terms pass it (``_alias``).
+- The plain versions (``_ref``) are the port's eager int64 arithmetic; the
+  kernels compute the same uint32 values, so the two are equal bit for bit.
+- ``build_library`` compiles the kernels with ``nvcc`` into ``build/kernels/``
+  at first use and loads them with ``ctypes``, through
+  ``ops/nqueens_kernel.py``'s ``KernelLibrary``; each C entry takes its plan as
+  one int64 array.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import math
+from pathlib import Path
+from typing import NamedTuple
+
 import torch
+
+from constraint_solver_tpu_torch.ops import launch_count
+from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+from constraint_solver_tpu_torch.utils import roofline
 
 # Two lane salts, the JAX package's arbitrary odd constants.
 _SALTS = (0x9E3779B9, 0x85EBCA77)
 _M32 = 0xFFFFFFFF
+
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "fingerprint.cu"
+HASH_KERNEL = "fp_hash_xor"  # K2a
+ROWS_KERNEL = "fingerprint_rows"  # K2b
+_PLAN_ARGS = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]  # (const long long* plan, void* stream)
+_LIB_PATH = nk._BUILD_DIR / "libfingerprint.so"
+_LIBRARY = nk.KernelLibrary(_SRC, _LIB_PATH,
+                            {"fp_hash_xor_launch": _PLAN_ARGS, "fingerprint_rows_launch": _PLAN_ARGS})
+
+MAX_DIMS = 4  # dimensions of an operand or of K2a's output (csrc kDims)
+MAX_TERMS = 4  # (position, value) terms of K2a (csrc kMaxTerms)
+HASH_PLAN_LEN = 64  # csrc kHashPlanLen
+THREADS = 256  # threads of a block (csrc kThreads)
+WARPS = THREADS // 32
+OPS_PER_HASH = 38  # two lanes of mix32(v ^ mix32(i ^ salt)) XOR-ed in: 19 integer operations each
+_WIDE = {torch.int32: 0, torch.int64: 1}  # csrc Operand.wide
+
+
+# ---------------------------------------------------------------- plain versions
 
 
 def _mix32(h: torch.Tensor) -> torch.Tensor:
@@ -32,7 +94,7 @@ def _mix32(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
-def position_hash_planes(idx: torch.Tensor, value_bits: torch.Tensor) -> tuple:
+def position_hash_planes_ref(idx: torch.Tensor, value_bits: torch.Tensor) -> tuple:
     """h(i, v) as two int64 planes of uint32 values (the bit patterns of
     ``idx`` and ``value_bits`` taken modulo 2^32, as the JAX package's casts
     to uint32 do)."""
@@ -41,9 +103,9 @@ def position_hash_planes(idx: torch.Tensor, value_bits: torch.Tensor) -> tuple:
     return tuple(_mix32(value_bits ^ _mix32(idx ^ salt)) for salt in _SALTS)
 
 
-def position_hash(idx: torch.Tensor, value_bits: torch.Tensor) -> torch.Tensor:
+def position_hash_ref(idx: torch.Tensor, value_bits: torch.Tensor) -> torch.Tensor:
     """h(i, v) for both lanes: [..., 2]."""
-    return torch.stack(position_hash_planes(idx, value_bits), dim=-1)
+    return torch.stack(position_hash_planes_ref(idx, value_bits), dim=-1)
 
 
 def _xor_reduce(lane_hashes: torch.Tensor) -> torch.Tensor:
@@ -57,16 +119,267 @@ def _xor_reduce(lane_hashes: torch.Tensor) -> torch.Tensor:
     return x[..., 0, :]
 
 
-def fingerprint_i32(values: torch.Tensor) -> torch.Tensor:
+def fingerprint_i32_ref(values: torch.Tensor) -> torch.Tensor:
     """Fingerprint of an integer [..., n] solution vector → int64[..., 2]."""
     idx = torch.arange(values.shape[-1], device=values.device).expand(values.shape)
-    return _xor_reduce(position_hash(idx, values))
+    return _xor_reduce(position_hash_ref(idx, values))
 
 
-def fingerprint_f32(values: torch.Tensor) -> torch.Tensor:
-    """Fingerprint of a float32 [..., n] vector by its bit patterns (the int32
-    view, masked to uint32 in int64 by ``position_hash_planes``)."""
-    return fingerprint_i32(values.contiguous().view(torch.int32))
+def fp_update_ref(
+    fp: torch.Tensor, idx: torch.Tensor, old_bits: torch.Tensor, new_bits: torch.Tensor
+) -> torch.Tensor:
+    """O(1) update of ``fp`` [..., 2] for position ``idx`` changed old → new
+    (``idx``/``old_bits``/``new_bits`` broadcastable [...])."""
+    return fp ^ position_hash_ref(idx, old_bits) ^ position_hash_ref(idx, new_bits)
+
+
+def hash_xor_ref(base, terms, planes: bool = False) -> torch.Tensor:
+    """``base ^ XOR_k h(idx_k, val_k)`` for both lanes: [..., 2], or [2, ...]
+    with ``planes``; ``base`` int64 [..., 2] holding values in [0, 2^32), or None."""
+    lanes = None
+    for idx, val in terms:
+        h = position_hash_planes_ref(idx, val)
+        lanes = h if lanes is None else (lanes[0] ^ h[0], lanes[1] ^ h[1])
+    if base is not None:
+        lanes = (lanes[0] ^ base[..., 0], lanes[1] ^ base[..., 1])
+    return torch.stack(lanes, dim=0 if planes else -1)
+
+
+# ---------------------------------------------------------------- plans
+
+
+class HashPlan(NamedTuple):
+    out_shape: tuple  # the broadcast of the operands' shapes
+    template: tuple  # the C entry's 64 int64 entries, every pointer 0
+    work: tuple[int, int]  # (operations, bytes) of one call
+
+
+class RowsPlan(NamedTuple):
+    lead: tuple[int, int, int]  # the row dimensions, leading 1s
+    rows: int
+    n: int
+    strides: tuple[int, int, int, int]  # element strides, 0 on a dimension of size 1
+    wide: int
+    warps_per_row: int  # 1, 2, 4 or 8
+    grid: int  # blocks of 256 threads, 8 // warps_per_row rows each
+    work: tuple[int, int]
+
+
+def _wide(dtype) -> int:
+    if dtype not in _WIDE:
+        raise TypeError(f"fingerprint operands must be torch.int32 or torch.int64, got {dtype}")
+    return _WIDE[dtype]
+
+
+def _operand_strides(shape, strides, out_shape) -> tuple[int, int, int, int]:
+    """An operand's element strides over the output's dimensions, padded to 4:
+    0 on every dimension where the operand has size 1 or no dimension (a
+    broadcast), its own stride elsewhere (itself 0 on an expanded dimension)."""
+    lead = len(out_shape) - len(shape)
+    own = [0] * lead + [0 if size == 1 else stride for size, stride in zip(shape, strides)]
+    return (0,) * (MAX_DIMS - len(out_shape)) + tuple(own)
+
+
+def _distinct(shape4, strides4) -> int:
+    """Elements an operand holds under the output: the sizes of the dimensions
+    it does not broadcast over."""
+    return math.prod(size for size, stride in zip(shape4, strides4) if stride != 0)
+
+
+@functools.lru_cache(maxsize=512)
+def _hash_plan(base, operands, alias, planes: bool) -> HashPlan:
+    """K2a's plan from its operands' (shape, strides, dtype): ``base`` the base
+    fingerprint's or None, ``operands`` idx_0, val_0, idx_1, val_1, ... in order;
+    ``alias[m]`` the first operand at operand m's address (``_alias``)."""
+    if len(operands) % 2 or not 1 <= len(operands) // 2 <= MAX_TERMS:
+        raise ValueError(f"hash_xor takes 1 to {MAX_TERMS} (position, value) terms, got {len(operands)} operands")
+    shapes = [tuple(s) for s, _, _ in operands]
+    if base is not None:
+        b_shape, b_strides, b_dtype = base
+        if b_dtype != torch.int64 or len(b_shape) < 1 or b_shape[-1] != 2:
+            raise ValueError(f"the base fingerprint must be int64 [..., 2], got {b_dtype} {tuple(b_shape)}")
+        shapes.append(tuple(b_shape[:-1]))
+    out_shape = tuple(torch.broadcast_shapes(*shapes))
+    if len(out_shape) > MAX_DIMS:
+        raise ValueError(f"hash_xor broadcasts to at most {MAX_DIMS} dimensions, got {out_shape}")
+    shape4 = (1,) * (MAX_DIMS - len(out_shape)) + out_shape
+    numel = math.prod(out_shape)
+    terms = len(operands) // 2
+    nbytes = 16 * numel  # both lanes of every output, int64
+    base_entries = [0] * 6
+    base_lane = 0
+    if base is not None:
+        b4 = _operand_strides(b_shape[:-1], b_strides[:-1], out_shape)
+        base_entries = [0, *b4, 1]
+        base_lane = b_strides[-1]
+        nbytes += 16 * _distinct(shape4, b4)
+    entries = []
+    read = set()
+    for m, (shape, strides, dtype) in enumerate(operands):
+        s4 = _operand_strides(shape, strides, out_shape)
+        wide = _wide(dtype)
+        entries += [0, *s4, wide]
+        # An operand that reads the elements an earlier one read (one tensor in
+        # two terms, or two views of it that broadcast alike) is read once.
+        elements = (alias[m], dtype, tuple(sorted((size, st) for size, st in zip(shape4, s4) if st != 0)))
+        if elements not in read:
+            read.add(elements)
+            nbytes += (8 if wide else 4) * _distinct(shape4, s4)
+    entries += [0] * (2 * 6 * MAX_TERMS - len(entries))
+    step, lane = (1, numel) if planes else (2, 1)
+    template = (*shape4, numel, terms, 0, step, lane, base_lane, *base_entries, *entries)
+    ops = OPS_PER_HASH * terms * numel + (2 * numel if base is not None else 0)
+    return HashPlan(out_shape, template, (ops, nbytes))
+
+
+@functools.lru_cache(maxsize=256)
+def _rows_plan(shape, strides, dtype) -> RowsPlan:
+    """K2b's plan for values of ``shape`` [..., n] (1-4 dimensions) with
+    ``strides``: a group of ``warps_per_row`` warps a row, the smallest power of
+    two that gives each thread at most 8 positions, at most 8."""
+    if not 1 <= len(shape) <= MAX_DIMS:
+        raise ValueError(f"fingerprint_i32 takes values [..., n] of 1 to {MAX_DIMS} dimensions, got {tuple(shape)}")
+    wide = _wide(dtype)
+    shape4 = (1,) * (MAX_DIMS - len(shape)) + tuple(shape)
+    strides4 = _operand_strides(shape, strides, shape)
+    lead, n = shape4[:3], shape4[3]
+    rows = math.prod(lead)
+    wpr = 1
+    while wpr < WARPS and wpr * 256 < n:
+        wpr *= 2
+    per_block = WARPS // wpr
+    work = (OPS_PER_HASH * rows * n, (8 if wide else 4) * _distinct(shape4, strides4) + 16 * rows)
+    return RowsPlan(lead, rows, n, strides4, wide, wpr, -(-rows // per_block), work)
+
+
+def _alias(ptrs) -> tuple:
+    """For each operand address, the index of the first operand at it."""
+    return tuple(map(ptrs.index, ptrs))
+
+
+def _hash_values(plan: HashPlan, out, base, ptrs) -> list:
+    """K2a's C plan: the template with the output's, the base's and each
+    operand's own pointer ``ptrs`` (an expanded view's, not a copy's)."""
+    values = list(plan.template)
+    values[6] = out.data_ptr()
+    if base is not None:
+        values[10] = base.data_ptr()
+    for m, ptr in enumerate(ptrs):
+        values[16 + 6 * m] = ptr
+    return values
+
+
+def _rows_values(plan: RowsPlan, values, out) -> tuple:
+    """K2b's C plan."""
+    return (values.data_ptr(), *plan.strides, plan.wide, *plan.lead, plan.rows, plan.n, out.data_ptr(),
+            plan.warps_per_row, plan.grid)
+
+
+# ---------------------------------------------------------------- the library
+
+
+def build_library(force: bool = False) -> str:
+    """Compile ``csrc/fingerprint.cu`` into ``build/kernels/`` if the library is
+    missing, older than its source, or ``force`` is set.  Returns the
+    compiler's report, or "" when the library was up to date."""
+    return _LIBRARY.build(force)
+
+
+def _launch(entry: str, values, device, what) -> None:
+    """Call ``entry`` with the plan ``values`` on ``device``'s current stream."""
+    plan = (ctypes.c_longlong * len(values))(*values)
+    nk.launch(_LIBRARY.entry(entry), (plan,), device.index, what)
+
+
+def _check_device(tensors):
+    device = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != device:
+            raise ValueError(f"fingerprint operands on {device} and {t.device}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {device}")
+    return device
+
+
+# ---------------------------------------------------------------- the wrappers
+
+
+def hash_xor(base, terms, planes: bool = False) -> torch.Tensor:
+    """K2a: ``base ^ XOR_k h(idx_k, val_k)`` for both lanes.  ``terms``: 1-4
+    (idx, val) pairs of int32 or int64 tensors, any strides; ``base``: int64
+    [..., 2] holding values in [0, 2^32), or None.  All broadcast together to at
+    most 4 dimensions [...].  Returns int64 [..., 2], or [2, ...] with ``planes``."""
+    terms = tuple(terms)
+    operands = [t for pair in terms for t in pair]
+    if len(operands) != 2 * len(terms):
+        raise ValueError("hash_xor's terms are (position, value) pairs")
+    tensors = operands if base is None else [*operands, base]
+    device = _check_device(tensors)
+    ptrs = tuple(t.data_ptr() for t in operands)
+    plan = _hash_plan(None if base is None else (base.shape, base.stride(), base.dtype),
+                      tuple((t.shape, t.stride(), t.dtype) for t in operands), _alias(ptrs), planes)
+    shape = (2, *plan.out_shape) if planes else (*plan.out_shape, 2)
+    if plan.template[4] == 0:
+        return torch.empty(shape, dtype=torch.int64, device=device)
+    count = roofline.active_count()
+    if count is not None:
+        # Counted by formula; the ops issued below are not counted.
+        with count.kernel(HASH_KERNEL, *plan.work):
+            return _hash(base, terms, ptrs, planes, device, plan, shape)
+    return _hash(base, terms, ptrs, planes, device, plan, shape)
+
+
+def _hash(base, terms, ptrs, planes, device, plan, shape):
+    if device.type == "cpu":
+        return hash_xor_ref(base, terms, planes)
+    out = torch.empty(shape, dtype=torch.int64, device=device)
+    _launch("fp_hash_xor_launch", _hash_values(plan, out, base, ptrs), device,
+            f"{len(terms)} terms over {plan.out_shape}")
+    launch_count.count(hash_xor, plan)
+    return out
+
+
+def fingerprint_i32(values: torch.Tensor) -> torch.Tensor:
+    """K2b: the fingerprint of each integer row of ``values`` [..., n] (int32 or
+    int64, 1-4 dimensions, any strides) → int64[..., 2]."""
+    device = _check_device([values])
+    plan = _rows_plan(values.shape, values.stride(), values.dtype)
+    shape = (*values.shape[:-1], 2)
+    if plan.rows == 0 or plan.n == 0:  # no row, or rows of no position: XOR over nothing is 0
+        return torch.zeros(shape, dtype=torch.int64, device=device)
+    count = roofline.active_count()
+    if count is not None:
+        with count.kernel(ROWS_KERNEL, *plan.work):
+            return _rows(values, device, plan, shape)
+    return _rows(values, device, plan, shape)
+
+
+def _rows(values, device, plan, shape):
+    if device.type == "cpu":
+        return fingerprint_i32_ref(values)
+    out = torch.empty(shape, dtype=torch.int64, device=device)
+    _launch("fingerprint_rows_launch", _rows_values(plan, values, out), device, f"{plan.rows} rows of {plan.n}")
+    launch_count.count(fingerprint_i32, plan)
+    return out
+
+
+# .launches, and .shapes per launch plan (its ``work`` is one launch's operations and bytes).
+launch_count.counted(hash_xor)
+launch_count.counted(fingerprint_i32)
+
+
+# ---------------------------------------------------------------- the public forms
+
+
+def position_hash_planes(idx: torch.Tensor, value_bits: torch.Tensor) -> tuple:
+    """h(i, v) as two int64 planes of uint32 values (``idx`` and ``value_bits``
+    taken modulo 2^32, as the JAX package's casts to uint32 do)."""
+    return tuple(hash_xor(None, ((idx, value_bits),), planes=True))
+
+
+def position_hash(idx: torch.Tensor, value_bits: torch.Tensor) -> torch.Tensor:
+    """h(i, v) for both lanes: [..., 2]."""
+    return hash_xor(None, ((idx, value_bits),))
 
 
 def fp_update(
@@ -74,4 +387,10 @@ def fp_update(
 ) -> torch.Tensor:
     """O(1) update of ``fp`` [..., 2] for position ``idx`` changed old → new
     (``idx``/``old_bits``/``new_bits`` broadcastable [...])."""
-    return fp ^ position_hash(idx, old_bits) ^ position_hash(idx, new_bits)
+    return hash_xor(fp, ((idx, old_bits), (idx, new_bits)))
+
+
+def fingerprint_f32(values: torch.Tensor) -> torch.Tensor:
+    """Fingerprint of a float32 [..., n] vector by its bit patterns (the int32
+    view, hashed modulo 2^32)."""
+    return fingerprint_i32(values.view(torch.int32))

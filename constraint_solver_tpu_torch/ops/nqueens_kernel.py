@@ -24,6 +24,8 @@ integer in float32, so both versions are exact and equal the TPU kernel bit for 
   load, so threads that reach the kernel's first use together (the server's
   handler threads) build it once, and the temporary file is named by process
   and thread.
+- ``KernelLibrary`` and ``launch`` are that build, load and launch for a
+  library of several C entries, as ``ops/fingerprint.py`` uses them.
 - ``kernel_work(p, a, n)`` is the work one call does by formula, (operations,
   bytes): what ``utils/roofline.py`` counts for the call, whatever computes it
   (the kernel's ``ctypes`` launch is invisible to a dispatch mode, and the
@@ -116,6 +118,52 @@ def compile_library(src: Path, lib: Path, force: bool) -> str:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
     return proc.stdout + proc.stderr
+
+
+class KernelLibrary:
+    """The C entries of one CUDA source, compiled into ``lib`` and loaded with
+    ``ctypes`` at first use, once, under one lock.  ``argtypes`` maps each
+    entry's name to its argument types; every entry returns a ``cudaError_t``."""
+
+    def __init__(self, src: Path, lib: Path, argtypes: dict):
+        self.src, self.lib, self.argtypes = src, lib, argtypes
+        self.lock = threading.Lock()
+        self.entries: dict | None = None  # name -> ctypes function, once loaded
+
+    def build(self, force: bool = False) -> str:
+        """``compile_library`` under the lock: the compiler's report, or ""."""
+        with self.lock:
+            return compile_library(self.src, self.lib, force)
+
+    def entry(self, name: str):
+        if self.entries is None:
+            with self.lock:
+                if self.entries is None:
+                    compile_library(self.src, self.lib, force=False)
+                    lib = ctypes.CDLL(str(self.lib))
+                    entries = {}
+                    for entry, argtypes in self.argtypes.items():
+                        fn = getattr(lib, entry)
+                        fn.argtypes = argtypes
+                        fn.restype = ctypes.c_int
+                        entries[entry] = fn
+                    self.entries = entries
+        return self.entries[name]
+
+
+def launch(fn, args, index: int, what: str) -> None:
+    """Call the C entry ``fn`` with ``args`` and the raw handle of device
+    ``index``'s current stream; raise if it returns an error."""
+    # ``torch.cuda.current_stream(index).cuda_stream`` builds a Stream object
+    # first and costs some 20 times as much host time; the device guard is paid
+    # for only off the current device.
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed: cudaError_t {err} for {what}")
 
 
 def _launcher():

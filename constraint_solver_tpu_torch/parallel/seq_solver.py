@@ -52,7 +52,7 @@ from constraint_solver_tpu_torch.models.scheduling import (
     s34_of,
     sample_random_moves,
 )
-from constraint_solver_tpu_torch.ops.fingerprint import _xor_reduce, fp_update, position_hash
+from constraint_solver_tpu_torch.ops.fingerprint import _xor_reduce, hash_xor, position_hash
 from constraint_solver_tpu_torch.parallel.mesh import Mesh, all_gather, all_reduce
 from constraint_solver_tpu_torch.parallel.population import PopulationSolver
 from constraint_solver_tpu_torch.parallel.seq_shard import (
@@ -194,7 +194,7 @@ def make_seq_scheduling_problem(spec: ScheduleSpec, mesh: Mesh, axis: str = "seq
     def move_fp(a_loc, cur_fp, moves, idx):
         d1, e1, n1, d2, e2, n2 = resolve(moves, idx)
         fp = cur_fp.view(cur_fp.shape[0], *(1,) * (idx.dim() - 1), 2)
-        return fp_update(fp_update(fp, d1, e1, n1), d2, e2, n2)
+        return hash_xor(fp, ((d1, e1), (d1, n1), (d2, e2), (d2, n2)))
 
     def apply_move(a_loc, moves, idx):
         d1, _e1, n1, d2, _e2, n2 = resolve(moves, idx)

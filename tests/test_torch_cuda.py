@@ -820,3 +820,87 @@ def test_cuda_sharded_solves_equal_cpu(cuda, tmp_path):
             for want, got in zip(torch_ranks.tree_leaves_np(cpu["state"]), torch_ranks.tree_leaves_np(card["state"])):
                 np.testing.assert_array_equal(got, want)
             assert card["launches"] > 0 and cpu["launches"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_fingerprint_kernels_match_plain_versions_at_the_solvers_shapes(cuda):
+    """K2a and K2b at ``chip_smoke.py`` phase 2d's cases (the solvers' shapes,
+    expanded views, adversarial values): bit for bit the plain versions."""
+    import chip_smoke
+
+    for label, _, fn, plain, args, _ in chip_smoke.k2_cases(cuda):
+        got, want = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int64 and torch.equal(got, want), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 255, 256, 257, 1000, 2049, 16384])
+@pytest.mark.parametrize("rows", [1, 3, 9, 257])
+def test_cuda_fingerprint_rows_at_every_warp_grouping(cuda, rows, n):
+    """K2b over 1, 2, 4 and 8 warps a row, ragged row counts, int32 and int64,
+    a strided int32 view with a storage offset."""
+    from constraint_solver_tpu_torch.ops import fingerprint as fpk
+
+    gen = torch.Generator(device=cuda).manual_seed(rows * 100_003 + n)
+    wide = torch.randint(-2**62, 2**62, (rows, n), generator=gen, device=cuda)
+    narrow = torch.randint(-2**31, 2**31 - 1, (rows, 2 * n + 1), generator=gen, device=cuda,
+                           dtype=torch.int32)[:, 1::2]
+    for values in (wide, narrow):
+        got = fpk.fingerprint_i32(values)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fpk.fingerprint_i32_ref(values)), (values.dtype, values.stride())
+
+
+@pytest.mark.cuda
+def test_cuda_fingerprint_launches_count_through_graph_replays(cuda):
+    """A capture counts no K2 launch; each replay counts what it captured and
+    rewrites the result.  A graphed solve of every domain launches K2a and K2b
+    as often as the eager one."""
+    from constraint_solver_tpu_torch.core import graphed
+    from constraint_solver_tpu_torch.ops import fingerprint as fpk
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    base = torch.randint(0, 2**32, (256, 2), generator=gen, device=cuda)
+    idx, old, new = (torch.randint(0, 1000, (256,), generator=gen, device=cuda) for _ in range(3))
+    want = fpk.fp_update_ref(base, idx, old, new)
+    fpk.fp_update(base, idx, old, new)  # built and loaded before the capture
+    torch.cuda.synchronize()
+    before = fpk.hash_xor.launches
+    seg = graphed.capture(lambda: fpk.fp_update(base, idx, old, new), torch.cuda.CUDAGraph(), torch.cuda.Stream(cuda))
+    assert fpk.hash_xor.launches == before and sum(seg.launches.values()) == 1
+    for _ in range(3):
+        seg.out.fill_(0)
+        seg.replay()
+    torch.cuda.synchronize()
+    assert fpk.hash_xor.launches == before + 3 and torch.equal(seg.out, want)
+    for domain in ("scheduling-dense", "qap-incremental", "ackley", "diagram"):
+        counts = {}
+        for graphed_run in (False, True):
+            before = (fpk.hash_xor.launches, fpk.fingerprint_i32.launches)
+            _domain_run(cuda, domain, None, graphed_run)
+            counts[graphed_run] = (fpk.hash_xor.launches - before[0], fpk.fingerprint_i32.launches - before[1])
+        assert counts[True] == counts[False] and min(counts[True]) > 0, (domain, counts)
+
+
+@pytest.mark.cuda
+def test_cuda_fingerprint_raises_instead_of_falling_back(cuda, tmp_path, monkeypatch):
+    """A build that fails raises, and so does an operand on another device or
+    of another dtype: no plain version on the card."""
+    from constraint_solver_tpu_torch.ops import fingerprint as fpk
+
+    x = torch.zeros(4, dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError):
+        fpk.hash_xor(None, ((x, x.to(torch.int16)),))
+    with pytest.raises(ValueError):
+        fpk.hash_xor(None, ((x, x.cpu()),))
+    monkeypatch.setattr(fpk, "_LIBRARY", nk.KernelLibrary(fpk._SRC, tmp_path / "libfingerprint.so",
+                                                          fpk._LIBRARY.argtypes))
+    monkeypatch.setattr(nk.subprocess, "run",
+                        lambda cmd, **kw: nk.subprocess.CompletedProcess(cmd, 1, "", "error: planted"))
+    before = (fpk.hash_xor.launches, fpk.fingerprint_i32.launches)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fpk.fp_update(torch.zeros((4, 2), dtype=torch.int64, device=cuda), x, x, x)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fpk.fingerprint_i32(x[None])
+    assert (fpk.hash_xor.launches, fpk.fingerprint_i32.launches) == before

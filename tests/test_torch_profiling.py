@@ -22,6 +22,7 @@ import chip_smoke
 from constraint_solver_tpu_torch.core.ils import Solver, SolverConfig
 from constraint_solver_tpu_torch.models.nqueens import make_nqueens_problem
 from constraint_solver_tpu_torch.models.qap import QAPSpec, make_qap_problem
+from constraint_solver_tpu_torch.ops import fingerprint as fp
 from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
 from constraint_solver_tpu_torch.parallel.population import PopulationSolver
 from constraint_solver_tpu_torch.utils import roofline as rl
@@ -128,7 +129,9 @@ def test_roofline_on_qap_counts_the_products():
     solver = PopulationSolver(make_qap_problem(QAPSpec.random(12, seed=0)), _config(), population=2, device="cpu")
     solver.run(max_rounds=1, chunk=1)
     r = solver.roofline()
-    assert r["kernels"] == {} and r["flops_per_round"] > 2 * 12**3 and r["mfu_f32"] > 0
+    # The dense neighborhood takes no row minimum (no K1); only the fingerprint's K2 counts as a kernel.
+    assert set(r["kernels"]) == {fp.HASH_KERNEL, fp.ROWS_KERNEL}
+    assert r["flops_per_round"] > 2 * 12**3 and r["mfu_f32"] > 0
 
 
 @pytest.mark.parametrize("cls", [Solver, PopulationSolver], ids=["Solver", "PopulationSolver"])
