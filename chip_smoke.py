@@ -51,7 +51,17 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    events in a profiler trace), the wrapper's host us, the wrapper and the
    plain chain by CUDA events, and the bound (bytes over 3.35 TB/s or integer
    operations over 67 T/s, the larger) with the share, beside the card's name
-   and power limit;
+   and power limit.  Then K2a's ring form (``hash_probe``, the descent's tabu
+   push and check in one launch) against its plain version (``TabuRing.push``
+   and ``is_tabu``), every output bit for bit: the picks at [256] against a
+   ring of 256, [16] against 256 and [4] against 128, a retry's check with no
+   push, the roster's exact filter [64, 9016] against 64, then adversarial
+   rings (a fingerprint in several slots, a full ring wrapping its head,
+   expired and never-written slots against a candidate (0, 0), a push already
+   present, an expiry near 2^31 - 1 whose sum wraps, a count that wraps, heads
+   outside the ring, rings of more than one shared-memory tile, strided and
+   expanded operands), timed likewise; K2b's split plan is the one its rows of
+   (16, 16384) and (4, 4096) take;
 3. runs a few rounds of nqueens-64 with 8 lanes on the card and on the CPU from
    the same host-side draws, in both tabu modes: the states must be equal;
 4. drives the main path, ``PopulationSolver(make_nqueens_problem(1000), ...,
@@ -59,15 +69,15 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    best board has zero conflicts (cancelled at ``WALL_CAP_S``), then checks the
    board with an independent numpy count, every lane's carried counters against
    a rebuild from its board, the carried fingerprints against a full
-   recomputation by K2b and by the plain version, and that the kernel and K2a
-   and K2b were launched in the run;
+   recomputation by K2b and by the plain version, and that the kernel, K2a,
+   K2a's ring form and K2b were launched in the run;
 4b. the descent replayed as CUDA graphs (``core/graphed.py``, the solvers'
    default on the card) against the eager loop (the solvers' private
    ``_graphed=False``), from one seed, drawing on the card: nqueens-64 with 8
    lanes in both tabu modes, 3 chunks of 2 rounds, and the main path's
    ``run(chunk=2)`` to zero after a warm-up of each: the final state trees,
    the traces, ``stats()``, the generator's state and the launches of the
-   kernel and of K2a and K2b must be equal, and K2 must have launched; it prints both walls, the capture time and both peak
+   kernel and of K2a, its ring form and K2b must be equal, and each must have launched; it prints both walls, the capture time and both peak
    memories, each with the card's name and power limit, then the benchmark's
    traced round on the second round of a fresh solver on each path;
 4c. the same comparison for the other domains that replay their descents as
@@ -78,8 +88,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    incremental), qap-256 with 64 (dense, compact) and qap-4096 incremental
    with 4 (2 rounds; G and H are 268 MB each; every compact and incremental
    case must launch K1, as often graphed as eager; every case K2, as often
-   graphed as eager, K2b alone for the systematic proposer, whose moves are
-   whole states), Ackley d = 10 with 64 lanes
+   graphed as eager: K2a's ring form and K2b, and K2a but for the systematic
+   proposer, whose moves are whole states), Ackley d = 10 with 64 lanes
    (6 rounds of descents of at most 40 iterations) and the diagram layout (8
    boxes with 4 lanes, 64 boxes with 64, 3 rounds): state trees, traces,
    ``stats()`` and the generator's state equal; both walls and ms per
@@ -152,12 +162,12 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
     request step their solvers at the same time (checked likewise), then a
     64-box diagram and its SVG; one main-path round under
     ``utils/profiling.trace``, whose Chrome trace must hold the kernel's
-    and K2's events; and ``roofline()`` of the main path's solver, of a
-    main-path solver after one round and of qap-4096 incremental with 4 lanes:
-    every share at most 1.05, the state unchanged, each kernel's counted bytes
-    its bytes per call times its launches (B1 ``kernel_bytes``, K1
-    ``kernel_work``, K2 each launch plan's ``work``); the nqueens and qap CLIs
-    must launch K2a and K2b;
+    and K2's events (K2a, its ring form and K2b); and ``roofline()`` of the
+    main path's solver, of a main-path solver after one round and of qap-4096
+    incremental with 4 lanes: every share at most 1.05, the state unchanged,
+    each kernel's counted bytes its bytes per call times its launches (B1
+    ``kernel_bytes``, K1 ``kernel_work``, K2 each launch plan's ``work``); the
+    nqueens and qap CLIs must launch K2a, its ring form and K2b;
 13. multi-device solving (``parallel/``): four ranks, spawned processes on the
     one card with the gloo backend, every mesh over all four, each sub-phase
     timed on every rank with its kernel launches (per shape), collectives and
@@ -187,8 +197,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
     names for the cell must hold a number, the kernel's from its own events.
 
 Each path's kernel launches are counted from 0 just before it runs: B1's on the
-N-Queens paths, K1's on phases 4c, 8, 11b and the QAP CLI, K2a's and K2b's on
-phases 4, 4b, 4c, 8, 11b and the nqueens and QAP CLIs.  The line before the
+N-Queens paths, K1's on phases 4c, 8, 11b and the QAP CLI, K2a's, its ring
+form's and K2b's on phases 4, 4b, 4c, 8, 11b and the nqueens and QAP CLIs.  The line before the
 last is a JSON object with each kernel's measurements; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -242,6 +252,9 @@ K2A_REPLACES = ("constraint_solver_tpu/ops/fingerprint.py:30-59, :89-95 (_mix32,
                 "position_hash, fp_update; XLA fusion, no Pallas call)")
 K2B_REPLACES = ("constraint_solver_tpu/ops/fingerprint.py:30-86 (_mix32, position_hash, _xor_reduce, "
                 "fingerprint_i32, fingerprint_f32; XLA fusion, no Pallas call)")
+K2P_EVENT = "fp_hash_probe"  # K2a's ring form
+K2P_REPLACES = ("constraint_solver_tpu/core/history.py:55-90 (TabuRing.push, TabuRing.is_tabu; used at "
+                "core/local_search.py:130, :146, :210, :245; XLA fusion, no Pallas call)")
 
 
 def log(msg: str) -> None:
@@ -727,10 +740,11 @@ def phase_k1(device, shapes=K1_SHAPES) -> dict:
 
 
 def k2_wrappers() -> dict:
-    """K2's two counted wrappers: K2a ``hash_xor`` and K2b ``fingerprint_i32``."""
+    """K2's three counted wrappers: K2a ``hash_xor``, K2b ``fingerprint_i32``
+    and K2a's ring form ``hash_probe``."""
     from constraint_solver_tpu_torch.ops import fingerprint as fpk
 
-    return {"K2a": fpk.hash_xor, "K2b": fpk.fingerprint_i32}
+    return {"K2a": fpk.hash_xor, "K2b": fpk.fingerprint_i32, "K2a-ring": fpk.hash_probe}
 
 
 def k2_reset() -> None:
@@ -744,7 +758,7 @@ def k2_launches() -> dict:
     return {name: wrapper.launches for name, wrapper in k2_wrappers().items()}
 
 
-def require_k2(launches: dict, what: str, kernels=("K2a", "K2b")) -> None:
+def require_k2(launches: dict, what: str, kernels=("K2a", "K2b", "K2a-ring")) -> None:
     """On the card, each of ``kernels`` must have launched."""
     missing = [k for k in kernels if launches[k] == 0]
     if missing:
@@ -812,32 +826,160 @@ def k2_cases(device) -> list:
     return cases
 
 
+def probe_ring(rng, device, p, t, fill, count=None, expiry=1000, head=None):
+    """A ``TabuRing`` of P lanes and T slots as a descent leaves it: the first
+    ``fill`` slots written (fingerprints in [0, 2^32), stamps up to two expiries
+    before the count), the others never written ((0, 0), stamp -(2^31 - 1));
+    ``count``, ``expiry`` and ``head`` as given, else drawn."""
+    import torch
+
+    from constraint_solver_tpu_torch.core.history import TabuRing
+
+    fps = rng.integers(0, 2**32, size=(p, t, 2))
+    fps[:, fill:] = 0
+    cnt = rng.integers(fill, fill + 50, size=p) if count is None else np.full(p, count)
+    iters = np.full((p, t), -(2**31 - 1), dtype=np.int64)
+    iters[:, :fill] = cnt[:, None] - rng.integers(0, 2 * expiry + 1, size=(p, min(fill, t)))
+    hd = rng.integers(0, t, size=p) if head is None else np.full(p, head)
+    i32 = lambda x: torch.from_numpy(np.asarray(x, dtype=np.int64).astype(np.int32)).to(device)  # noqa: E731
+    return TabuRing(torch.from_numpy(fps).to(device), i32(iters), i32(hd), i32(cnt), i32(np.full(p, expiry)))
+
+
+def probe_candidates(rng, ring, w, share):
+    """[P, W, 2] fingerprints, ``share`` of them copied from the ring's slots."""
+    import torch
+
+    p, t = ring.fps.shape[:2]
+    fresh = torch.from_numpy(rng.integers(0, 2**32, size=(p, w, 2))).to(ring.fps.device)
+    src = torch.from_numpy(rng.integers(0, t, size=(p, w))).to(ring.fps.device)
+    take = torch.from_numpy(rng.random((p, w)) < share).to(ring.fps.device)
+    lane = torch.arange(p, device=ring.fps.device)[:, None]
+    return torch.where(take[..., None], ring.fps[lane, src], fresh)
+
+
+def probe_cases(device) -> list:
+    """(label, "K2a-ring", ``hash_probe``, ``hash_probe_ref``, arguments (ring,
+    push_fp, fps, base, deltas, valid), timed) at the shapes the descents give
+    K2a's ring form, then on adversarial rings."""
+    import torch
+
+    from constraint_solver_tpu_torch.ops import fingerprint as fpk
+
+    rng = np.random.default_rng(18)
+    cases = []
+
+    def case(label, ring, push=None, fps=None, base=None, deltas=None, valid=None, timed=False):
+        cases.append((label, "K2a-ring", fpk.hash_probe, fpk.hash_probe_ref, (ring, push, fps, base, deltas, valid),
+                      timed))
+
+    def fresh(p):
+        return torch.from_numpy(rng.integers(0, 2**32, size=(p, 2))).to(device)
+
+    def mask(shape, share):
+        return torch.from_numpy(rng.random(shape) < share).to(device)
+
+    # The picks of pick-then-check: the headline [256] and nqueens-16384 [16] against rings of 256, qap-4096 [4]
+    # against 128; the push (present in half the lanes) and the check in one launch, then a retry's check alone.
+    for p, t in ((MAIN_P, 256), (16, 256), (4, 128)):
+        ring = probe_ring(rng, device, p, t, fill=t // 2 + 40)
+        push = torch.where(mask((p, 1), 0.5), ring.fps[:, 3], fresh(p))
+        fp0 = probe_candidates(rng, ring, 1, 0.5)
+        case(f"pick [{p}] ring {t}", ring, push, fp0, valid=mask((p, 1), 0.9), timed=True)
+        case(f"retry [{p}] ring {t}", ring, fps=fp0, valid=mask((p,), 0.5)[:, None], timed=p == MAIN_P)
+    # The roster's exact filter: base ^ deltas of its 365 x 20 + 256 + 4 x 365 candidates against a ring of 64,
+    # the deltas a [P, W, 2] view of two planes as the dense proposer stacks them.
+    p, t, w = 64, 64, 365 * 20 + 256 + 4 * 365
+    ring = probe_ring(rng, device, p, t, fill=t)
+    cur = fresh(p)
+    deltas = probe_candidates(rng, ring, w, 0.02) ^ cur[:, None, :]
+    case(f"roster exact filter [{p}, {w}] ring {t}", ring, cur, base=cur, deltas=deltas, valid=mask((p, w), 0.95),
+         timed=True)
+    # Adversarial rings.
+    p, t = 8, 16
+    ring = probe_ring(rng, device, p, t, fill=t, count=100)
+    dup = ring.fps[:, 5].clone()
+    ring.fps[:, 9], ring.fps[:, 12] = dup, dup  # one fingerprint in three slots: the first wins
+    case("a fingerprint in three slots, pushed", ring, dup, dup[:, None, :].expand(p, 3, 2))
+    ring = probe_ring(rng, device, p, t, fill=t, count=100, head=t - 1)
+    case("a full ring wrapping its head", ring, fresh(p), probe_candidates(rng, ring, 40, 0.5))
+    ring = probe_ring(rng, device, p, t, fill=5, count=3000, expiry=10)  # stamps 3000-20..3000: some expired
+    zero = torch.zeros((p, 4, 2), dtype=torch.int64, device=device)
+    zero[:, 1], zero[:, 2] = ring.fps[:, 0], ring.fps[:, 1]
+    case("expired and never-written slots against (0, 0)", ring, fps=zero)
+    case("expired and never-written slots, (0, 0) pushed", ring, torch.zeros((p, 2), dtype=torch.int64, device=device),
+         zero)
+    ring = probe_ring(rng, device, p, t, fill=t, count=50, expiry=2**31 - 1)
+    ring.iters[:, :8] = torch.tensor([5, -5, 2**31 - 1, -2**31, 0, 100, 49, 51], dtype=torch.int32, device=device)
+    case("expiry 2^31 - 1: stamp + expiry wraps", ring, ring.fps[:, 2].clone(), ring.fps.clone())
+    ring = probe_ring(rng, device, p, t, fill=t, count=2**31 - 1, expiry=3)
+    ring.iters[:, :4] = torch.tensor([2**31 - 1, 2**31 - 2, -2**31, 2**31 - 4], dtype=torch.int32, device=device)
+    case("count 2^31 - 1: the push wraps it", ring, fresh(p), ring.fps.clone())
+    for head in (2**31 - 1, t + 3, -1):
+        ring = probe_ring(rng, device, p, t, fill=t, head=head)
+        case(f"head {head}", ring, fresh(p), probe_candidates(rng, ring, 7, 0.5))
+    for t in (1025, 2500):  # more slots than one shared-memory tile
+        ring = probe_ring(rng, device, 3, t, fill=t - t // 4, expiry=200)
+        cur = fresh(3)
+        cands = probe_candidates(rng, ring, 700, 0.4)
+        case(f"ring {t} (tiles of {fpk.PROBE_TILE}), pushed", ring, ring.fps[:, t // 2].clone(), base=cur,
+             deltas=cands ^ cur[:, None, :], valid=mask((3, 700), 0.9))
+        case(f"ring {t} (tiles of {fpk.PROBE_TILE})", ring, fps=cands)
+    ring = probe_ring(rng, device, 4, 32, fill=32)
+    case("no candidate, pushed", ring, ring.fps[:, 0].clone(), torch.zeros((4, 0, 2), dtype=torch.int64, device=device))
+    case("plane-strided candidates, expanded valid", ring, ring.fps[:, 7].clone(),
+         torch.stack([ring.fps[..., 0], ring.fps[..., 1]]).permute(1, 2, 0),
+         valid=torch.ones((1, 1), dtype=torch.bool, device=device).expand(4, 32))
+    return cases
+
+
+def outputs_equal(got, want) -> bool:
+    """K2's outputs bit for bit: a tensor, or the ring form's (ring, tabu or ok),
+    every field of the ring."""
+    import torch
+
+    if isinstance(got, torch.Tensor):
+        return got.dtype == want.dtype and torch.equal(got, want)
+    (g_ring, g_out), (w_ring, w_out) = got, want
+    return all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip((*g_ring, g_out), (*w_ring, w_out)))
+
+
 def phase_k2(device, cases=None) -> list:
     """2d. K2a and K2b against their plain versions bit for bit at the solvers'
     shapes and on adversarial values; then, at the solvers' shapes, each
     kernel's device-only ms per launch (its events in a ``torch.profiler``
     trace), the wrapper's host us, its time and the plain chain's by CUDA events
-    in turns, and the bound with the share reached.  Returns K2a's and K2b's
+    in turns, and the bound with the share reached; then K2a's ring form
+    likewise (``probe_cases``).  Returns K2a's, K2b's and the ring form's
     entries of the kernels line (main shapes: the headline's ``fp_update`` at
-    [256] and its (256, 1000) rows; launches filled in by the paths)."""
+    [256], its (256, 1000) rows and its pick against a ring of 256; launches
+    filled in by the paths)."""
     import torch
 
     from constraint_solver_tpu_torch.ops import fingerprint as fpk
     from constraint_solver_tpu_torch.utils import roofline
 
     t0 = time.time()
-    names = {"K2a": fpk.HASH_KERNEL, "K2b": fpk.ROWS_KERNEL}
-    events = {"K2a": K2A_EVENT, "K2b": K2B_EVENT}
-    per = {"K2a": {}, "K2b": {}}
-    max_err = {"K2a": 0.0, "K2b": 0.0}
+    names = {"K2a": fpk.HASH_KERNEL, "K2b": fpk.ROWS_KERNEL, "K2a-ring": fpk.PROBE_KERNEL}
+    events = {"K2a": K2A_EVENT, "K2b": K2B_EVENT, "K2a-ring": K2P_EVENT}
+    per = {"K2a": {}, "K2b": {}, "K2a-ring": {}}
+    max_err = {"K2a": 0.0, "K2b": 0.0, "K2a-ring": 0.0}
     card = card_line() if is_cuda(device) else "cpu"
-    for label, kernel, fn, plain, args, timed in cases or k2_cases(device):
+    for label, kernel, fn, plain, args, timed in cases or (k2_cases(device) + probe_cases(device)):
         got, want = fn(*args), plain(*args)
         sync(device)
-        if got.dtype != torch.int64 or not torch.equal(got, want):
+        if (kernel != "K2a-ring" and got.dtype != torch.int64) or not outputs_equal(got, want):
             raise AssertionError(f"phase 2d: {kernel} != its plain version ({label})")
-        max_err[kernel] = max(max_err[kernel], float((got - want).abs().max()))
-        log(f"phase 2d: {kernel} == plain version bit for bit at {label}, output {tuple(got.shape)}")
+        if kernel != "K2a-ring":
+            max_err[kernel] = max(max_err[kernel], float((got - want).abs().max()))
+        shape = tuple(got[1].shape) if kernel == "K2a-ring" else tuple(got.shape)
+        plan = ""
+        if kernel == "K2b":
+            rp = fpk._rows_plan(args[0].shape, args[0].stride(), args[0].dtype)
+            plan = f" ({rp.warps_per_row} warps a row, {rp.splits} blocks a row, grid {rp.grid})"
+        elif kernel == "K2a-ring":
+            pp = fpk.probe_plan(*args)[0]
+            plan = f" ({pp.per_thread} candidates a thread, {pp.chunks} blocks a lane, {pp.tiles} ring tiles)"
+        log(f"phase 2d: {kernel} == plain version bit for bit at {label}, output {shape}{plan}")
         if not timed:
             continue
         with roofline.counting() as count:
@@ -867,7 +1009,8 @@ def phase_k2(device, cases=None) -> list:
     log(f"phase 2d: {time.time() - t0:.1f} s")
     entries = []
     for kernel, main, replaces in (("K2a", f"fp_update [{MAIN_P}]", K2A_REPLACES),
-                                   ("K2b", f"rows {(MAIN_P, MAIN_N)}", K2B_REPLACES)):
+                                   ("K2b", f"rows {(MAIN_P, MAIN_N)}", K2B_REPLACES),
+                                   ("K2a-ring", f"pick [{MAIN_P}] ring 256", K2P_REPLACES)):
         entries.append({
             "name": names[kernel],
             "route": "cuda",
@@ -1241,7 +1384,8 @@ def phase_graphs_domains(device, card=None, **sizes) -> dict:
                 and graph["k1_launches"] == 0:
             raise AssertionError(f"phase 4c: {label}: K1 (qap_swap_row_min) never launched")
         if is_cuda(device):
-            require_k2(graph["k2_launches"], f"phase 4c: {label}", ("K2b",) if "systematic" in label else ("K2a", "K2b"))
+            require_k2(graph["k2_launches"], f"phase 4c: {label}",
+                       ("K2b", "K2a-ring") if "systematic" in label else ("K2a", "K2b", "K2a-ring"))
         iterations = counters.calls  # the graphed side's, which equal the eager side's (stats)
         out[label] = {**pair, "iterations": iterations, "warm_up_s": warm_s,
                       "ms_per_iteration": {k: 1e3 * v["wall_s"] / max(iterations, 1) for k, v in pair.items()}}
@@ -2555,7 +2699,8 @@ def phase_trace(device, n=MAIN_N, population=MAIN_P) -> dict:
     size = os.path.getsize(path)
     os.remove(path)  # some 200 MB for a main-path round
     kernel_events = sum(c for name, c in names.items() if KERNEL_EVENT in name)
-    k2_events = {event: sum(c for name, c in names.items() if event in name) for event in (K2A_EVENT, K2B_EVENT)}
+    k2_events = {event: sum(c for name, c in names.items() if event in name)
+                 for event in (K2A_EVENT, K2B_EVENT, K2P_EVENT)}
     if (is_cuda(device) and (kernel_events == 0 or 0 in k2_events.values())) or names["smoke-round"] == 0:
         raise AssertionError(f"phase 12 trace: {kernel_events} kernel events, K2 {k2_events}, "
                              f"{names['smoke-round']} spans in {path}")
@@ -2568,8 +2713,9 @@ def checked_roofline(solver, label, kernel_shape=None, k1_shape=None) -> dict:
     """``solver.roofline()`` with every share at most 1.05, the solver's state
     unchanged, and each kernel's counted calls equal to its launches in the
     chunk and its counted bytes to its bytes per call (B1 ``kernel_bytes(
-    *kernel_shape)``, K1 ``kernel_work(*k1_shape)``) times them; K2a's and
-    K2b's to the sum of each launch plan's ``work`` bytes times its launches.
+    *kernel_shape)``, K1 ``kernel_work(*k1_shape)``) times them; K2a's, its
+    ring form's and K2b's to the sum of each launch plan's ``work`` bytes times
+    its launches.
     A solved solver's chunk runs from a fresh initial state, made outside the
     count, whose fingerprint launches K2b: there K2's counted calls and bytes
     may fall short of the launched ones, never exceed them."""
@@ -2599,7 +2745,8 @@ def checked_roofline(solver, label, kernel_shape=None, k1_shape=None) -> dict:
         if kern["calls"] and kern["bytes"] != per_call * kern["calls"]:
             raise AssertionError(f"phase 12 roofline {label}: {name} bytes {kern['bytes']} != "
                                  f"{per_call} x {kern['calls']}")
-    for name, wrapper in ((fpk.HASH_KERNEL, fpk.hash_xor), (fpk.ROWS_KERNEL, fpk.fingerprint_i32)):
+    for name, wrapper in ((fpk.HASH_KERNEL, fpk.hash_xor), (fpk.ROWS_KERNEL, fpk.fingerprint_i32),
+                          (fpk.PROBE_KERNEL, fpk.hash_probe)):
         kern = counted[name] = r["kernels"].get(name, {"calls": 0, "bytes": 0})
         if not is_cuda(solver.device):
             continue
@@ -3142,7 +3289,7 @@ def main() -> None:
     k2_paths.update(checkpoint_resume_qap=ckpt["qap"]["k2_launches"],
                     checkpoint_resume_nqueens=ckpt["nqueens"]["k2_launches"],
                     cli_nqueens=surface["cli_nqueens"]["k2_launches"], cli_qap=surface["cli_qap"]["k2_launches"])
-    for entry, key in zip(k2, ("K2a", "K2b")):
+    for entry, key in zip(k2, ("K2a", "K2b", "K2a-ring")):
         entry["launches_by_path"] = {path: counts[key] for path, counts in k2_paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
 

@@ -7,9 +7,10 @@ host at most once (pick-then-check's ``need.any()``), so the host's launch
 rate, not the device, sets its time.  Here an iteration replays as two or
 three graphs, split at that read:
 
-- **A** (``_begin``): the tabu push, ``is_best``, the neighborhood (its draws
-  and every op of the proposer, its hand-written kernel included), the first pick
-  and, with pick-then-check, the ``need`` mask with its ``any``;
+- **A** (``_begin``): ``is_best``, the neighborhood (its draws and every op of
+  the proposer, its hand-written kernel included), the tabu push and the first
+  pick (the push and the ring's check one kernel, ``TabuRing.push_probe``) and,
+  with pick-then-check, the ``need`` mask with its ``any``;
 - the host reads ``need_any``; while it is set, **R** (``_retry``) replays, at
   most ``tabu_retries - 1`` times, writing its pick and mask over A's;
 - **B** (``_finish``): the move and the carry's selects, then the select by the

@@ -12,6 +12,13 @@ Same semantics as the JAX package, every field with a leading lane axis P:
 
 Divergences: fingerprints are int64 holding uint32 values (``ops/fingerprint.py``);
 ``get_random`` takes its slot from a draw source (``EliteArchive.take``).
+
+The descent does not call ``push`` and ``is_tabu`` one after the other:
+``TabuRing.push_probe`` does both, and on the card it runs the push inside the
+membership test's launch (``ops/fingerprint.hash_probe``, K2a's ring form: one
+CUDA kernel in place of some 20 eager launches an iteration and, under the exact
+filter, a [P, W, T, 2] compare).  ``push`` and ``is_tabu`` stay as its plain
+version, which the CPU runs.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from constraint_solver_tpu_torch.ops.fingerprint import hash_probe
 from constraint_solver_tpu_torch.ops.lex import first_true, lex_argmax, lex_argmin, lex_leq
 from constraint_solver_tpu_torch.utils.tree import lane_where, tree_leaves, tree_map, tree_take
 
@@ -62,6 +70,14 @@ class TabuRing(NamedTuple):
         match = (fps[:, :, None, :] == self.fps[:, None, :, :]).all(dim=-1)  # [P, W, T]
         alive = self.iters + self.expiry[:, None] >= self.count[:, None]    # [P, T]
         return (match & alive[:, None, :]).any(dim=-1)
+
+    def push_probe(self, push_fp=None, fps=None, base=None, deltas=None, valid=None):
+        """``push(push_fp)`` (skipped for None), then ``is_tabu`` of the
+        candidates ``fps`` [P, W, 2], or ``base`` [P, 2] XOR ``deltas`` [P, W,
+        2]: returns (the pushed ring, tabu [P, W]), or with ``valid`` (bool,
+        broadcast to [P, W]) (the pushed ring, ``valid & ~tabu``).  One kernel
+        launch on the card, ``push`` and ``is_tabu`` on the CPU."""
+        return hash_probe(self, push_fp, fps, base, deltas, valid)
 
 
 class EliteArchive(NamedTuple):

@@ -16,8 +16,8 @@ running, and the host asks whether any lane is still running only every
 nothing).  The retry loop of pick-then-check is masked the same way and ends when
 no lane needs another retry.
 
-An iteration is three functions: ``_begin`` (the push, the neighborhood, the
-first pick), ``_retry`` (one more pick-then-check pick, while the host's read
+An iteration is three functions: ``_begin`` (the neighborhood, the push and
+the first pick), ``_retry`` (one more pick-then-check pick, while the host's read
 of ``need_any`` says some lane needs it) and ``_finish`` (the move and the
 carry).  On the card ``core/graphed.py`` replays each of them as a CUDA graph.
 
@@ -113,10 +113,11 @@ def _need(params, pick: _Pick, n_valid, active):
 
 
 def _begin(problem: Problem, params: LsParams, c: _LsCarry, draws, active) -> _Begun:
-    """Push, the early-exit test, the neighborhood and the first pick: under the
-    exact filter the best non-tabu candidate; with pick-then-check each lane's
-    best candidate, fingerprinted and checked against the ring."""
-    tabu = c.tabu.push(c.fp)
+    """The early-exit test, the neighborhood, the push and the first pick: under
+    the exact filter the best non-tabu candidate; with pick-then-check each
+    lane's best candidate, fingerprinted and checked against the ring.  The push
+    and the check are one ``push_probe`` (one launch on the card); the
+    neighborhood reads no ring, so pushing after it changes nothing."""
     hit_best = problem.is_best(c.score)
     nb = problem.neighborhood(c.state, c.score, draws, active)
     n_valid = nb.n_valid if nb.n_valid is not None else nb.valid.sum(dim=-1)
@@ -128,22 +129,24 @@ def _begin(problem: Problem, params: LsParams, c: _LsCarry, draws, active) -> _B
     if use_exact:
         lane = torch.arange(n_valid.shape[0], device=n_valid.device)
         if nb.fp_deltas is not None:
-            fps_all = c.fp[:, None, :] ^ nb.fp_deltas
+            tabu, ok = c.tabu.push_probe(c.fp, base=c.fp, deltas=nb.fp_deltas, valid=nb.valid)
         else:
             iota_w = torch.arange(nb.valid.shape[1], device=n_valid.device)
             fps_all = problem.move_fp(c.state, c.fp, nb.moves, iota_w.expand(nb.valid.shape))
-        ok = nb.valid & ~tabu.is_tabu(fps_all)
+            tabu, ok = c.tabu.push_probe(c.fp, fps=fps_all, valid=nb.valid)
         found = ok.any(dim=-1)
         if params.select_topk > 1:
             noise = draws.select_noise(ok.shape[1], active)
             idx = noisy_lex_select(nb.scores, ok, params.select_topk, params.select_temp, noise)
         else:
             idx = lex_argmin(nb.scores, ok)
-        pick = _Pick(idx, fps_all[lane, idx], found, None, None)
+        fp = c.fp ^ nb.fp_deltas[lane, idx] if nb.fp_deltas is not None else fps_all[lane, idx]
+        pick = _Pick(idx, fp, found, None, None)
         return _Begun(tabu, hit_best, nb, n_valid, pick, None, None)
     idx0 = nb.hint_idx if nb.hint_idx is not None else lex_argmin(nb.scores, nb.valid)
     fp0 = problem.move_fp(c.state, c.fp, nb.moves, idx0)
-    found0 = ~tabu.is_tabu(fp0[:, None, :])[:, 0] & (n_valid > 0)
+    tabu, found0 = c.tabu.push_probe(c.fp, fps=fp0[:, None, :], valid=(n_valid > 0)[:, None])
+    found0 = found0[:, 0]
     excl = torch.full((n_valid.shape[0], params.tabu_retries), -1, dtype=torch.int64, device=n_valid.device)
     excl[:, 0] = idx0
     pick = _Pick(idx0, fp0, found0, torch.ones_like(idx0), excl)
@@ -162,10 +165,11 @@ def _retry(problem: Problem, params: LsParams, c: _LsCarry, b: _Begun, active) -
         mask = mask & (iota_w != pick.excl[:, k : k + 1])
     idx = lex_argmin(nb.scores, mask)
     fp = problem.move_fp(c.state, c.fp, nb.moves, idx)
-    hit = b.tabu.is_tabu(fp[:, None, :])[:, 0]
+    # ``valid`` is ``need``: the lanes that take this pick get ``~tabu``, the others keep theirs.
+    _, found = b.tabu.push_probe(fps=fp[:, None, :], valid=b.need[:, None])
     excl = pick.excl.clone()
     excl[lane, pick.tries.clamp_max(retries - 1)] = idx
-    pick = tree_where(b.need, _Pick(idx, fp, ~hit, pick.tries + 1, excl), pick)
+    pick = tree_where(b.need, _Pick(idx, fp, found[:, 0], pick.tries + 1, excl), pick)
     need, need_any = _need(params, pick, b.n_valid, active)
     return b._replace(pick=pick, need=need, need_any=need_any)
 

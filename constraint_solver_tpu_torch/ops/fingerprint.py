@@ -26,10 +26,21 @@ it as 34-96 int64 passes a use, so the port has a kernel for it:
   with four terms for a two-position move.
 - ``fingerprint_i32(values)`` is K2b's wrapper: each row of ``values`` [..., n]
   hashed and XOR-reduced, ``[..., 2]``; ``fingerprint_f32`` hashes float bits
-  through it.
+  through it.  A few long rows (a grid of fewer blocks than the card's SMs at
+  8 warps a row) are split over several blocks a row (``RowsPlan.splits``),
+  whose parts are XOR-ed into an output zeroed on the same stream.
+- ``hash_probe(ring, push_fp, fps=, base=, deltas=, valid=)`` is K2a's ring
+  form, the descent's tabu ring in one launch: the push of ``push_fp`` into a
+  ``TabuRing`` (``core/history.py``), then each candidate fingerprint (``fps``
+  [P, W, 2], or ``base`` [P, 2] XOR ``deltas`` [P, W, 2]) tested against the
+  pushed ring: ``tabu`` [P, W], or ``valid & ~tabu``.  Its plain version,
+  ``hash_probe_ref``, is the ring's own ``push`` and ``is_tabu``.  The kernel
+  compares fingerprints on their low 32 bits, which is the plain version's
+  int64 equality for the port's fingerprints, values in [0, 2^32).
 - Each wrapper checks its operands (int32 or int64; the base int64 [..., 2]; at
-  most 4 dimensions) through a plan that is a pure function of shapes, strides
-  and dtypes (``_hash_plan``, ``_rows_plan``), takes the plain version for
+  most 4 dimensions; the ring form's as its docstring says) through a plan
+  that is a pure function of shapes, strides and dtypes (``_hash_plan``,
+  ``_rows_plan``, ``_probe_plan``), takes the plain version for
   tensors on the CPU, and for tensors on a CUDA device launches its kernel or
   raises: there is no fallback.  The kernel reads every operand by the plan's
   strides (0 on a broadcast dimension) and width, so expanded views and int32
@@ -67,17 +78,22 @@ _M32 = 0xFFFFFFFF
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "fingerprint.cu"
 HASH_KERNEL = "fp_hash_xor"  # K2a
+PROBE_KERNEL = "fp_hash_probe"  # K2a's ring form
 ROWS_KERNEL = "fingerprint_rows"  # K2b
 _PLAN_ARGS = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]  # (const long long* plan, void* stream)
 _LIB_PATH = nk._BUILD_DIR / "libfingerprint.so"
-_LIBRARY = nk.KernelLibrary(_SRC, _LIB_PATH,
-                            {"fp_hash_xor_launch": _PLAN_ARGS, "fingerprint_rows_launch": _PLAN_ARGS})
+_LIBRARY = nk.KernelLibrary(_SRC, _LIB_PATH, {"fp_hash_xor_launch": _PLAN_ARGS, "fingerprint_rows_launch": _PLAN_ARGS,
+                                             "fp_hash_probe_launch": _PLAN_ARGS})
 
 MAX_DIMS = 4  # dimensions of an operand or of K2a's output (csrc kDims)
 MAX_TERMS = 4  # (position, value) terms of K2a (csrc kMaxTerms)
 HASH_PLAN_LEN = 64  # csrc kHashPlanLen
+ROWS_PLAN_LEN = 16  # csrc kRowsPlanLen
+PROBE_PLAN_LEN = 36  # csrc kProbePlanLen
 THREADS = 256  # threads of a block (csrc kThreads)
 WARPS = THREADS // 32
+PROBE_TILE = 1024  # ring slots a block stages in shared memory at once (csrc kProbeTile)
+SPLIT_MIN = 64  # the fewest positions a part of a split row holds
 OPS_PER_HASH = 38  # two lanes of mix32(v ^ mix32(i ^ salt)) XOR-ed in: 19 integer operations each
 _WIDE = {torch.int32: 0, torch.int64: 1}  # csrc Operand.wide
 
@@ -145,6 +161,16 @@ def hash_xor_ref(base, terms, planes: bool = False) -> torch.Tensor:
     return torch.stack(lanes, dim=0 if planes else -1)
 
 
+def hash_probe_ref(ring, push_fp=None, fps=None, base=None, deltas=None, valid=None) -> tuple:
+    """The ring form's plain version: ``ring.push(push_fp)`` (skipped without
+    one), then ``ring.is_tabu`` of the candidates ``fps``, or ``base[:, None] ^
+    deltas``; returns (the ring, tabu), or (the ring, ``valid & ~tabu``)."""
+    if push_fp is not None:
+        ring = ring.push(push_fp)
+    tabu = ring.is_tabu(base[:, None, :] ^ deltas if fps is None else fps)
+    return ring, tabu if valid is None else valid & ~tabu
+
+
 # ---------------------------------------------------------------- plans
 
 
@@ -161,8 +187,22 @@ class RowsPlan(NamedTuple):
     strides: tuple[int, int, int, int]  # element strides, 0 on a dimension of size 1
     wide: int
     warps_per_row: int  # 1, 2, 4 or 8
-    grid: int  # blocks of 256 threads, 8 // warps_per_row rows each
+    grid: int  # blocks of 256 threads: 8 // warps_per_row rows each, or rows x splits
     work: tuple[int, int]
+    splits: int  # blocks a row: above 1, parts of ``chunk`` positions XOR-ed into a zeroed output
+    chunk: int  # positions a part (n when not split)
+
+
+class ProbePlan(NamedTuple):
+    lanes: int  # P
+    width: int  # W candidates a lane
+    capacity: int  # T slots a ring
+    per_thread: int  # candidates a thread holds: 1, 2 or 4
+    chunks: int  # blocks a lane; the grid is lanes x chunks blocks of 256 threads
+    tiles: int  # shared-memory tiles of PROBE_TILE slots the ring is staged in
+    push: bool
+    template: tuple  # the C entry's 36 int64 entries, every pointer 0
+    work: tuple[int, int]  # (operations, bytes) of one call
 
 
 def _wide(dtype) -> int:
@@ -249,7 +289,88 @@ def _rows_plan(shape, strides, dtype) -> RowsPlan:
         wpr *= 2
     per_block = WARPS // wpr
     work = (OPS_PER_HASH * rows * n, (8 if wide else 4) * _distinct(shape4, strides4) + 16 * rows)
-    return RowsPlan(lead, rows, n, strides4, wide, wpr, -(-rows // per_block), work)
+    grid = -(-rows // per_block)
+    if wpr < WARPS or grid >= nk._SMS:
+        return RowsPlan(lead, rows, n, strides4, wide, wpr, grid, work, 1, n)
+    # A few long rows: split each into parts of at least SPLIT_MIN positions,
+    # enough of them that the grid covers every SM, no part empty.
+    chunk = -(-n // min(-(-nk._SMS // rows), n // SPLIT_MIN))
+    splits = -(-n // chunk)
+    return RowsPlan(lead, rows, n, strides4, wide, wpr, rows * splits, work, splits, chunk)
+
+
+def _probe_strides(shape, strides, want, name) -> tuple:
+    """An operand's element strides over ``want`` (its shape broadcast there:
+    0 on a dimension of size 1), or a ValueError naming it."""
+    if len(shape) != len(want) or any(s not in (1, w) for s, w in zip(shape, want)):
+        raise ValueError(f"hash_probe: {name} must be {tuple(want)}, got {tuple(shape)}")
+    return tuple(0 if size == 1 else st for size, st in zip(shape, strides))
+
+
+@functools.lru_cache(maxsize=256)
+def _probe_plan(ring, push, base, cands, valid, alias) -> ProbePlan:
+    """The ring form's plan from its operands' (shape, strides, dtype): ``ring``
+    the ring's fps, iters, head, count and expiry; ``push``, ``base`` and
+    ``valid`` each or None; ``cands`` the candidate fingerprints or deltas;
+    ``alias[m]`` the first of the operands (ring, push, base, cands, valid; the
+    ones present, in that order) at operand m's address (``_alias``)."""
+    (f_shape, f_strides, f_dtype), *rest = ring
+    if f_dtype != torch.int64 or len(f_shape) != 3 or f_shape[2] != 2:
+        raise ValueError(f"hash_probe: the ring's fps must be int64 [P, T, 2], got {f_dtype} {tuple(f_shape)}")
+    p, t = f_shape[0], f_shape[1]
+    if t < 1:
+        raise ValueError("hash_probe: a ring of no slot")
+    c_shape, c_strides, c_dtype = cands
+    if c_dtype != torch.int64 or len(c_shape) != 3 or c_shape[2] != 2:
+        raise ValueError(f"hash_probe: the candidates must be int64 [P, W, 2], got {c_dtype} {tuple(c_shape)}")
+    w = c_shape[1]
+    dims = {"iters": ((p, t), torch.int32), "head": ((p,), torch.int32), "count": ((p,), torch.int32),
+            "expiry": ((p,), torch.int32)}
+    entries = [0, *_probe_strides(f_shape, f_strides, (p, t, 2), "fps")]
+    operands = [((p, t, 2), tuple(entries[1:]), 8)]
+    for (name, (want, dtype)), (shape, strides, got) in zip(dims.items(), rest):
+        if got != dtype:
+            raise ValueError(f"hash_probe: the ring's {name} must be {dtype}, got {got}")
+        st = _probe_strides(shape, strides, want, name)
+        entries += [0, *st]
+        operands.append((want, st, 4))
+    for name, operand in (("push_fp", push), ("base", base)):
+        if operand is None:
+            entries += [0, 0, 0]
+            continue
+        if operand[2] != torch.int64:
+            raise ValueError(f"hash_probe: {name} must be int64, got {operand[2]}")
+        st = _probe_strides(operand[0], operand[1], (p, 2), name)
+        entries += [0, *st]
+        operands.append(((p, 2), st, 8))
+    st = _probe_strides(c_shape, c_strides, (p, w, 2), "the candidates")
+    entries += [0, *st]
+    operands.append(((p, w, 2), st, 8))
+    if valid is None:
+        entries += [0, 0, 0]
+    else:
+        if valid[2] != torch.bool:
+            raise ValueError(f"hash_probe: valid must be torch.bool, got {valid[2]}")
+        st = _probe_strides(valid[0], valid[1], (p, w), "valid")
+        entries += [0, *st]
+        operands.append(((p, w), st, 1))
+    entries += [0] * 5  # the output and the pushed ring's four tensors
+    per = next((k for k in (4, 2) if p * -(-w // (k * THREADS)) >= 2 * nk._SMS), 1)
+    chunks = max(1, -(-w // (per * THREADS)))
+    # Bytes: each distinct operand's elements once (in the descent ``push_fp``
+    # and ``base`` are one tensor), the [P, W] output, and with a push the new ring.
+    nbytes, read = p * w, set()
+    for m, (shape, st, size) in enumerate(operands):
+        elements = (alias[m], tuple(sorted((d, s) for d, s in zip(shape, st) if s != 0)))
+        if elements not in read:
+            read.add(elements)
+            nbytes += size * math.prod(d for d, s in zip(shape, st) if s != 0)
+    ops = 2 * p * w * t  # two word compares for each candidate and slot
+    if push is not None:
+        ops += 2 * p * t
+        nbytes += 20 * p * t + 8 * p
+    template = (p, w, t, chunks, per, *entries)
+    return ProbePlan(p, w, t, per, chunks, -(-t // PROBE_TILE), push is not None, template, (ops, nbytes))
 
 
 def _alias(ptrs) -> tuple:
@@ -272,7 +393,21 @@ def _hash_values(plan: HashPlan, out, base, ptrs) -> list:
 def _rows_values(plan: RowsPlan, values, out) -> tuple:
     """K2b's C plan."""
     return (values.data_ptr(), *plan.strides, plan.wide, *plan.lead, plan.rows, plan.n, out.data_ptr(),
-            plan.warps_per_row, plan.grid)
+            plan.warps_per_row, plan.grid, plan.splits, plan.chunk)
+
+
+# Where each operand's pointer goes in the ring form's C plan.
+_PROBE_SLOTS = {"fps": 5, "iters": 9, "head": 12, "count": 14, "expiry": 16, "push": 18, "base": 21, "cands": 24,
+                "valid": 28, "out": 31, "out_fps": 32, "out_iters": 33, "out_head": 34, "out_count": 35}
+
+
+def _probe_values(plan: ProbePlan, ptrs: dict) -> list:
+    """The ring form's C plan: the template with each operand's own pointer
+    (``ptrs``: name → address, for the operands present)."""
+    values = list(plan.template)
+    for name, ptr in ptrs.items():
+        values[_PROBE_SLOTS[name]] = ptr
+    return values
 
 
 # ---------------------------------------------------------------- the library
@@ -357,15 +492,71 @@ def fingerprint_i32(values: torch.Tensor) -> torch.Tensor:
 def _rows(values, device, plan, shape):
     if device.type == "cpu":
         return fingerprint_i32_ref(values)
-    out = torch.empty(shape, dtype=torch.int64, device=device)
+    # A split row's parts are XOR-ed into the output: zeroed first, on this stream.
+    out = (torch.zeros if plan.splits > 1 else torch.empty)(shape, dtype=torch.int64, device=device)
     _launch("fingerprint_rows_launch", _rows_values(plan, values, out), device, f"{plan.rows} rows of {plan.n}")
     launch_count.count(fingerprint_i32, plan)
     return out
 
 
+def hash_probe(ring, push_fp=None, fps=None, base=None, deltas=None, valid=None) -> tuple:
+    """K2a's ring form: push ``push_fp`` (int64 [P, 2], or None) into ``ring`` (a
+    ``TabuRing``: fps int64 [P, T, 2], iters, head, count and expiry int32), then
+    test each candidate against the pushed ring: the fingerprints ``fps`` int64
+    [P, W, 2], or ``base`` [P, 2] XOR ``deltas`` [P, W, 2].  Returns (the pushed
+    ring, bool [P, W] tabu), or with ``valid`` (bool, broadcast to [P, W]) the
+    non-tabu valid candidates, ``valid & ~tabu``.  Any strides; fingerprints
+    hold values in [0, 2^32)."""
+    plan, ptrs, device = probe_plan(ring, push_fp, fps, base, deltas, valid)
+    if plan.lanes == 0 or (plan.width == 0 and not plan.push):
+        return ring, torch.zeros((plan.lanes, plan.width), dtype=torch.bool, device=device)
+    count = roofline.active_count()
+    if count is not None:
+        with count.kernel(PROBE_KERNEL, *plan.work):
+            return _probe(ring, push_fp, fps, base, deltas, valid, device, plan, ptrs)
+    return _probe(ring, push_fp, fps, base, deltas, valid, device, plan, ptrs)
+
+
+def probe_plan(ring, push_fp=None, fps=None, base=None, deltas=None, valid=None) -> tuple:
+    """``hash_probe``'s operands checked: (its plan, each operand's address by
+    name, the device)."""
+    if (fps is None) == (deltas is None) or (base is None) != (deltas is None):
+        raise ValueError("hash_probe takes the candidates' fingerprints, or a base and their deltas")
+    cands = fps if fps is not None else deltas
+    named = {"fps": ring.fps, "iters": ring.iters, "head": ring.head, "count": ring.count, "expiry": ring.expiry,
+             "push": push_fp, "base": base, "cands": cands, "valid": valid}
+    named = {k: v for k, v in named.items() if v is not None}
+    device = _check_device(list(named.values()))
+    ptrs = {k: v.data_ptr() for k, v in named.items()}
+    meta = lambda t: None if t is None else (t.shape, t.stride(), t.dtype)  # noqa: E731
+    plan = _probe_plan(tuple(meta(t) for t in ring[:5]), meta(push_fp), meta(base), meta(cands), meta(valid),
+                       _alias(tuple(ptrs.values())))
+    return plan, ptrs, device
+
+
+def _probe(ring, push_fp, fps, base, deltas, valid, device, plan, ptrs):
+    if device.type == "cpu":
+        return hash_probe_ref(ring, push_fp, fps, base, deltas, valid)
+    p, t = plan.lanes, plan.capacity
+    out = torch.empty((p, plan.width), dtype=torch.bool, device=device)
+    ptrs = {**ptrs, "out": out.data_ptr()}
+    if plan.push:
+        ring = ring._replace(fps=torch.empty((p, t, 2), dtype=torch.int64, device=device),
+                             iters=torch.empty((p, t), dtype=torch.int32, device=device),
+                             head=torch.empty((p,), dtype=torch.int32, device=device),
+                             count=torch.empty((p,), dtype=torch.int32, device=device))
+        ptrs.update(out_fps=ring.fps.data_ptr(), out_iters=ring.iters.data_ptr(), out_head=ring.head.data_ptr(),
+                    out_count=ring.count.data_ptr())
+    _launch("fp_hash_probe_launch", _probe_values(plan, ptrs), device,
+            f"{plan.width} candidates a lane against rings of {t} over {p} lanes")
+    launch_count.count(hash_probe, plan)
+    return ring, out
+
+
 # .launches, and .shapes per launch plan (its ``work`` is one launch's operations and bytes).
 launch_count.counted(hash_xor)
 launch_count.counted(fingerprint_i32)
+launch_count.counted(hash_probe)
 
 
 # ---------------------------------------------------------------- the public forms

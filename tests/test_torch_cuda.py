@@ -904,3 +904,88 @@ def test_cuda_fingerprint_raises_instead_of_falling_back(cuda, tmp_path, monkeyp
     with pytest.raises(RuntimeError, match="nvcc failed"):
         fpk.fingerprint_i32(x[None])
     assert (fpk.hash_xor.launches, fpk.fingerprint_i32.launches) == before
+
+
+@pytest.mark.cuda
+def test_cuda_tabu_probe_matches_plain_version_at_the_solvers_shapes(cuda):
+    """K2a's ring form at ``chip_smoke.py`` phase 2d's cases (the picks, a
+    retry, the roster's exact filter, adversarial rings): the pushed ring and
+    the tabu or ok mask bit for bit the plain ``push`` and ``is_tabu``."""
+    import chip_smoke
+
+    for label, _, fn, plain, args, _ in chip_smoke.probe_cases(cuda):
+        got, want = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        assert chip_smoke.outputs_equal(got, want), label
+
+
+@pytest.mark.cuda
+def test_cuda_tabu_probe_counts_through_graph_replays_and_raises(cuda, tmp_path, monkeypatch):
+    """A capture of the ring form counts no launch, each replay counts one and
+    rewrites the pushed ring and the mask; a graphed solve of every domain
+    launches it as often as the eager one; an operand on another device and a
+    failed build raise: no plain version on the card."""
+    import chip_smoke
+    from constraint_solver_tpu_torch.core import graphed
+    from constraint_solver_tpu_torch.ops import fingerprint as fpk
+
+    rng = np.random.default_rng(4)
+    ring = chip_smoke.probe_ring(rng, cuda, 16, 256, fill=200)
+    push = ring.fps[:, 7].clone()
+    fps = chip_smoke.probe_candidates(rng, ring, 1, 0.5)
+    valid = torch.ones((16, 1), dtype=torch.bool, device=cuda)
+    want = fpk.hash_probe_ref(ring, push, fps, None, None, valid)
+    ring.push_probe(push, fps, valid=valid)  # built and loaded before the capture
+    torch.cuda.synchronize()
+    before = fpk.hash_probe.launches
+    seg = graphed.capture(lambda: ring.push_probe(push, fps, valid=valid), torch.cuda.CUDAGraph(),
+                          torch.cuda.Stream(cuda))
+    assert fpk.hash_probe.launches == before and sum(seg.launches.values()) == 1
+    for _ in range(3):
+        seg.out[1].fill_(False)
+        seg.out[0].fps.fill_(0)
+        seg.replay()
+    torch.cuda.synchronize()
+    assert fpk.hash_probe.launches == before + 3 and chip_smoke.outputs_equal(seg.out, want)
+    for domain in ("scheduling-dense", "qap-incremental", "ackley", "diagram"):
+        counts = {}
+        for graphed_run in (False, True):
+            before = fpk.hash_probe.launches
+            _domain_run(cuda, domain, None, graphed_run)
+            counts[graphed_run] = fpk.hash_probe.launches - before
+        assert counts[True] == counts[False] > 0, (domain, counts)
+    with pytest.raises(ValueError):
+        ring.push_probe(push.cpu(), fps)
+    monkeypatch.setattr(fpk, "_LIBRARY", nk.KernelLibrary(fpk._SRC, tmp_path / "libfingerprint.so",
+                                                          fpk._LIBRARY.argtypes))
+    monkeypatch.setattr(nk.subprocess, "run",
+                        lambda cmd, **kw: nk.subprocess.CompletedProcess(cmd, 1, "", "error: planted"))
+    before = fpk.hash_probe.launches
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ring.push_probe(push, fps)
+    assert fpk.hash_probe.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows, n", [(16, 16384), (4, 4096), (1, 1025), (3, 5000), (2, 1 << 20)])
+def test_cuda_fingerprint_rows_split_over_the_sms(cuda, rows, n):
+    """K2b's split plan (a few long rows, several blocks a row XOR-ing into a
+    zeroed output): int32, int64 and a strided view bit for bit the plain
+    version, eagerly and replayed in a CUDA graph, whose zeroing replays too."""
+    from constraint_solver_tpu_torch.core import graphed
+    from constraint_solver_tpu_torch.ops import fingerprint as fpk
+
+    gen = torch.Generator(device=cuda).manual_seed(rows * 7 + n)
+    wide = torch.randint(-2**62, 2**62, (rows, n), generator=gen, device=cuda)
+    narrow = torch.randint(-2**31, 2**31 - 1, (rows, 2 * n), generator=gen, device=cuda, dtype=torch.int32)[:, ::2]
+    for values in (wide, narrow, narrow.contiguous()):
+        assert fpk._rows_plan(values.shape, values.stride(), values.dtype).splits > 1
+        want = fpk.fingerprint_i32_ref(values)
+        got = fpk.fingerprint_i32(values)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (values.dtype, values.stride())
+    seg = graphed.capture(lambda: fpk.fingerprint_i32(wide), torch.cuda.CUDAGraph(), torch.cuda.Stream(cuda))
+    for _ in range(3):
+        seg.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(seg.out, fpk.fingerprint_i32_ref(wide))

@@ -258,7 +258,10 @@ def test_rows_plan_groups_warps_per_row(n, wpr):
     for rows in (1, 7, 256):
         plan = fp._rows_plan((rows, n), (n, 1), torch.int32)
         assert plan.warps_per_row == wpr and plan.lead == (1, 1, rows) and plan.rows == rows
-        assert plan.grid == -(-rows // (8 // wpr))
+        if plan.splits == 1:
+            assert plan.grid == -(-rows // (8 // wpr)) and plan.chunk == n
+        else:  # a few rows of 8 warps: each split over several blocks (tests/test_torch_tabu_probe.py)
+            assert wpr == 8 and rows < nk._SMS and plan.grid == rows * plan.splits
         assert plan.strides == (0, 0, n if rows > 1 else 0, 1 if n > 1 else 0)
         assert -(-n // (32 * wpr)) <= 8 or wpr == 8  # at most 8 positions a thread below 8 warps
         assert plan.work == (fp.OPS_PER_HASH * rows * n, 4 * rows * n + 16 * rows)
@@ -272,16 +275,20 @@ def test_rows_plan_takes_strided_and_broadcast_rows():
     plan = fp._rows_plan(e.shape, e.stride(), e.dtype)
     assert plan.lead == (1, 5, 2) and plan.strides == (0, 0, 0, 1) and plan.work[1] == 4 * 40 + 16 * 10
     out = torch.empty((5, 2, 2), dtype=torch.int64)
-    assert fp._rows_values(plan, e, out) == (e.data_ptr(), 0, 0, 0, 1, 0, 1, 5, 2, 10, 40, out.data_ptr(), 1, 2)
+    assert fp._rows_values(plan, e, out) == (e.data_ptr(), 0, 0, 0, 1, 0, 1, 5, 2, 10, 40, out.data_ptr(), 1, 2, 1,
+                                             40)
 
 
 def test_plan_layouts_match_the_cuda_source():
     src = fp._SRC.read_text()
-    for name, value in (("kDims", fp.MAX_DIMS), ("kMaxTerms", fp.MAX_TERMS), ("kThreads", fp.THREADS)):
+    for name, value in (("kDims", fp.MAX_DIMS), ("kMaxTerms", fp.MAX_TERMS), ("kThreads", fp.THREADS),
+                        ("kRowsPlanLen", fp.ROWS_PLAN_LEN), ("kProbePlanLen", fp.PROBE_PLAN_LEN),
+                        ("kProbeTile", fp.PROBE_TILE)):
         assert re.search(rf"constexpr int {name} = (\d+);", src).group(1) == str(value), name
-    assert f"kHashPlanLen == {fp.HASH_PLAN_LEN}" in src and "kRowsPlanLen == 14" in src
+    assert f"kHashPlanLen == {fp.HASH_PLAN_LEN}" in src and f"kRowsPlanLen == {fp.ROWS_PLAN_LEN}" in src
+    assert f"kProbePlanLen == {fp.PROBE_PLAN_LEN}" in src
     assert len(fp._rows_values(fp._rows_plan((2, 3), (3, 1), torch.int32), torch.zeros((2, 3), dtype=torch.int32),
-                               torch.zeros((2, 2), dtype=torch.int64))) == 14
+                               torch.zeros((2, 2), dtype=torch.int64))) == fp.ROWS_PLAN_LEN
     for salt in fp._SALTS:
         assert f"0x{salt:08X}u" in src
 
@@ -409,6 +416,7 @@ def fake_toolchain(tmp_path, monkeypatch):
             loaded.append(path)
             self.fp_hash_xor_launch = type("Entry", (), {})()
             self.fingerprint_rows_launch = type("Entry", (), {})()
+            self.fp_hash_probe_launch = type("Entry", (), {})()
 
     monkeypatch.setattr(nk, "_nvcc", lambda: "nvcc")
     monkeypatch.setattr(nk.subprocess, "run", run)
@@ -434,8 +442,8 @@ def test_concurrent_first_use_builds_and_loads_once(fake_toolchain):
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        names = ["fp_hash_xor_launch", "fingerprint_rows_launch"]
-        threads = [threading.Thread(target=first_use, args=(names[i % 2],)) for i in range(threads_n)]
+        names = ["fp_hash_xor_launch", "fingerprint_rows_launch", "fp_hash_probe_launch"]
+        threads = [threading.Thread(target=first_use, args=(names[i % 3],)) for i in range(threads_n)]
         for t in threads:
             t.start()
         for t in threads:
@@ -448,9 +456,9 @@ def test_concurrent_first_use_builds_and_loads_once(fake_toolchain):
     cmd, ident = compiled[0]
     assert cmd[-1] == str(fp._SRC) and "arch=compute_90a,code=sm_90a" in cmd
     assert cmd[cmd.index("-o") + 1].endswith(f"libfingerprint.so.{os.getpid()}.{ident}.tmp")
-    # Both C entries take (const long long* plan, void* stream) and return an int.
+    # Every C entry takes (const long long* plan, void* stream) and returns an int.
     src = fp._SRC.read_text()
-    for name in ("fp_hash_xor_launch", "fingerprint_rows_launch"):
+    for name in ("fp_hash_xor_launch", "fingerprint_rows_launch", "fp_hash_probe_launch"):
         params = re.search(rf'extern "C" int {name}\(([^)]*)\)', src).group(1)
         assert [q.strip() for q in params.split(",")] == ["const long long* plan", "void* stream"]
         fn = fp._LIBRARY.entry(name)
@@ -462,7 +470,8 @@ def test_the_library_is_built_where_the_smoke_names_it():
     names it by the module's ``_LIB_PATH``."""
     assert fp._LIBRARY.lib == fp._LIB_PATH == nk._BUILD_DIR / "libfingerprint.so"
     assert fp._LIBRARY.src == fp._SRC and set(fp._LIBRARY.argtypes) == {"fp_hash_xor_launch",
-                                                                        "fingerprint_rows_launch"}
+                                                                        "fingerprint_rows_launch",
+                                                                        "fp_hash_probe_launch"}
 
 
 def test_a_failed_build_raises(fake_toolchain, monkeypatch):
