@@ -2,13 +2,13 @@
 """Smoke run of the PyTorch port (``constraint_solver_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py                # every phase
-    python3 chip_smoke.py --kernel-only  # phases 1, 2, 2b, 2c and 2d, no result line
+    python3 chip_smoke.py --kernel-only  # phases 1, 2, 2b, 2c, 2d and 2e, no result line
 
 Phases, each printing its own lines; any failure raises and exits nonzero:
 
-1. builds the four CUDA libraries from ``constraint_solver_tpu_torch/csrc``
-   (``nqueens_scores.cu``, ``nqueens_probes.cu``, ``qap_row_min.cu`` and
-   ``fingerprint.cu``, one ``nvcc`` each, started together) and prints the card's name and power limit (``nvidia-smi``);
+1. builds the five CUDA libraries from ``constraint_solver_tpu_torch/csrc``
+   (``nqueens_scores.cu``, ``nqueens_probes.cu``, ``qap_row_min.cu``,
+   ``fingerprint.cu`` and ``block_pick.cu``, one ``nvcc`` each, started together) and prints the card's name and power limit (``nvidia-smi``);
    without a CUDA device it stops before printing any result;
 2. holds the kernel against its plain PyTorch version on the card, bit for bit,
    at the shapes the solvers give it (phase 13's sharded (128, 25, 1000) and
@@ -62,6 +62,16 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    outside the ring, rings of more than one shared-memory tile, strided and
    expanded operands), timed likewise; K2b's split plan is the one its rows of
    (16, 16384) and (4, 4096) take;
+2e. K3, the block pick (``ops/block_pick.py``, ``csrc/block_pick.cu``): on B1's
+   blocks at the N-Queens cells' (256, 50, 1000) and (16, 64, 16384), the
+   first pick (no exclusion), a retry with 8 excluded row minima a lane,
+   exclusions mixed with -1 slots and invalid rows, lanes with no valid row,
+   at n = 16384 a block off 16 bytes, and the ragged (5, 7, 1003): each pick
+   equal to its plain version (``lex_argmin`` over the stacked block) bit for
+   bit; at the two shapes' first pick and retry its device-only time (its
+   events in a profiler trace), the wrapper's host us, the wrapper, the plain
+   chain and ``torch.argmin`` over the block (the nearest single PyTorch call)
+   by CUDA events, and the bound of this call's rows with the share;
 3. runs a few rounds of nqueens-64 with 8 lanes on the card and on the CPU from
    the same host-side draws, in both tabu modes: the states must be equal;
 4. drives the main path, ``PopulationSolver(make_nqueens_problem(1000), ...,
@@ -70,14 +80,14 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    board with an independent numpy count, every lane's carried counters against
    a rebuild from its board, the carried fingerprints against a full
    recomputation by K2b and by the plain version, and that the kernel, K2a,
-   K2a's ring form and K2b were launched in the run;
+   K2a's ring form, K2b and K3 were launched in the run;
 4b. the descent replayed as CUDA graphs (``core/graphed.py``, the solvers'
    default on the card) against the eager loop (the solvers' private
    ``_graphed=False``), from one seed, drawing on the card: nqueens-64 with 8
    lanes in both tabu modes, 3 chunks of 2 rounds, and the main path's
    ``run(chunk=2)`` to zero after a warm-up of each: the final state trees,
    the traces, ``stats()``, the generator's state and the launches of the
-   kernel and of K2a, its ring form and K2b must be equal, and each must have launched; it prints both walls, the capture time and both peak
+   kernel, of K2a, its ring form and K2b and of K3 must be equal, and each must have launched; it prints both walls, the capture time and both peak
    memories, each with the card's name and power limit, then the benchmark's
    traced round on the second round of a fresh solver on each path;
 4c. the same comparison for the other domains that replay their descents as
@@ -198,7 +208,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
 
 Each path's kernel launches are counted from 0 just before it runs: B1's on the
 N-Queens paths, K1's on phases 4c, 8, 11b and the QAP CLI, K2a's, its ring
-form's and K2b's on phases 4, 4b, 4c, 8, 11b and the nqueens and QAP CLIs.  The line before the
+form's and K2b's on phases 4, 4b, 4c, 8, 11b and the nqueens and QAP CLIs,
+K3's on phases 4, 4b, 4d, 11b, 12 and 14.  The line before the
 last is a JSON object with each kernel's measurements; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -255,6 +266,12 @@ K2B_REPLACES = ("constraint_solver_tpu/ops/fingerprint.py:30-86 (_mix32, positio
 K2P_EVENT = "fp_hash_probe"  # K2a's ring form
 K2P_REPLACES = ("constraint_solver_tpu/core/history.py:55-90 (TabuRing.push, TabuRing.is_tabu; used at "
                 "core/local_search.py:130, :146, :210, :245; XLA fusion, no Pallas call)")
+# Phase 2e: K3 (the block pick) at the N-Queens cells' shapes and a ragged one; its events in a profiler trace.
+K3_SHAPES = ((MAIN_P, MAIN_A, MAIN_N), (16, 64, 16384))
+K3_RAGGED = (5, 7, 1003)
+K3_EVENT = "block_pick"
+K3_REPLACES = ("constraint_solver_tpu/ops/lex.py:30-34 (make_score) via models/nqueens.py:327-329, :353, read at "
+               "core/local_search.py:126, :144, :263 (lex_argmin, the pick's score; XLA fusion, no Pallas call)")
 
 
 def log(msg: str) -> None:
@@ -765,6 +782,13 @@ def require_k2(launches: dict, what: str, kernels=("K2a", "K2b", "K2a-ring")) ->
         raise AssertionError(f"{what}: K2 ({', '.join(missing)}) never launched: {launches}")
 
 
+def require_k3(pair: dict, what: str) -> None:
+    """On the card, K3 must have launched on both sides of a graphed-against-eager pair."""
+    launches = (pair["eager"]["k3_launches"], pair["graphed"]["k3_launches"])
+    if 0 in launches:
+        raise AssertionError(f"{what}: K3 (block_pick) never launched (eager, graphed): {launches}")
+
+
 def k2_cases(device) -> list:
     """(label, kernel, wrapper call, plain call, arguments, timed) at the shapes
     the solvers give K2, then on adversarial values."""
@@ -1024,6 +1048,142 @@ def phase_k2(device, cases=None) -> list:
     return entries
 
 
+def k3_row_minima(rng, row_arg, c: int, k: int):
+    """[P, k] int64: the flat indices of the first minima of k distinct rows a
+    lane, in rows of C = ``c`` candidates."""
+    import torch
+
+    p, r = row_arg.shape
+    rows = torch.from_numpy(np.argsort(rng.random((p, r)), axis=1)[:, :k]).to(row_arg.device)
+    return (rows * c + row_arg.gather(1, rows).long()).contiguous()
+
+
+def k3_cases(device) -> list:
+    """(label, arguments (hard, row_valid, row_min, row_arg, excl), timed) at
+    the N-Queens cells' shapes (256, 50, 1000) and (16, 64, 16384): the first
+    pick (no exclusion), a retry with 8 excluded row minima a lane, exclusions
+    mixed with -1 slots and invalid rows, lanes with no valid row; then a
+    block off 16 bytes and the ragged (5, 7, 1003)."""
+    import torch
+
+    from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+
+    rng = np.random.default_rng(19)
+    cases = []
+
+    def mixed(p, r, c, row_arg, e=8):
+        """-1 slots, row minima (of valid and invalid rows) and other flat indices."""
+        excl = k3_row_minima(rng, row_arg, c, min(e, r))
+        if excl.shape[1] < e:
+            excl = torch.cat([excl, excl[:, :1].expand(p, e - excl.shape[1])], dim=1)
+        other = torch.from_numpy(rng.integers(0, r * c, size=(p, e))).to(device)
+        u = torch.from_numpy(rng.random((p, e))).to(device)
+        return torch.where(u < 0.25, -1, torch.where(u < 0.75, excl, other)).contiguous()
+
+    for p, a, n in K3_SHAPES + (K3_RAGGED,):
+        # B1's block of random boards: the row block the N-Queens neighborhood hands K3.
+        hard, row_min, row_arg = nk.nqueens_neighborhood_scores(*kernel_inputs(rng, p, a, n, device))
+        ones = torch.ones((p, a), dtype=torch.bool, device=device)
+        timed = (p, a, n) != K3_RAGGED
+        cases.append((f"first pick {(p, a, n)}", (hard, ones, row_min, row_arg, None), timed))
+        cases.append((f"8 excluded row minima {(p, a, n)}",
+                      (hard, ones, row_min, row_arg, k3_row_minima(rng, row_arg, n, min(8, a))), timed))
+        row_valid = torch.from_numpy(rng.random((p, a)) < 0.8).to(device)
+        cases.append((f"mixed exclusions, invalid rows {(p, a, n)}",
+                      (hard, row_valid, row_min, row_arg, mixed(p, a, n, row_arg)), False))
+        dead = row_valid.clone()
+        dead[::2] = False  # every other lane has no valid row
+        cases.append((f"lanes with no valid row {(p, a, n)}", (hard, dead, row_min, row_arg, mixed(p, a, n, row_arg)),
+                      False))
+        if n == 16384:  # the block one float past 16 bytes: the rescans read it 4 bytes at a time
+            buf = torch.empty(hard.numel() + 1, dtype=hard.dtype, device=device)
+            off = buf[1:].view(hard.shape)
+            off.copy_(hard)
+            cases.append((f"block off 16 bytes, 8 excluded row minima {(p, a, n)}",
+                          (off, ones, row_min, row_arg, k3_row_minima(rng, row_arg, n, 8)), False))
+    return cases
+
+
+def k3_rescanned(hard, row_valid, row_min, row_arg, excl) -> int:
+    """The rows K3 scans again on these inputs: valid rows whose first minimum is excluded."""
+    import torch
+
+    if excl is None:
+        return 0
+    c = hard.shape[2]
+    flat = torch.arange(row_arg.shape[1], device=row_arg.device) * c + row_arg.long()
+    return int(((flat[:, :, None] == excl[:, None, :]).any(dim=-1) & row_valid).sum())
+
+
+def phase_k3(device, cases=None) -> dict:
+    """2e. K3, the block pick, against its plain version bit for bit at
+    ``k3_cases``; then, at the timed cases, its device-only ms per launch (its
+    events in a ``torch.profiler`` trace), the wrapper's host us, its time, the
+    plain chain's and that of ``torch.argmin(hard.view(P, -1), dim=1)`` (the
+    nearest single PyTorch call: the first pick when every row is valid) by
+    CUDA events, and the bound (this call's bytes over 3.35 TB/s or its
+    operations over 67 T/s, the larger) with the share.  Returns K3's entry of
+    the kernels line (main case: the headline's first pick; launches filled in
+    by the paths)."""
+    import torch
+
+    from constraint_solver_tpu_torch.ops import block_pick as bp
+
+    t0 = time.time()
+    per, max_err = {}, 0.0
+    card = card_line() if is_cuda(device) else "cpu"
+    for label, args, timed in cases or k3_cases(device):
+        got, want = bp.block_pick(*args), bp.block_pick_ref(*args)
+        sync(device)
+        if got.dtype != torch.int64 or not torch.equal(got, want):
+            raise AssertionError(f"phase 2e: K3 != its plain version ({label})")
+        max_err = max(max_err, float((got - want).abs().max()))
+        rescanned = k3_rescanned(*args)
+        log(f"phase 2e: K3 == plain version bit for bit at {label}: {rescanned} rows rescanned, "
+            f"{int((got == 0).sum())} lanes pick 0")
+        if not timed:
+            continue
+        p, r, c = args[0].shape
+        e = 0 if args[4] is None else args[4].shape[1]
+        ops, nbytes = bp.kernel_work(p, r, c, e, rescanned)
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+        bound, by = max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+        if not is_cuda(device):
+            per[label] = {"bound_ms": bound, "bound_by": by, "bytes": nbytes, "operations": ops,
+                          "rescanned": rescanned}
+            continue
+        flat = args[0].view(p, -1)
+        argmin = (lambda t: torch.argmin(t, dim=1), (flat,))
+        for f, a in ((bp.block_pick, args), (bp.block_pick_ref, args), argmin):
+            time_ms(f, a, 3)  # warm-up
+        plain_ms = [time_ms(bp.block_pick_ref, args, 10)]
+        kern = [time_ms(bp.block_pick, args, TIMED_LAUNCHES) for _ in range(2)]
+        plain_ms.append(time_ms(bp.block_pick_ref, args, 10))
+        library_ms = time_ms(*argmin, TIMED_LAUNCHES)
+        dev, how = device_ms(bp.block_pick, args, TIMED_LAUNCHES, K3_EVENT)
+        host = min(host_us(bp.block_pick, args, TIMED_LAUNCHES) for _ in range(2))
+        per[label] = {"ms": sum(kern) / 2, "plain_ms": sum(plain_ms) / 2, "library_ms": library_ms,
+                      "device_ms": dev, "host_us": host, "bound_ms": bound, "bound_by": by,
+                      "bound_share": bound / dev, "bytes": nbytes, "operations": ops, "rescanned": rescanned}
+        log(f"phase 2e: K3 at {label}: {kern} ms by CUDA events over {TIMED_LAUNCHES} calls (host-bound: the "
+            f"wrapper's enqueue), plain chain {plain_ms} ms (10 calls), torch.argmin over the block {library_ms:.6f} "
+            f"ms; device-only {dev * 1e3:.3f} us per launch ({how}); host {host:.1f} us per call; bound "
+            f"{bound * 1e3:.4f} us ({nbytes} bytes at {HBM_BYTES_PER_S / 1e12} TB/s, {ops} operations at "
+            f"{FP32_OPS_PER_S / 1e12} T/s: {by}), share {bound / dev:.3f}; {card}")
+    log(f"phase 2e: {time.time() - t0:.1f} s")
+    main = dict(per[f"first pick {K3_SHAPES[0]}"])
+    return {
+        "name": bp.KERNEL_NAME,
+        "route": "cuda",
+        "source": "constraint_solver_tpu_torch/csrc/block_pick.cu",
+        "replaces": K3_REPLACES,
+        "max_abs_err": max_err,
+        **main,
+        "library_ms": main.get("library_ms"),
+        "shapes": per,
+    }
+
+
 def run_rounds(device, exact, chunks=3):
     """nqueens-64, 8 lanes, from draws made on the host; returns the state in
     the reference layout and the per-round traces."""
@@ -1092,6 +1252,7 @@ def phase_main(device, n=MAIN_N, population=MAIN_P, wall_cap=WALL_CAP_S):
     import torch
 
     from constraint_solver_tpu_torch.models.nqueens import make_nqueens_problem
+    from constraint_solver_tpu_torch.ops import block_pick as bp
     from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
     from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32, fingerprint_i32_ref
     from constraint_solver_tpu_torch.parallel.population import PopulationSolver
@@ -1106,7 +1267,7 @@ def phase_main(device, n=MAIN_N, population=MAIN_P, wall_cap=WALL_CAP_S):
     solver().run(max_rounds=2, chunk=2)  # warm-up: first-call costs stay out of the timing
     log(f"phase 4: warm-up (2 rounds) {time.time() - t0:.3f} s")
 
-    nk.nqueens_neighborhood_scores.launches = 0
+    nk.nqueens_neighborhood_scores.launches = bp.block_pick.launches = 0
     k2_reset()
     s = solver()
     timer = threading.Timer(wall_cap, s.cancel)
@@ -1119,7 +1280,7 @@ def phase_main(device, n=MAIN_N, population=MAIN_P, wall_cap=WALL_CAP_S):
     finally:
         timer.cancel()
         timer.join()
-    launches = nk.nqueens_neighborhood_scores.launches
+    launches, k3 = nk.nqueens_neighborhood_scores.launches, bp.block_pick.launches
     k2 = k2_launches()
     stats = s.stats()
     (hard, soft), best = s.get_best_solution()
@@ -1143,12 +1304,14 @@ def phase_main(device, n=MAIN_N, population=MAIN_P, wall_cap=WALL_CAP_S):
         if launches == 0:
             raise AssertionError("the main path never launched the kernel")
         require_k2(k2, "phase 4: the main path")
+        if k3 == 0:
+            raise AssertionError("the main path never launched K3 (block_pick)")
     log(
         f"phase 4: nqueens-{n} P={population} solved: time to zero {ttz:.3f} s, "
         f"{stats['rounds']} rounds, {stats['ls_iterations']} descent iterations, "
-        f"moves/s {stats.get('moves_per_sec')}, kernel launches {launches}, K2 launches {k2}"
+        f"moves/s {stats.get('moves_per_sec')}, kernel launches {launches}, K2 launches {k2}, K3 launches {k3}"
     )
-    return {"ttz_s": ttz, "launches": launches, "k2_launches": k2, **stats}, s
+    return {"ttz_s": ttz, "launches": launches, "k2_launches": k2, "k3_launches": k3, **stats}, s
 
 
 def card_line() -> str:
@@ -1163,10 +1326,11 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
     """4b's and 4c's comparison: ``drive`` on an eager solver (``_graphed=False``)
     and on a graphed one, each from ``make(graphed)``; the final state trees,
     what ``drive`` returns (the traces), ``stats()``, the generator's state and
-    the launches of B1, of K1 and of K2a and K2b must be equal.  Each side's wall, its peak
+    the launches of B1, of K1, of K2a and K2b and of K3 must be equal.  Each side's wall, its peak
     memory, and the graphed side's capture time."""
     import torch
 
+    from constraint_solver_tpu_torch.ops import block_pick as bp
     from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
     from constraint_solver_tpu_torch.ops import qap_row_min as qrm
     from constraint_solver_tpu_torch.utils.convert import to_reference
@@ -1179,7 +1343,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
         launches0, k1_launches0 = nk.nqueens_neighborhood_scores.launches, qrm.qap_swap_row_min.launches
-        k2_0 = k2_launches()
+        k2_0, k3_0 = k2_launches(), bp.block_pick.launches
         s = make(graphed)
         sync(device)
         t0 = time.time()
@@ -1194,6 +1358,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
             "launches": nk.nqueens_neighborhood_scores.launches - launches0,
             "k1_launches": qrm.qap_swap_row_min.launches - k1_launches0,
             "k2_launches": {k: v - k2_0[k] for k, v in k2_launches().items()},
+            "k3_launches": bp.block_pick.launches - k3_0,
             "peak_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
             "reserved_bytes": torch.cuda.memory_reserved(device) if cuda else None,
             "capture_s": graphs.capture_s if graphs is not None else None,
@@ -1203,7 +1368,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
     assert_tree_equal(graph["state"], eager["state"])
     if not np.array_equal(np.asarray(graph["result"]), np.asarray(eager["result"])):
         raise AssertionError(f"phase {label}: graphed and eager traces differ")
-    for key in ("stats", "launches", "k1_launches", "k2_launches"):
+    for key in ("stats", "launches", "k1_launches", "k2_launches", "k3_launches"):
         if graph[key] != eager[key]:
             raise AssertionError(f"phase {label}: graphed and eager {key} differ: {graph[key]} != {eager[key]}")
     if not torch.equal(graph["generator"], eager["generator"]):
@@ -1211,7 +1376,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
     if is_cuda(device) and graph["units"] != 1:
         raise AssertionError(f"phase {label}: the graphed solver made {graph['units']} graphed descents, not 1")
     return {side: {k: v[k] for k in ("wall_s", "peak_bytes", "reserved_bytes", "capture_s", "launches", "k1_launches",
-                                     "k2_launches", "stats")}
+                                     "k2_launches", "k3_launches", "stats")}
             for side, v in (("eager", eager), ("graphed", graph))}
 
 
@@ -1241,9 +1406,10 @@ def phase_graphs(device, n=MAIN_N, population=MAIN_P, small_n=64, small_p=8, car
         )
         if is_cuda(device):
             require_k2(out[mode]["graphed"]["k2_launches"], f"phase 4b: nqueens-{small_n} ({mode})")
+            require_k3(out[mode], f"phase 4b: nqueens-{small_n} ({mode})")
         log(f"phase 4b: nqueens-{small_n} P={small_p} ({mode}): graphed == eager (state, traces, stats, "
             f"generator, {out[mode]['graphed']['launches']} kernel launches, K2 "
-            f"{out[mode]['graphed']['k2_launches']}); walls eager "
+            f"{out[mode]['graphed']['k2_launches']}, K3 {out[mode]['graphed']['k3_launches']}); walls eager "
             f"{out[mode]['eager']['wall_s']:.3f} s, graphed {out[mode]['graphed']['wall_s']:.3f} s")
 
     problem, config = make_nqueens_problem(n), main_config()
@@ -1271,8 +1437,10 @@ def phase_graphs(device, n=MAIN_N, population=MAIN_P, small_n=64, small_p=8, car
     eager, graph = main["eager"], main["graphed"]
     if is_cuda(device):
         require_k2(graph["k2_launches"], f"phase 4b: nqueens-{n}")
+        require_k3(main, f"phase 4b: nqueens-{n}")
     log(f"phase 4b: nqueens-{n} P={population} run(chunk=2) to zero: graphed == eager (state, stats, generator, "
-        f"{graph['launches']} kernel launches, K2 {graph['k2_launches']}, {graph['stats']['rounds']} rounds, "
+        f"{graph['launches']} kernel launches, K2 {graph['k2_launches']}, K3 {graph['k3_launches']}, "
+        f"{graph['stats']['rounds']} rounds, "
         f"{graph['stats']['ls_iterations']} descent iterations)")
     log(f"phase 4b: wall eager {eager['wall_s']:.4f} s, graphed {graph['wall_s']:.4f} s; {card}")
     log(f"phase 4b: capture {graph['capture_s']:.4f} s (host, inside the graphed wall); {card}")
@@ -1491,7 +1659,7 @@ def phase_matrix_forms(device, shapes=((8, 50, 1000), (4, 64, 64)), small_n=64, 
             problem = make_nqueens_problem(n, sample_cols=a, block_impl=impl)
             st = build_state(boards)
             nb = problem.neighborhood(st, problem.score(st), TorchDraws(f"4d-{n}", p, device), on)
-            return nb.scores, nb.valid, nb.hint_idx, nb.n_valid
+            return nb.all_scores(), nb.all_valid(), nb.hint_idx, nb.n_valid
 
         want_nb = neighborhood("slice")
         for impl in MATRIX_FORMS:
@@ -3183,10 +3351,11 @@ def phase_bench(device, cell=BENCH_CELL) -> dict:
 
 
 def build_kernels() -> None:
-    """Phase 1: compile the four kernel libraries from the checkout's sources,
+    """Phase 1: compile the five kernel libraries from the checkout's sources,
     one ``nvcc`` each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from constraint_solver_tpu_torch.ops import block_pick as bp
     from constraint_solver_tpu_torch.ops import fingerprint as fpk
     from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
     from constraint_solver_tpu_torch.ops import nqueens_probes as npr
@@ -3198,14 +3367,15 @@ def build_kernels() -> None:
         return module._LIB_PATH.name, report, time.time() - t
 
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        built = [f.result() for f in [pool.submit(build, m) for m in (nk, npr, qrm, fpk)]]
+    modules = (nk, npr, qrm, fpk, bp)
+    with ThreadPoolExecutor(max_workers=len(modules)) as pool:
+        built = [f.result() for f in [pool.submit(build, m) for m in modules]]
     for name, report, secs in built:
         log(f"phase 1: built {name} in {secs:.1f} s")
         for line in report.splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "spill")) or "error" in line.lower():
                 log(f"  nvcc: {line.strip()}")
-    log(f"phase 1: all four libraries in {time.time() - t0:.1f} s")
+    log(f"phase 1: all five libraries in {time.time() - t0:.1f} s")
 
 
 def main() -> None:
@@ -3213,13 +3383,14 @@ def main() -> None:
 
     import torch
 
+    from constraint_solver_tpu_torch.ops import block_pick as bp
     from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
     from constraint_solver_tpu_torch.ops import qap_row_min as qrm
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--kernel-only", action="store_true",
-        help="run phases 1, 2, 2b, 2c and 2d only, print the kernels' measurements and stop (no result line)",
+        help="run phases 1, 2, 2b, 2c, 2d and 2e only, print the kernels' measurements and stop (no result line)",
     )
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -3235,24 +3406,29 @@ def main() -> None:
     probe_entries, kernel["probe_shapes"] = phase_probes(device)
     k1 = phase_k1(device)
     k2 = phase_k2(device)
+    k3 = phase_k3(device)
     if args.kernel_only:
         log(card)
-        log(json.dumps({"kernels": [kernel, *probe_entries, k1, *k2]}))
+        log(json.dumps({"kernels": [kernel, *probe_entries, k1, *k2, k3]}))
         return
     phase_cross_device(device)
     main_run, main_solver = phase_main(device)
     k2_paths = {"nqueens_population": main_run["k2_launches"]}  # counted from 0 inside phase 4
-    nk.nqueens_neighborhood_scores.launches = 0
+    k3_paths = {"nqueens_population": main_run["k3_launches"]}
+    nk.nqueens_neighborhood_scores.launches = bp.block_pick.launches = 0
     k2_reset()
     graphs = phase_graphs(device, card=card)
     graphs_launches = nk.nqueens_neighborhood_scores.launches
     k2_paths["graphs_vs_eager"] = k2_launches()
+    k3_paths["graphs_vs_eager"] = bp.block_pick.launches
     qrm.qap_swap_row_min.launches = 0
     k2_reset()
     graphs_domains = phase_graphs_domains(device, card=card)
     k1_paths = {"graphs_domains": qrm.qap_swap_row_min.launches}
     k2_paths["graphs_domains"] = k2_launches()
+    bp.block_pick.launches = 0
     matrix_forms = phase_matrix_forms(device, card=card)
+    k3_paths["matrix_forms"] = bp.block_pick.launches
     pmc_run = phase_pmc(device, card=card)
     phase_schedule_cross_device(device)
     sched = phase_schedule_bench(device)
@@ -3264,10 +3440,16 @@ def main() -> None:
     ackley = phase_ackley(device)
     diagram = phase_diagram(device)
     phased = phase_phased(device)
+    bp.block_pick.launches = 0
     ckpt = phase_checkpoint(device)
+    k3_paths["checkpoint_resume"] = bp.block_pick.launches
+    bp.block_pick.launches = 0
     surface = phase_surface(device, main_solver)
+    k3_paths["surface"] = bp.block_pick.launches  # the nqueens CLI, the service, the trace and the roofline
     multi = phase_multi(device)
+    bp.block_pick.launches = 0
     bench = phase_bench(device)
+    k3_paths["bench_nqueens"] = bp.block_pick.launches
     paths = {
         "nqueens_population": main_run["launches"],
         "graphs_vs_eager": graphs_launches,
@@ -3292,6 +3474,8 @@ def main() -> None:
     for entry, key in zip(k2, ("K2a", "K2b", "K2a-ring")):
         entry["launches_by_path"] = {path: counts[key] for path, counts in k2_paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
+    k3["launches"] = sum(k3_paths.values())
+    k3["launches_by_path"] = k3_paths
 
     log(json.dumps({
         "main_path": main_run, "graphs": graphs, "graphs_domains": graphs_domains, "matrix_forms": matrix_forms,
@@ -3300,7 +3484,7 @@ def main() -> None:
         "bench": bench, "card": card,
     }, default=str))
     log(card)
-    log(json.dumps({"kernels": [kernel, *probe_entries, k1, *k2]}))
+    log(json.dumps({"kernels": [kernel, *probe_entries, k1, *k2, k3]}))
     log(json.dumps({
         "ok": True,
         "device": {

@@ -54,8 +54,12 @@ a side stream in ``thread_local`` error mode, so the service's other handler
 threads may launch work meanwhile; the side stream is ordered after the
 current stream's queued replays, and before its next work (``capture``).  The
 launch counters of the hand-written kernels (``ops/launch_count.py``: N-Queens'
-B1, QAP's row minimum) count nothing at a capture and what it captured at
-each replay, so they equal the eager run's.  A replayed iteration runs no
+B1 and K3, QAP's row minimum, the fingerprint kernels) count nothing at a
+capture and what it captured at each replay, so they equal the eager run's.
+A neighborhood handed over as a row block (``core/problem.py``, N-Queens) is
+part of A's output like any other: A's K3 launch writes the first pick, each
+replay of R reads the block A left and launches K3 with the exclusion list,
+and R still copies only the pick's leaves over A's.  A replayed iteration runs no
 ``neighborhood``; it calls ``neighborhood(None, None, None, None)`` once, so
 that whatever wraps the problem's ``neighborhood`` counts iterations as in the
 eager loop.

@@ -20,6 +20,11 @@ An iteration is three functions: ``_begin`` (the neighborhood, the push and
 the first pick), ``_retry`` (one more pick-then-check pick, while the host's read
 of ``need_any`` says some lane needs it) and ``_finish`` (the move and the
 carry).  On the card ``core/graphed.py`` replays each of them as a CUDA graph.
+The neighborhood is read through its accessors (``core/problem.py``): for a
+row block (N-Queens) each pick of pick-then-check is one K3 launch
+(``Neighborhood.pick``) and the pick's score is read from the hard block, so
+the [P, W, 2] score block and its [P, W] mask are built only on the exact-filter
+path, which reads every candidate.
 
 Noisy selection (``select_topk > 1``) samples the applied move from the top-k
 non-tabu candidates (``ops/lex.noisy_lex_select``), on the exact-filter path
@@ -120,30 +125,32 @@ def _begin(problem: Problem, params: LsParams, c: _LsCarry, draws, active) -> _B
     neighborhood reads no ring, so pushing after it changes nothing."""
     hit_best = problem.is_best(c.score)
     nb = problem.neighborhood(c.state, c.score, draws, active)
-    n_valid = nb.n_valid if nb.n_valid is not None else nb.valid.sum(dim=-1)
+    n_valid = nb.n_valid if nb.n_valid is not None else nb.all_valid().sum(dim=-1)
     use_exact = (
         params.tabu_exact_filter
         if params.tabu_forced
         else params.tabu_exact_filter or nb.fp_deltas is not None
     )
     if use_exact:
+        # Every candidate is read here, as in the JAX package: a row block is built whole.
         lane = torch.arange(n_valid.shape[0], device=n_valid.device)
+        scores, valid = nb.all_scores(), nb.all_valid()
         if nb.fp_deltas is not None:
-            tabu, ok = c.tabu.push_probe(c.fp, base=c.fp, deltas=nb.fp_deltas, valid=nb.valid)
+            tabu, ok = c.tabu.push_probe(c.fp, base=c.fp, deltas=nb.fp_deltas, valid=valid)
         else:
-            iota_w = torch.arange(nb.valid.shape[1], device=n_valid.device)
-            fps_all = problem.move_fp(c.state, c.fp, nb.moves, iota_w.expand(nb.valid.shape))
-            tabu, ok = c.tabu.push_probe(c.fp, fps=fps_all, valid=nb.valid)
+            iota_w = torch.arange(valid.shape[1], device=n_valid.device)
+            fps_all = problem.move_fp(c.state, c.fp, nb.moves, iota_w.expand(valid.shape))
+            tabu, ok = c.tabu.push_probe(c.fp, fps=fps_all, valid=valid)
         found = ok.any(dim=-1)
         if params.select_topk > 1:
             noise = draws.select_noise(ok.shape[1], active)
-            idx = noisy_lex_select(nb.scores, ok, params.select_topk, params.select_temp, noise)
+            idx = noisy_lex_select(scores, ok, params.select_topk, params.select_temp, noise)
         else:
-            idx = lex_argmin(nb.scores, ok)
+            idx = lex_argmin(scores, ok)
         fp = c.fp ^ nb.fp_deltas[lane, idx] if nb.fp_deltas is not None else fps_all[lane, idx]
         pick = _Pick(idx, fp, found, None, None)
         return _Begun(tabu, hit_best, nb, n_valid, pick, None, None)
-    idx0 = nb.hint_idx if nb.hint_idx is not None else lex_argmin(nb.scores, nb.valid)
+    idx0 = nb.hint_idx if nb.hint_idx is not None else nb.pick()
     fp0 = problem.move_fp(c.state, c.fp, nb.moves, idx0)
     tabu, found0 = c.tabu.push_probe(c.fp, fps=fp0[:, None, :], valid=(n_valid > 0)[:, None])
     found0 = found0[:, 0]
@@ -156,14 +163,11 @@ def _begin(problem: Problem, params: LsParams, c: _LsCarry, draws, active) -> _B
 
 def _retry(problem: Problem, params: LsParams, c: _LsCarry, b: _Begun, active) -> _Begun:
     """One more pick-then-check pick for the lanes in ``b.need``: their best
-    candidate among the unexamined ones, fingerprinted and checked."""
+    candidate among the unexamined ones (``Neighborhood.pick``: for a row block
+    one K3 launch, no mask pass), fingerprinted and checked."""
     retries, nb, pick = params.tabu_retries, b.nb, b.pick
     lane = torch.arange(b.n_valid.shape[0], device=b.n_valid.device)
-    iota_w = torch.arange(nb.valid.shape[1], device=b.n_valid.device)
-    mask = nb.valid
-    for k in range(retries):  # -1 slots never match
-        mask = mask & (iota_w != pick.excl[:, k : k + 1])
-    idx = lex_argmin(nb.scores, mask)
+    idx = nb.pick(pick.excl)
     fp = problem.move_fp(c.state, c.fp, nb.moves, idx)
     # ``valid`` is ``need``: the lanes that take this pick get ``~tabu``, the others keep theirs.
     _, found = b.tabu.push_probe(fps=fp[:, None, :], valid=b.need[:, None])
@@ -192,12 +196,11 @@ def _finish(problem: Problem, params: LsParams, c: _LsCarry, b: _Begun, active) 
     written into ``c.state`` itself, in the lanes that step and still run, and
     the best is carried as its key."""
     nb, pick, hit_best = b.nb, b.pick, b.hit_best
-    lane = torch.arange(b.n_valid.shape[0], device=b.n_valid.device)
     if b.need is None:
         exhausted_event, empty_nbr = torch.zeros_like(pick.found), ~pick.found
     else:
         exhausted_event, empty_nbr = ~pick.found & (b.n_valid > pick.tries), b.n_valid == 0
-    cand_score = nb.scores[lane, pick.idx]
+    cand_score = nb.score_at(pick.idx)
     improved = lex_less(cand_score, c.score) & pick.found
     step = pick.found & ~hit_best
     no_improve = torch.where(improved, 0, c.no_improve + 1).to(torch.int32)

@@ -27,7 +27,20 @@ Divergences:
   place under the lane mask and carries the descent's best as a key, from which
   it rebuilds the state once at the end.  The answers are the same: the masked
   move leaves the other lanes bit for bit as they were, and the rebuild gives
-  the state the key stands for.
+  the state the key stands for;
+- a neighborhood may hand its scores over as a row block (``Neighborhood.block``,
+  a ``RowBlock``: N-Queens' B1 output, hard [P, R, C] with a soft channel that
+  is identically 0, a validity per row, each row's minimum and first argmin)
+  and leave ``scores`` and ``valid`` None.  The JAX package always hands over
+  ``make_score(hard)`` and its [W] mask, and XLA fuses the stack into the
+  reductions that read it; eagerly or in a CUDA graph the stack is a pass that
+  writes the whole [P, W, 2] block.  The engine reads a neighborhood only
+  through four accessors: ``all_scores`` and ``all_valid`` build the block and
+  the mask on demand (the exact filter, which reads every candidate),
+  ``score_at`` reads one score a lane, and ``pick`` takes the best candidate
+  with an exclusion list, for a row block by K3 (``ops/block_pick.py``: one
+  launch on the card, reading the row minima).  The picks and scores are the
+  same bit for bit.
 """
 
 from __future__ import annotations
@@ -36,28 +49,81 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from constraint_solver_tpu_torch.ops.block_pick import block_pick, excluded
+from constraint_solver_tpu_torch.ops.lex import lex_argmin, make_score
+
+
+class RowBlock(NamedTuple):
+    """Candidate scores as rows (``Neighborhood.block``): flat candidate
+    ``i = j * C + k`` is row j's entry k, its score (hard[:, j, k], 0).
+
+    hard:      float32[P, R, C].
+    row_valid: bool[P, R]: every candidate of row j is valid, or none is.
+    row_min:   float32[P, R], each row's minimum of ``hard``.
+    row_arg:   int32[P, R], the first index of it in the row.
+    """
+
+    hard: torch.Tensor
+    row_valid: torch.Tensor
+    row_min: torch.Tensor
+    row_arg: torch.Tensor
+
 
 class Neighborhood(NamedTuple):
     """A scored batch of W candidate moves per lane.
 
-    scores:    float32[P, W, 2] candidate (hard, soft) scores.
+    scores:    float32[P, W, 2] candidate (hard, soft) scores, or None with ``block``.
     moves:     whatever the problem's ``move_fp``/``apply_move`` decode a flat
                candidate index with.
-    valid:     bool[P, W] — invalid candidates are never selected.
+    valid:     bool[P, W] — invalid candidates are never selected; None with ``block``.
     hint_idx:  optional int64[P], exactly ``lex_argmin(scores, valid)`` with
                first-index ties, when the proposer has it more cheaply.
     n_valid:   optional int64[P], the exact count of True in ``valid``.
     fp_deltas: optional int64[P, W, 2]: candidate ``i``'s fingerprint is
                ``current_fp ^ fp_deltas[:, i]``; the engine then runs the exact
                tabu filter.
+    block:     optional ``RowBlock`` standing for ``scores`` and ``valid``
+               (W = R·C), which are then None.
+
+    The engine reads the scores only through the accessors below.
     """
 
-    scores: torch.Tensor
+    scores: torch.Tensor | None
     moves: Any
-    valid: torch.Tensor
+    valid: torch.Tensor | None
     hint_idx: torch.Tensor | None = None
     n_valid: torch.Tensor | None = None
     fp_deltas: torch.Tensor | None = None
+    block: RowBlock | None = None
+
+    def all_scores(self) -> torch.Tensor:
+        """float32[P, W, 2], built from the row block when there is one."""
+        if self.block is None:
+            return self.scores
+        hard = self.block.hard
+        return make_score(hard.reshape(hard.shape[0], -1))
+
+    def all_valid(self) -> torch.Tensor:
+        """bool[P, W], built from the row block when there is one."""
+        if self.block is None:
+            return self.valid
+        p, r, c = self.block.hard.shape
+        return self.block.row_valid[:, :, None].expand(p, r, c).reshape(p, r * c)
+
+    def score_at(self, idx: torch.Tensor) -> torch.Tensor:
+        """float32[P, 2]: each lane's candidate ``idx[p]``."""
+        lane = torch.arange(idx.shape[0], device=idx.device)
+        if self.block is None:
+            return self.scores[lane, idx]
+        hard = self.block.hard
+        return make_score(hard.reshape(hard.shape[0], -1)[lane, idx])
+
+    def pick(self, excl: torch.Tensor | None = None) -> torch.Tensor:
+        """int64[P]: ``lex_argmin`` of the valid candidates with the indices in
+        ``excl`` [P, E] removed (-1 slots never match); by K3 for a row block."""
+        if self.block is not None:
+            return block_pick(*self.block, excl)
+        return lex_argmin(self.scores, excluded(self.valid, excl))
 
 
 class InPlace(NamedTuple):

@@ -39,6 +39,18 @@ Divergences from the JAX package:
   algorithm, which is not exact), and the ``bmm`` in full float32, PyTorch's
   default, which the port never changes.  An unknown ``block_impl`` raises
   ``ValueError``, as there (here when the problem is made).
+- **The scores as a row block.** Without ``nbr_axis`` the neighborhood hands
+  the engine the block as the kernel wrote it (``Neighborhood.block``, a
+  ``RowBlock``: hard [P, A, n], the column mask as its row validity, the row
+  minima and first argmins), with ``scores`` and ``valid`` None.  The JAX
+  package returns ``make_score(hard)`` [A·n, 2] and the [A·n] mask, which XLA
+  fuses into the reductions that read them; here the engine reads the block
+  through ``core/problem.py``'s accessors, and no pass writes the stacked
+  block.  ``hint_idx`` is K3's pick with no exclusion (``ops/block_pick.py``),
+  exactly ``lex_argmin`` of the valid block: for a lane with no valid column
+  it is 0, where the JAX package's row-minimum form gives that lane's
+  ``row_arg[0]``.  No such lane takes its pick (its ``n_valid`` is 0), so the
+  trajectories are the same.
 - **``col_sampling="approx"``** samples exactly, as ``"exact"`` does.  The JAX
   package's ``jax.lax.approx_max_k`` is approximate (recall ~0.95) only on the
   TPU; on the CPU, where the reference runs, it returns ``lax.top_k``'s indices,
@@ -65,9 +77,10 @@ from typing import NamedTuple
 
 import torch
 
-from constraint_solver_tpu_torch.core.problem import Neighborhood, Problem, replayable
+from constraint_solver_tpu_torch.core.problem import Neighborhood, Problem, RowBlock, replayable
+from constraint_solver_tpu_torch.ops.block_pick import block_pick
 from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32, fp_update
-from constraint_solver_tpu_torch.ops.lex import first_true, make_score
+from constraint_solver_tpu_torch.ops.lex import make_score
 from constraint_solver_tpu_torch.ops.nqueens_kernel import block_from_windows, nqueens_neighborhood_scores
 from constraint_solver_tpu_torch.parallel.mesh import active_axis, gather_best
 
@@ -241,7 +254,6 @@ def make_nqueens_problem(
 
     def neighborhood(state, cur_score, draws, active):
         rows, rc, dc, ac, cs = state
-        p = rows.shape[0]
         device = rows.device
         conflicted = cs > 0
         n_conflicted = conflicted.sum(dim=-1)
@@ -257,21 +269,17 @@ def make_nqueens_problem(
 
         if nbr_axis is not None:
             return sharded(state, cur_score, c, col_valid)
+        # The block as the kernel wrote it, with no [P, A·n, 2] scores and no
+        # [P, A·n] mask; the first pick (``hint_idx``) is K3's from its row minima.
         cand_hard, row_min, row_arg = block(state, cur_score, c)
-
-        # First pick (Neighborhood.hint_idx): the flat first-index argmin of the
-        # valid block, from the per-row minima.
-        row_min_v = torch.where(col_valid, row_min, torch.inf)
-        j_best = first_true(row_min_v == row_min_v.amin(dim=-1, keepdim=True))
-        hint_idx = j_best * n + row_arg.gather(1, j_best[:, None]).squeeze(1).long()
-
-        valid = col_valid[:, :, None].expand(p, a_max, n).reshape(p, a_max * n)
+        row_block = RowBlock(cand_hard, col_valid, row_min, row_arg)
         return Neighborhood(
-            scores=make_score(cand_hard.reshape(p, a_max * n)),
+            scores=None,
             moves=NQMoves(c, n),
-            valid=valid,
-            hint_idx=hint_idx,
+            valid=None,
+            hint_idx=block_pick(*row_block),
             n_valid=col_valid.sum(dim=-1) * n,
+            block=row_block,
         )
 
     def block(state, cur_score, c):

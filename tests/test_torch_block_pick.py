@@ -1,0 +1,399 @@
+"""K3, the block pick (``ops/block_pick.py``), and the N-Queens row block it
+reads, on the CPU.
+
+The kernel runs only on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py`` phase 2e).  What runs here:
+
+- the plain version against the port's ``lex_argmin(make_score(...))`` and the
+  JAX package's ``lex_argmin`` on the same seeded blocks of small integers
+  (ties everywhere), with invalid rows, lanes with no valid row, and exclusion
+  lists with -1 slots, repeats and hits on and off each row's first minimum;
+- the kernel's algorithm (each row's first minimum, the rows whose minimum is
+  excluded scanned again) written out in torch, against the plain version,
+  also on floats with signed zeros, infinities and NaN;
+- the N-Queens neighborhood's row block against the JAX neighborhood, and the
+  descent's pick-then-check in the block form against the same problem with
+  the block materialized, eagerly and through the graphed loop's segments,
+  with retries forced by a large ring;
+- that a pick-then-check iteration stacks no score block;
+- the library's build (a faked compiler and ``ctypes``) and the wrapper's checks.
+"""
+
+import ctypes
+import dataclasses
+import os
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from constraint_solver_tpu.models import nqueens as jnq
+from constraint_solver_tpu.ops.lex import lex_argmin as j_lex_argmin
+from constraint_solver_tpu_torch.core import problem as core_problem
+from constraint_solver_tpu_torch.core.ils import SolverConfig
+from constraint_solver_tpu_torch.models import nqueens as tnq
+from constraint_solver_tpu_torch.ops import block_pick as bp
+from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+from constraint_solver_tpu_torch.ops.lex import lex_argmin, make_score
+from constraint_solver_tpu_torch.parallel.population import PopulationSolver
+from constraint_solver_tpu_torch.utils.convert import from_reference
+from constraint_solver_tpu_torch.utils.tree import tree_leaves
+from jax_key_draws import JaxKeyDraws, reference_log_weights
+from test_torch_graphs import Forced
+
+
+def _row_stats(hard):
+    return hard.amin(dim=-1), hard.argmin(dim=-1).to(torch.int32)
+
+
+def _block(rng, p, r, c, high=4, invalid=0.25, dead_lanes=(0,)):
+    """A row block of small integers (ties abound), its row stats and validity:
+    about ``invalid`` of the rows invalid, every row of ``dead_lanes`` invalid."""
+    hard = torch.from_numpy(rng.integers(0, high, size=(p, r, c)).astype(np.float32))
+    row_valid = torch.from_numpy(rng.random((p, r)) >= invalid)
+    for lane in dead_lanes:
+        row_valid[lane] = False
+    return hard, row_valid, *_row_stats(hard)
+
+
+def _exclusions(rng, hard, row_valid, row_arg, e, share_on_arg=0.5):
+    """[P, E] int64: -1 slots, repeats, and flat indices on and off the rows'
+    first minima (of valid and invalid rows)."""
+    p, r, c = hard.shape
+    excl = np.full((p, e), -1, dtype=np.int64)
+    for lane in range(p):
+        for k in range(e):
+            u = rng.random()
+            j = int(rng.integers(0, r))
+            if u < 0.2:
+                continue  # an empty slot
+            if u < 0.3 and k:
+                excl[lane, k] = excl[lane, int(rng.integers(0, k))]  # a repeat (maybe of -1)
+            elif u < 0.3 + 0.7 * share_on_arg:
+                excl[lane, k] = j * c + int(row_arg[lane, j])  # a row's first minimum
+            else:
+                excl[lane, k] = j * c + int(rng.integers(0, c))
+    return torch.from_numpy(excl)
+
+
+def _port_chain(hard, row_valid, excl):
+    """The engine's pick before K3, written out: the stacked block, the mask
+    with each exclusion removed, ``lex_argmin``."""
+    p, r, c = hard.shape
+    w = r * c
+    mask = row_valid.repeat_interleave(c, dim=1)
+    iota = torch.arange(w)
+    for k in range(excl.shape[1]):
+        mask = mask & (iota != excl[:, k : k + 1])
+    return lex_argmin(make_score(hard.reshape(p, w)), mask)
+
+
+def _jax_pick(hard, row_valid, excl):
+    p, r, c = hard.shape
+    w = r * c
+    valid = np.repeat(row_valid.numpy(), c, axis=1)
+    mask = jnp.asarray(valid)
+    iota = jnp.arange(w)
+    for k in range(excl.shape[1]):
+        mask = mask & (iota != jnp.asarray(excl[:, k : k + 1].numpy()))
+    scores = jnp.stack([jnp.asarray(hard.reshape(p, w).numpy()), jnp.zeros((p, w), jnp.float32)], axis=-1)
+    return np.asarray(j_lex_argmin(scores, mask))
+
+
+def _row_minimum_pick(hard, row_valid, row_min, row_arg, excl):
+    """The kernel's algorithm in torch: each valid row's (row_min, j·C +
+    row_arg), the rows whose first minimum is excluded scanned again without
+    their excluded entries, the lowest (value, flat index); 0 where the minimum
+    is +inf or a candidate is NaN."""
+    p, r, c = hard.shape
+    out = torch.zeros(p, dtype=torch.int64)
+    for lane in range(p):
+        ex = set(excl[lane].tolist()) if excl is not None else set()
+        cands = []
+        for j in range(r):
+            if not bool(row_valid[lane, j]):
+                continue
+            flat = j * c + int(row_arg[lane, j])
+            if flat not in ex:
+                cands.append((float(row_min[lane, j]), flat))
+                continue
+            cands += [(float(hard[lane, j, k]), j * c + k) for k in range(c) if j * c + k not in ex]
+        if any(v != v for v, _ in cands):
+            continue
+        best = min(cands, default=(float("inf"), 0))
+        out[lane] = best[1] if best[0] < float("inf") else 0
+    return out
+
+
+SHAPES = pytest.mark.parametrize("p, r, c, e", [(6, 5, 7, 8), (5, 3, 16, 4), (4, 1, 9, 3), (3, 12, 2, 16),
+                                                (7, 4, 5, 0)])
+
+
+@SHAPES
+def test_plain_version_equals_the_port_chain_and_jax(p, r, c, e):
+    rng = np.random.default_rng(p * 1000 + r * 100 + c * 10 + e)
+    hard, row_valid, row_min, row_arg = _block(rng, p, r, c)
+    excl = _exclusions(rng, hard, row_valid, row_arg, e)
+    got = bp.block_pick(hard, row_valid, row_min, row_arg, excl)
+    assert got.dtype == torch.int64 and got.shape == (p,)
+    assert torch.equal(got, bp.block_pick_ref(hard, row_valid, row_min, row_arg, excl))
+    assert torch.equal(got, _port_chain(hard, row_valid, excl))
+    np.testing.assert_array_equal(got.numpy(), _jax_pick(hard, row_valid, excl))
+    assert int(got[0]) == 0  # a lane with no valid row
+    if e == 0:
+        assert torch.equal(got, bp.block_pick(hard, row_valid, row_min, row_arg))  # None: no exclusion
+
+
+@SHAPES
+def test_row_minimum_algorithm_equals_the_plain_version(p, r, c, e):
+    rng = np.random.default_rng(7 + p * r * c + e)
+    for high in (2, 4):  # mostly ties
+        hard, row_valid, row_min, row_arg = _block(rng, p, r, c, high=high)
+        excl = _exclusions(rng, hard, row_valid, row_arg, e, share_on_arg=0.8)
+        want = bp.block_pick_ref(hard, row_valid, row_min, row_arg, excl)
+        assert torch.equal(_row_minimum_pick(hard, row_valid, row_min, row_arg, excl), want)
+    # Every valid candidate excluded: 0.
+    hard, row_valid, row_min, row_arg = _block(rng, 2, 2, 3, invalid=0.0, dead_lanes=())
+    everything = torch.arange(6).expand(2, 6).contiguous()
+    assert torch.equal(bp.block_pick(hard, row_valid, row_min, row_arg, everything), torch.zeros(2, dtype=torch.int64))
+
+
+def test_row_minimum_algorithm_on_signed_zeros_infinities_and_nan():
+    """The precondition (row stats by ``amin`` and ``argmin``) carries the
+    plain version's float semantics: -0.0 ties 0.0, a +inf minimum or a NaN
+    candidate gives 0, -inf is a minimum like any other."""
+    inf, nan = float("inf"), float("nan")
+    rows = [
+        [[3.0, -0.0, 0.0], [0.0, 5.0, -0.0]],
+        [[inf, inf, inf], [inf, inf, inf]],
+        [[2.0, nan, 1.0], [0.0, 0.0, 0.0]],
+        [[4.0, -inf, 1.0], [-inf, 2.0, 2.0]],
+        [[inf, 7.0, inf], [9.0, inf, 7.0]],
+    ]
+    hard = torch.tensor(rows, dtype=torch.float32)
+    row_min, row_arg = _row_stats(hard)
+    row_valid = torch.ones((5, 2), dtype=torch.bool)
+    for excl in (None, torch.tensor([[1, 5], [0, -1], [1, -1], [1, 3], [1, -1]]),
+                 torch.tensor([[-1, -1], [3, 4], [-1, 0], [-1, -1], [5, 1]])):
+        want = bp.block_pick_ref(hard, row_valid, row_min, row_arg, excl)
+        assert torch.equal(_row_minimum_pick(hard, row_valid, row_min, row_arg, excl), want), excl
+
+
+def _jax_state(boards):
+    rows = jnp.asarray(boards)
+    return jax.vmap(jnq.build_state)(rows)
+
+
+def test_nqueens_row_block_matches_the_jax_neighborhood():
+    """The block form's materialized scores and mask, its ``n_valid``, and its
+    ``hint_idx`` against the JAX neighborhood; a solved lane has no valid
+    column, and its ``hint_idx`` is ``lex_argmin``'s 0 (the JAX package's
+    row-minimum form gives its ``row_arg[0]``; no such pick is taken)."""
+    n, a, p = 20, 4, 5
+    rng = np.random.default_rng(20)
+    boards = rng.integers(0, n, size=(p, n)).astype(np.int32)
+    boards[3] = [0, 2, 4, 1, 3, 12, 14, 11, 17, 19, 16, 8, 15, 18, 7, 9, 6, 13, 5, 10]  # a solution of 20 queens
+    jp = jnq.make_nqueens_problem(n, sample_cols=a)
+    tp = tnq.make_nqueens_problem(n, sample_cols=a, log_weights=reference_log_weights(n))
+    jst = _jax_state(boards)
+    keys = jax.random.split(jax.random.key(n), p)
+    nb_j = jax.jit(jax.vmap(jp.neighborhood))(jst, jax.vmap(jp.score)(jst), jax.vmap(jax.random.split)(keys)[:, 1])
+    draws = JaxKeyDraws(keys)
+    draws._ls_key = keys
+    tst = from_reference(jst, "cpu")
+    nb_t = tp.neighborhood(tst, tp.score(tst), draws, torch.ones(p, dtype=torch.bool))
+    assert nb_t.scores is None and nb_t.valid is None and nb_t.block.hard.shape == (p, a, n)
+    np.testing.assert_array_equal(nb_t.all_scores().numpy(), np.asarray(nb_j.scores))
+    np.testing.assert_array_equal(nb_t.all_valid().numpy(), np.asarray(nb_j.valid))
+    np.testing.assert_array_equal(nb_t.n_valid.numpy(), np.asarray(nb_j.n_valid))
+    solved = nb_t.n_valid == 0
+    assert solved.tolist() == [False, False, False, True, False]
+    hint_j = np.asarray(nb_j.hint_idx)
+    np.testing.assert_array_equal(nb_t.hint_idx[~solved].numpy(), hint_j[~solved.numpy()])
+    assert int(nb_t.hint_idx[3]) == 0 and hint_j[3] == int(nb_t.block.row_arg[3, 0])
+    assert torch.equal(nb_t.hint_idx, lex_argmin(nb_t.all_scores(), nb_t.all_valid()))
+    idx = torch.from_numpy(rng.integers(0, a * n, size=p))
+    lane = torch.arange(p)
+    assert torch.equal(nb_t.score_at(idx), nb_t.all_scores()[lane, idx])
+
+
+def _materialized(problem):
+    """``problem`` whose neighborhood hands the engine the block built whole:
+    the form every other domain uses."""
+    inner = problem.neighborhood
+
+    def neighborhood(*args):
+        nb = inner(*args)
+        if nb is None or nb.block is None:
+            return nb
+        return nb._replace(scores=nb.all_scores(), valid=nb.all_valid(), block=None)
+
+    return problem._replace(neighborhood=neighborhood)
+
+
+@pytest.mark.parametrize("loop", ["eager", "graphed"])
+def test_pick_then_check_in_the_block_form_equals_the_block_materialized(loop, monkeypatch):
+    """A descent's picks by K3's plain version from the row block against the
+    same problem with the block materialized, over a ring large enough to
+    force retries: traces, state trees and stats bit for bit, eagerly and
+    through the graphed loop's segments (``Forced(capturer=None)``)."""
+    retries = []
+    pick = core_problem.block_pick
+    monkeypatch.setattr(core_problem, "block_pick",
+                        lambda *a: retries.append(a[-1] is not None) or pick(*a))
+    config = SolverConfig(seed="k3-retries", local_search_max_iterations=30, best_solutions_capacity=4,
+                          all_solutions_capacity=256, restart_every=4, tabu_exact_filter=False)
+    problem = tnq.make_nqueens_problem(10, sample_cols=2)
+    out = []
+    for prob in (problem, _materialized(problem)):
+        s = PopulationSolver(prob, config, population=6, exchange_every=2, device="cpu")
+        if loop == "graphed":
+            s.program = dataclasses.replace(s.program, graphs=Forced(capturer=None))
+        out.append(([s.execute_chunk_traced(2) for _ in range(2)], s.state, s.stats()))
+    (traces, state, stats), (traces0, state0, stats0) = out
+    for t, t0 in zip(traces, traces0, strict=True):
+        np.testing.assert_array_equal(t, t0)
+    for x, y in zip(tree_leaves(state), tree_leaves(state0), strict=True):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    assert stats == stats0
+    assert sum(retries) > 0  # retries ran, each a block pick with the exclusion list
+
+
+class Joins(TorchDispatchMode):
+    """Records the elements of every tensor an ``aten::stack`` or ``aten::cat``
+    writes (the profiler records no shapes of a tensor list)."""
+
+    def __init__(self):
+        super().__init__()
+        self.sizes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.overloadpacket in (torch.ops.aten.stack, torch.ops.aten.cat):
+            self.sizes.append(out.numel())
+        return out
+
+
+def test_a_pick_then_check_iteration_stacks_no_score_block(monkeypatch):
+    """Without ``nbr_axis`` or the exact filter, the neighborhood and the
+    descent stack no [P, A·n, 2] block: no ``aten::stack``/``aten::cat`` of
+    A·n·2 elements a lane in a descent with retries.  K3's plain version, which
+    the card does not run, stands aside for the kernel's algorithm in torch.
+    The same descent with the block materialized does stack it."""
+    retries = []
+
+    def row_minimum_pick(hard, row_valid, row_min, row_arg, excl=None):
+        retries.append(excl is not None)
+        return _row_minimum_pick(hard, row_valid, row_min, row_arg, excl)
+
+    monkeypatch.setattr(bp, "block_pick_ref", row_minimum_pick)
+    n, a, p = 10, 2, 4
+    config = SolverConfig(seed="k3-retries", local_search_max_iterations=12, best_solutions_capacity=4,
+                          all_solutions_capacity=128, tabu_exact_filter=False)
+    problem = tnq.make_nqueens_problem(n, sample_cols=a)
+    largest = []
+    for prob in (problem, _materialized(problem)):
+        s = PopulationSolver(prob, config, population=p, device="cpu")
+        with Joins() as joins:
+            s.run(max_rounds=1, chunk=1)
+        assert s.stats()["ls_iterations"] > 0
+        largest.append(max(joins.sizes))
+    assert sum(retries) > 0
+    assert largest[0] < p * a * n * 2 <= largest[1], largest
+
+
+def test_wrapper_checks_its_inputs():
+    rng = np.random.default_rng(1)
+    hard, row_valid, row_min, row_arg = _block(rng, 3, 4, 5)
+    excl = torch.full((3, 2), -1, dtype=torch.int64)
+    with pytest.raises(TypeError):
+        bp.block_pick(hard.double(), row_valid, row_min, row_arg, excl)
+    with pytest.raises(TypeError):
+        bp.block_pick(hard, row_valid, row_min, row_arg.long(), excl)
+    with pytest.raises(TypeError):
+        bp.block_pick(hard, row_valid, row_min, row_arg, excl.int())
+    with pytest.raises(ValueError):
+        bp.block_pick(hard.transpose(1, 2).contiguous().transpose(1, 2), row_valid, row_min, row_arg, excl)
+    with pytest.raises(ValueError):
+        bp.block_pick(hard, row_valid[:2], row_min, row_arg, excl)
+    with pytest.raises(ValueError):
+        bp.block_pick(hard[0], row_valid, row_min, row_arg, excl)
+    with pytest.raises(ValueError, match="no candidate"):
+        bp.block_pick(hard[:, :, :0], row_valid, row_min, row_arg, excl)
+    with pytest.raises(ValueError, match="at most 256"):
+        bp.block_pick(hard, row_valid, row_min, row_arg, torch.full((3, 257), -1, dtype=torch.int64))
+    before = bp.block_pick.launches
+    bp.block_pick(hard, row_valid, row_min, row_arg, excl)
+    assert bp.block_pick.launches == before  # no kernel on the CPU
+
+
+def test_kernel_work_counts_the_row_pass_and_the_rescans():
+    assert bp.kernel_work(256, 50, 1000, 0) == (256 * 50, 9 * 256 * 50 + 8 * 256)
+    ops, nbytes = bp.kernel_work(16, 64, 16384, 8)
+    assert nbytes == 9 * 16 * 64 + 8 * 16 * 8 + 4 * 16 * 8 * 16384 + 8 * 16
+    assert ops == (16 * 64 + 16 * 8 * 16384) * 9
+    assert bp.kernel_work(16, 64, 16384, 8, rescanned=3)[1] == 9 * 16 * 64 + 8 * 16 * 8 + 4 * 3 * 16384 + 8 * 16
+    assert bp.kernel_work(2, 3, 10, 8)[1] == 9 * 6 + 8 * 16 + 4 * 6 * 10 + 16  # at most R rows a lane
+
+
+def test_roofline_counts_k3_by_formula():
+    from constraint_solver_tpu_torch.utils import roofline
+
+    rng = np.random.default_rng(2)
+    hard, row_valid, row_min, row_arg = _block(rng, 3, 4, 5)
+    excl = torch.full((3, 2), -1, dtype=torch.int64)
+    with roofline.counting() as count:
+        bp.block_pick(hard, row_valid, row_min, row_arg, excl)
+    ops, nbytes = bp.kernel_work(3, 4, 5, 2)
+    assert dict(count.kernels[bp.KERNEL_NAME]) == {"calls": 1, "flops": ops, "bytes": nbytes}
+    assert (count.flops, count.bytes) == (ops, nbytes)
+
+
+@pytest.fixture
+def fake_toolchain(tmp_path, monkeypatch):
+    compiled, loaded = [], []
+
+    def run(cmd, **kwargs):
+        compiled.append(cmd)
+        with open(cmd[cmd.index("-o") + 1], "w") as f:
+            f.write("library")
+        return nk.subprocess.CompletedProcess(cmd, 0, "", "")
+
+    class Library:
+        def __init__(self, path):
+            loaded.append(path)
+            self.block_pick_launch = type("Entry", (), {})()
+
+    monkeypatch.setattr(nk, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(nk.subprocess, "run", run)
+    monkeypatch.setattr(nk.ctypes, "CDLL", Library)
+    monkeypatch.setattr(bp, "_LIBRARY", nk.KernelLibrary(bp._SRC, tmp_path / "libblock_pick.so",
+                                                         bp._LIBRARY.argtypes))
+    return compiled, loaded
+
+
+def test_the_library_builds_once_with_the_c_entry_it_declares(fake_toolchain):
+    compiled, loaded = fake_toolchain
+    fn = bp._LIBRARY.entry("block_pick_launch")
+    assert bp._LIBRARY.entry("block_pick_launch") is fn and len(compiled) == len(loaded) == 1
+    cmd = compiled[0]
+    assert cmd[-1] == str(bp._SRC) and "arch=compute_90a,code=sm_90a" in cmd
+    assert cmd[cmd.index("-o") + 1].startswith(str(bp._LIBRARY.lib) + f".{os.getpid()}.")
+    assert fn.restype is ctypes.c_int
+    params = re.search(r'extern "C" int block_pick_launch\(([^)]*)\)', bp._SRC.read_text()).group(1)
+    kinds = [ctypes.c_void_p if "*" in q else ctypes.c_int for q in params.split(",")]
+    assert fn.argtypes == kinds == bp._ARGS
+    assert bp._LIB_PATH == nk._BUILD_DIR / "libblock_pick.so"
+    assert re.search(r"kMaxExcl = (\d+);", bp._SRC.read_text()).group(1) == str(bp.MAX_EXCL)
+
+
+def test_a_failed_build_raises(fake_toolchain, monkeypatch):
+    monkeypatch.setattr(nk.subprocess, "run",
+                        lambda cmd, **kw: nk.subprocess.CompletedProcess(cmd, 2, "", "error: no sm_90a"))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        bp._LIBRARY.entry("block_pick_launch")
+    assert bp._LIBRARY.entries is None

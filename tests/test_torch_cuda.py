@@ -22,7 +22,10 @@ replayed as CUDA graphs equals the eager loop bit for bit, after a checkpoint's
 Ackley and the diagram layout; so does PMC's step loop (full block and sampled
 columns), which ``ParallelMinConflictsSolver`` replays by default.  The matrix
 forms of the N-Queens block (``block_impl="mxu_conv"``, ``"mxu_toeplitz"``)
-equal the kernel's block bit for bit and replay as graphs too.  QAP's
+equal the kernel's block bit for bit and replay as graphs too.  K3, the block
+pick, equals its plain version bit for bit at ``chip_smoke.py`` phase 2e's
+cases and on floats with NaN, counts through graph replays, and raises
+instead of falling back.  QAP's
 incremental move written in place, with the best carried by its permutation,
 equals the select form bit for bit.  Two gloo
 ranks sharing the card run the pop- and nbr-sharded N-Queens solves, equal to
@@ -989,3 +992,84 @@ def test_cuda_fingerprint_rows_split_over_the_sms(cuda, rows, n):
         seg.replay()
     torch.cuda.synchronize()
     assert torch.equal(seg.out, fpk.fingerprint_i32_ref(wide))
+
+
+@pytest.mark.cuda
+def test_cuda_block_pick_matches_plain_version_at_the_smoke_cases(cuda):
+    """K3 at ``chip_smoke.py`` phase 2e's cases (the first pick and retries at
+    (256, 50, 1000) and (16, 64, 16384), exclusions with -1 slots and invalid
+    rows, lanes with no valid row, a block off 16 bytes, the ragged (5, 7,
+    1003)): bit for bit the plain version."""
+    import chip_smoke
+    from constraint_solver_tpu_torch.ops import block_pick as bp
+
+    for label, args, _ in chip_smoke.k3_cases(cuda):
+        got, want = bp.block_pick(*args), bp.block_pick_ref(*args)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int64 and torch.equal(got, want), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p, r, c, e", [(1, 1, 1, 0), (3, 1, 4097, 8), (300, 3, 2, 256), (2, 700, 5, 8)])
+def test_cuda_block_pick_on_floats_and_edge_shapes(cuda, p, r, c, e):
+    """One row, one candidate, more rows than threads, every slot of the
+    longest exclusion list; signed zeros, infinities and NaN, with the row
+    minima by ``amin`` and ``argmin``."""
+    from constraint_solver_tpu_torch.ops import block_pick as bp
+
+    rng = np.random.default_rng(p * r * c + e)
+    vals = np.array([0.0, -0.0, 1.0, 2.0, np.inf, -np.inf, np.nan, 3.0], dtype=np.float32)
+    for share_nan in (0.0, 0.02):
+        probs = np.array([3, 3, 3, 3, 1, 1, 0, 3], dtype=float)
+        probs[6] = share_nan * probs.sum()
+        hard = torch.from_numpy(rng.choice(vals, size=(p, r, c), p=probs / probs.sum())).to(cuda)
+        row_min, row_arg = hard.amin(-1), hard.argmin(-1).to(torch.int32)
+        row_valid = torch.from_numpy(rng.random((p, r)) < 0.8).to(cuda)
+        flat = torch.arange(r, device=cuda) * c + row_arg.long()
+        pick = torch.from_numpy(rng.integers(0, r, size=(p, e))).to(cuda)
+        excl = torch.where(torch.from_numpy(rng.random((p, e)) < 0.3).to(cuda), -1, flat.gather(1, pick)).contiguous()
+        for x in (None, excl):
+            got = bp.block_pick(hard, row_valid, row_min, row_arg, x)
+            torch.cuda.synchronize()
+            assert torch.equal(got, bp.block_pick_ref(hard, row_valid, row_min, row_arg, x)), (share_nan, x is None)
+
+
+@pytest.mark.cuda
+def test_cuda_block_pick_counts_through_graph_replays_and_raises(cuda, tmp_path, monkeypatch):
+    """A capture of K3 counts no launch, each replay counts one and rewrites
+    the pick; a graphed N-Queens solve launches K3 as often as the eager one,
+    in both tabu modes; an operand on another device and a failed build raise:
+    no plain version on the card."""
+    import chip_smoke
+    from constraint_solver_tpu_torch.core import graphed
+    from constraint_solver_tpu_torch.ops import block_pick as bp
+
+    label, args, _ = chip_smoke.k3_cases(cuda)[1]  # 8 excluded row minima at (256, 50, 1000)
+    want = bp.block_pick_ref(*args)
+    bp.block_pick(*args)  # built and loaded before the capture
+    torch.cuda.synchronize()
+    before = bp.block_pick.launches
+    seg = graphed.capture(lambda: bp.block_pick(*args), torch.cuda.CUDAGraph(), torch.cuda.Stream(cuda))
+    assert bp.block_pick.launches == before and sum(seg.launches.values()) == 1
+    for _ in range(3):
+        seg.out.fill_(-1)
+        seg.replay()
+    torch.cuda.synchronize()
+    assert bp.block_pick.launches == before + 3 and torch.equal(seg.out, want), label
+    for exact in (None, False):
+        counts = {}
+        for graphed_run in (False, True):
+            before = bp.block_pick.launches
+            _graphs_run(_graphs_solver(cuda, exact, graphed_run))
+            counts[graphed_run] = bp.block_pick.launches - before
+        assert counts[True] == counts[False] > 0, (exact, counts)
+    with pytest.raises(ValueError):
+        bp.block_pick(args[0], args[1].cpu(), *args[2:])
+    monkeypatch.setattr(bp, "_LIBRARY", nk.KernelLibrary(bp._SRC, tmp_path / "libblock_pick.so",
+                                                         bp._LIBRARY.argtypes))
+    monkeypatch.setattr(nk.subprocess, "run",
+                        lambda cmd, **kw: nk.subprocess.CompletedProcess(cmd, 1, "", "error: planted"))
+    before = bp.block_pick.launches
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        bp.block_pick(*args)
+    assert bp.block_pick.launches == before

@@ -163,11 +163,11 @@ def test_neighborhood_matches_jax(n, a, kind):
     draws._ls_key = keys
     tst = from_reference(jst, "cpu")
     nb_t = tp.neighborhood(tst, tp.score(tst), draws, torch.ones(p, dtype=torch.bool))
-    _assert_equal(nb_j.scores, nb_t.scores.numpy())
-    _assert_equal(nb_j.valid, nb_t.valid.numpy())
+    _assert_equal(nb_j.scores, nb_t.all_scores().numpy())
+    _assert_equal(nb_j.valid, nb_t.all_valid().numpy())
     _assert_equal(nb_j.hint_idx, nb_t.hint_idx.numpy().astype(np.int32))
     _assert_equal(nb_j.n_valid, nb_t.n_valid.numpy().astype(np.int32))
-    idx = torch.arange(nb_t.valid.shape[1]).expand(p, -1)
+    idx = torch.arange(nb_t.all_valid().shape[1]).expand(p, -1)
     cols = nb_t.moves.cols.gather(1, idx // n)
     _assert_equal(nb_j.moves[0], cols.numpy().astype(np.int32))
     _assert_equal(nb_j.moves[1], (idx % n).numpy().astype(np.int32))
@@ -255,7 +255,7 @@ def test_factory_takes_the_jax_keywords():
         on = torch.ones(3, dtype=torch.bool)
         a = problem.neighborhood(state, problem.score(state), draws_a, on)
         b = plain.neighborhood(state, plain.score(state), draws_b, on)
-        assert torch.equal(a.scores, b.scores) and torch.equal(a.hint_idx, b.hint_idx)
+        assert torch.equal(a.all_scores(), b.all_scores()) and torch.equal(a.hint_idx, b.hint_idx)
     with pytest.raises(ValueError, match="unknown col_sampling 'top_k'"):
         tnq.make_nqueens_problem(n, col_sampling="top_k")
     with pytest.raises(ValueError, match="unknown block_impl 'gather'"):

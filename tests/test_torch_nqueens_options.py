@@ -87,8 +87,8 @@ NEIGHBORHOODS = pytest.mark.parametrize(
 def test_matrix_neighborhood_matches_jax_and_slice(impl, n, a, kind):
     want, (got, slice_) = _neighborhoods(n, a, kind, {"block_impl": impl}, [{"block_impl": impl}, {}])
     for nb in (got, slice_):
-        _assert_equal(want.scores, nb.scores.numpy())
-        _assert_equal(want.valid, nb.valid.numpy())
+        _assert_equal(want.scores, nb.all_scores().numpy())
+        _assert_equal(want.valid, nb.all_valid().numpy())
         _assert_equal(want.hint_idx, nb.hint_idx.numpy().astype(np.int32))
         _assert_equal(want.n_valid, nb.n_valid.numpy().astype(np.int32))
 
@@ -96,7 +96,7 @@ def test_matrix_neighborhood_matches_jax_and_slice(impl, n, a, kind):
 @NEIGHBORHOODS
 def test_approx_neighborhood_matches_jax(n, a, kind):
     want, (got,) = _neighborhoods(n, a, kind, {"col_sampling": "approx"}, [{"col_sampling": "approx"}])
-    _assert_equal(want.scores, got.scores.numpy())
+    _assert_equal(want.scores, got.all_scores().numpy())
     _assert_equal(want.hint_idx, got.hint_idx.numpy().astype(np.int32))
     _assert_equal(want.moves[0], got.moves.cols.repeat_interleave(n, dim=1).numpy().astype(np.int32))
 
