@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                # every phase
     python3 chip_smoke.py --kernel-only  # phases 1, 2, 2b, 2c, 2d and 2e, no result line
+    python3 chip_smoke.py --k3-solves    # phase 1, then K3's launches over a solve of each N-Queens cell
 
 Phases, each printing its own lines; any failure raises and exits nonzero:
 
@@ -216,7 +217,9 @@ is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import functools
 import json
 import subprocess
 import threading
@@ -1058,14 +1061,66 @@ def k3_row_minima(rng, row_arg, c: int, k: int):
     return (rows * c + row_arg.gather(1, rows).long()).contiguous()
 
 
-def k3_cases(device) -> list:
-    """(label, arguments (hard, row_valid, row_min, row_arg, excl), timed) at
-    the N-Queens cells' shapes (256, 50, 1000) and (16, 64, 16384): the first
-    pick (no exclusion), a retry with 8 excluded row minima a lane, exclusions
-    mixed with -1 slots and invalid rows, lanes with no valid row; then a
-    block off 16 bytes and the ragged (5, 7, 1003)."""
+def k3_retry(rng, row_arg, c: int, k: int, e: int = 8):
+    """[P, e] int64: a retry's exclusion list with the first minima of k rows
+    a lane, the other slots -1 (the descent's lists are ``tabu_retries`` = 8
+    slots, filled one a retry)."""
     import torch
 
+    excl = k3_row_minima(rng, row_arg, c, k)
+    pad = torch.full((row_arg.shape[0], e - k), -1, dtype=torch.int64, device=row_arg.device)
+    return torch.cat([excl, pad], dim=1).contiguous()
+
+
+def k3_traps(rng, device, p=16, a=64, n=16384):
+    """A row block at (p, a, n) of integers 2-5 whose lanes hold, in turn,
+    traps for a cluster's merge in 3 queued rows of 8 (the rows q = 1, 4, 7 of
+    the queue, in the blocks 1, 4 and 7 of 8): ties at 1.0 whose lowest index
+    is in a later block than a tie that block 0 holds (an unqueued row's first
+    minimum); a NaN only in the last queued row, after an excluded one; -0.0
+    in an earlier block and 0.0 in a later one; the same the other way round.
+    Each planted row holds its value twice, the first (its row_arg) excluded."""
+    import torch
+
+    hard = torch.from_numpy(rng.integers(2, 6, size=(p, a, n)).astype(np.float32)).to(device)
+    rows = torch.from_numpy(np.sort(np.argsort(rng.random((p, a)), axis=1)[:, :9], axis=1)).to(device)
+    queued, free = rows[:, :8], rows[:, 8]
+    for lane in range(p):
+        trap = lane % 4
+        q1, q4, q7 = (int(queued[lane, q]) for q in (1, 4, 7))
+        cols = [int(x) for x in rng.choice(n, size=2, replace=False)]
+        first, second = min(cols), max(cols)
+        if trap == 0:
+            hard[lane, q4, first] = hard[lane, q4, second] = 1.0
+            hard[lane, q7, first] = hard[lane, q7, second] = 1.0
+            hard[lane, int(free[lane]), 0] = 1.0
+        elif trap == 1:
+            hard[lane, int(queued[lane, 7]), first] = hard[lane, int(queued[lane, 7]), n - 1] = float("nan")
+        else:
+            early, late = (-0.0, 0.0) if trap == 2 else (0.0, -0.0)
+            hard[lane, q1, first] = hard[lane, q1, second] = early
+            hard[lane, q7, first] = hard[lane, q7, second] = late
+    row_min, row_arg = hard.amin(-1), hard.argmin(-1).to(torch.int32)
+    excl = (queued * n + row_arg.gather(1, queued).long()).contiguous()
+    ones = torch.ones((p, a), dtype=torch.bool, device=device)
+    return hard, ones, row_min, row_arg, excl
+
+
+def k3_cases(device) -> list:
+    """(label, arguments (hard, row_valid, row_min, row_arg, excl), timed,
+    slices) at the N-Queens cells' shapes (256, 50, 1000) and (16, 64,
+    16384): the first pick (no exclusion), a retry with 8 excluded row minima
+    a lane, exclusions mixed with -1 slots and invalid rows, lanes with no
+    valid row, a retry of 1 row a lane (as the cells' solves retry); at (16,
+    64, 16384) also a retry with nothing to rescan, one of 3 rows a lane, the
+    retries of 0, 1 and 8 rows forced to each cluster size the plan can take
+    (``slices``; None is the plan's), the merge's traps (``k3_traps``) and a
+    block off 16 bytes; then one lane and 300 lanes, and the ragged (5, 7,
+    1003).  ``timed``: True for the full timing, "device" for the
+    device-only time alone."""
+    import torch
+
+    from constraint_solver_tpu_torch.ops import block_pick as bp
     from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
 
     rng = np.random.default_rng(19)
@@ -1085,22 +1140,44 @@ def k3_cases(device) -> list:
         hard, row_min, row_arg = nk.nqueens_neighborhood_scores(*kernel_inputs(rng, p, a, n, device))
         ones = torch.ones((p, a), dtype=torch.bool, device=device)
         timed = (p, a, n) != K3_RAGGED
-        cases.append((f"first pick {(p, a, n)}", (hard, ones, row_min, row_arg, None), timed))
-        cases.append((f"8 excluded row minima {(p, a, n)}",
-                      (hard, ones, row_min, row_arg, k3_row_minima(rng, row_arg, n, min(8, a))), timed))
+        cases.append((f"first pick {(p, a, n)}", (hard, ones, row_min, row_arg, None), timed, None))
+        retry8 = (hard, ones, row_min, row_arg, k3_row_minima(rng, row_arg, n, min(8, a)))
+        cases.append((f"8 excluded row minima {(p, a, n)}", retry8, timed, None))
         row_valid = torch.from_numpy(rng.random((p, a)) < 0.8).to(device)
         cases.append((f"mixed exclusions, invalid rows {(p, a, n)}",
-                      (hard, row_valid, row_min, row_arg, mixed(p, a, n, row_arg)), False))
+                      (hard, row_valid, row_min, row_arg, mixed(p, a, n, row_arg)), False, None))
         dead = row_valid.clone()
         dead[::2] = False  # every other lane has no valid row
         cases.append((f"lanes with no valid row {(p, a, n)}", (hard, dead, row_min, row_arg, mixed(p, a, n, row_arg)),
-                      False))
-        if n == 16384:  # the block one float past 16 bytes: the rescans read it 4 bytes at a time
+                      False, None))
+        retry1 = (hard, ones, row_min, row_arg, k3_retry(rng, row_arg, n, 1))
+        if timed:  # the retries of the cells' solves rescan one row a lane
+            cases.append((f"1 excluded row minima {(p, a, n)}", retry1, True, None))
+        if n == 16384:
+            empty = (hard, ones, row_min, row_arg, torch.full((p, 8), -1, dtype=torch.int64, device=device))
+            cases.append((f"8 empty exclusion slots {(p, a, n)}", empty, "device", None))
+            cases.append((f"3 excluded row minima {(p, a, n)}",
+                          (hard, ones, row_min, row_arg, k3_retry(rng, row_arg, n, 3)), "device", None))
+            # Nothing to rescan, the solves' one row a lane, and 8 rows, at every cluster size.
+            for label, retry in (("8 empty exclusion slots", empty), ("1 excluded row minima", retry1),
+                                 ("8 excluded row minima", retry8)):
+                for s in (1, 2, 4, bp.MAX_SLICES):
+                    cases.append((f"{label} {(p, a, n)}, {s} blocks a lane", retry, "device", s))
+            traps = k3_traps(rng, device, p, a, n)
+            for s in (None, 2, 4):
+                cases.append((f"cluster merge traps {(p, a, n)}" + (f", {s} blocks a lane" if s else ""), traps,
+                              False, s))
+            # the block one float past 16 bytes: the rescans read it 4 bytes at a time
             buf = torch.empty(hard.numel() + 1, dtype=hard.dtype, device=device)
             off = buf[1:].view(hard.shape)
             off.copy_(hard)
             cases.append((f"block off 16 bytes, 8 excluded row minima {(p, a, n)}",
-                          (off, ones, row_min, row_arg, k3_row_minima(rng, row_arg, n, 8)), False))
+                          (off, ones, row_min, row_arg, k3_row_minima(rng, row_arg, n, 8)), False, None))
+    for p, a, n in ((1, 64, 16384), (300, MAIN_A, MAIN_N)):
+        hard, row_min, row_arg = nk.nqueens_neighborhood_scores(*kernel_inputs(rng, p, a, n, device))
+        ones = torch.ones((p, a), dtype=torch.bool, device=device)
+        cases.append((f"8 excluded row minima {(p, a, n)}",
+                      (hard, ones, row_min, row_arg, k3_row_minima(rng, row_arg, n, 8)), False, None))
     return cases
 
 
@@ -1115,16 +1192,54 @@ def k3_rescanned(hard, row_valid, row_min, row_arg, excl) -> int:
     return int(((flat[:, :, None] == excl[:, None, :]).any(dim=-1) & row_valid).sum())
 
 
+def k3_plan(args, slices=None) -> str:
+    """The launch K3 takes for its arguments (hard, row_valid, row_min,
+    row_arg, excl): blocks a lane and threads (``slices`` forced)."""
+    from constraint_solver_tpu_torch.ops import block_pick as bp
+    from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+
+    hard, excl = args[0], args[4]
+    sms = bp._sms(hard.device.index) if is_cuda(hard.device) else nk._SMS
+    plan = bp._launch_plan(*hard.shape, 0 if excl is None else excl.shape[1], sms)
+    if slices is not None:
+        plan = plan._replace(slices=slices, grid=hard.shape[0] * slices)
+    return f"{plan.slices} blocks a lane of {plan.threads} threads, grid {plan.grid}"
+
+
+def k3_graph_replay(device, args) -> str:
+    """K3 captured in a CUDA graph (with the plan's cluster when S > 1) and
+    replayed: each replay counts one launch and rewrites the pick bit for bit."""
+    import torch
+
+    from constraint_solver_tpu_torch.core import graphed
+    from constraint_solver_tpu_torch.ops import block_pick as bp
+
+    want = bp.block_pick_ref(*args)
+    before = bp.block_pick.launches
+    seg = graphed.capture(lambda: bp.block_pick(*args), torch.cuda.CUDAGraph(), torch.cuda.Stream(device))
+    for _ in range(3):
+        seg.out.fill_(-1)
+        seg.replay()
+    sync(device)
+    if bp.block_pick.launches != before + 3 or not torch.equal(seg.out, want):
+        raise AssertionError(f"phase 2e: K3 replayed in a CUDA graph: {bp.block_pick.launches - before} launches "
+                             f"counted for 3 replays, equal {torch.equal(seg.out, want)}")
+    return k3_plan(args)
+
+
 def phase_k3(device, cases=None) -> dict:
     """2e. K3, the block pick, against its plain version bit for bit at
-    ``k3_cases``; then, at the timed cases, its device-only ms per launch (its
+    ``k3_cases`` (each with its launch plan; forced cluster sizes through the
+    wrapper's ``_slices``), and the 8-row retry at (16, 64, 16384) replayed in
+    a CUDA graph; then, at the timed cases, its device-only ms per launch (its
     events in a ``torch.profiler`` trace), the wrapper's host us, its time, the
     plain chain's and that of ``torch.argmin(hard.view(P, -1), dim=1)`` (the
     nearest single PyTorch call: the first pick when every row is valid) by
     CUDA events, and the bound (this call's bytes over 3.35 TB/s or its
-    operations over 67 T/s, the larger) with the share.  Returns K3's entry of
-    the kernels line (main case: the headline's first pick; launches filled in
-    by the paths)."""
+    operations over 67 T/s, the larger) with the share; at the cases timed
+    "device", the device-only ms, bound and share alone.  Returns K3's entry
+    of the kernels line (main case: the headline's first pick; launches filled
+    in by the paths)."""
     import torch
 
     from constraint_solver_tpu_torch.ops import block_pick as bp
@@ -1132,14 +1247,17 @@ def phase_k3(device, cases=None) -> dict:
     t0 = time.time()
     per, max_err = {}, 0.0
     card = card_line() if is_cuda(device) else "cpu"
-    for label, args, timed in cases or k3_cases(device):
-        got, want = bp.block_pick(*args), bp.block_pick_ref(*args)
+    cases = cases or k3_cases(device)
+    for label, args, timed, slices in cases:
+        pick = bp.block_pick if slices is None else functools.partial(bp.block_pick, _slices=slices)
+        plan = k3_plan(args, slices)
+        got, want = pick(*args), bp.block_pick_ref(*args)
         sync(device)
         if got.dtype != torch.int64 or not torch.equal(got, want):
-            raise AssertionError(f"phase 2e: K3 != its plain version ({label})")
+            raise AssertionError(f"phase 2e: K3 != its plain version ({label}, {plan})")
         max_err = max(max_err, float((got - want).abs().max()))
         rescanned = k3_rescanned(*args)
-        log(f"phase 2e: K3 == plain version bit for bit at {label}: {rescanned} rows rescanned, "
+        log(f"phase 2e: K3 == plain version bit for bit at {label} ({plan}): {rescanned} rows rescanned, "
             f"{int((got == 0).sum())} lanes pick 0")
         if not timed:
             continue
@@ -1148,28 +1266,41 @@ def phase_k3(device, cases=None) -> dict:
         ops, nbytes = bp.kernel_work(p, r, c, e, rescanned)
         by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
         bound, by = max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+        entry = {"bound_ms": bound, "bound_by": by, "bytes": nbytes, "operations": ops, "rescanned": rescanned,
+                 "plan": plan}
+        per[label] = entry
         if not is_cuda(device):
-            per[label] = {"bound_ms": bound, "bound_by": by, "bytes": nbytes, "operations": ops,
-                          "rescanned": rescanned}
+            continue
+        pick(*args)  # warm-up
+        dev, how = device_ms(pick, args, TIMED_LAUNCHES, K3_EVENT)
+        entry.update(device_ms=dev, bound_share=bound / dev)
+        if timed == "device":
+            log(f"phase 2e: K3 at {label} ({plan}): device-only {dev * 1e3:.3f} us per launch ({how}); bound "
+                f"{bound * 1e3:.4f} us ({by}), share {bound / dev:.3f}; {card}")
             continue
         flat = args[0].view(p, -1)
         argmin = (lambda t: torch.argmin(t, dim=1), (flat,))
-        for f, a in ((bp.block_pick, args), (bp.block_pick_ref, args), argmin):
+        for f, a in ((bp.block_pick_ref, args), argmin):
             time_ms(f, a, 3)  # warm-up
         plain_ms = [time_ms(bp.block_pick_ref, args, 10)]
-        kern = [time_ms(bp.block_pick, args, TIMED_LAUNCHES) for _ in range(2)]
+        kern = [time_ms(pick, args, TIMED_LAUNCHES) for _ in range(2)]
         plain_ms.append(time_ms(bp.block_pick_ref, args, 10))
         library_ms = time_ms(*argmin, TIMED_LAUNCHES)
-        dev, how = device_ms(bp.block_pick, args, TIMED_LAUNCHES, K3_EVENT)
-        host = min(host_us(bp.block_pick, args, TIMED_LAUNCHES) for _ in range(2))
-        per[label] = {"ms": sum(kern) / 2, "plain_ms": sum(plain_ms) / 2, "library_ms": library_ms,
-                      "device_ms": dev, "host_us": host, "bound_ms": bound, "bound_by": by,
-                      "bound_share": bound / dev, "bytes": nbytes, "operations": ops, "rescanned": rescanned}
-        log(f"phase 2e: K3 at {label}: {kern} ms by CUDA events over {TIMED_LAUNCHES} calls (host-bound: the "
-            f"wrapper's enqueue), plain chain {plain_ms} ms (10 calls), torch.argmin over the block {library_ms:.6f} "
-            f"ms; device-only {dev * 1e3:.3f} us per launch ({how}); host {host:.1f} us per call; bound "
-            f"{bound * 1e3:.4f} us ({nbytes} bytes at {HBM_BYTES_PER_S / 1e12} TB/s, {ops} operations at "
-            f"{FP32_OPS_PER_S / 1e12} T/s: {by}), share {bound / dev:.3f}; {card}")
+        library_dev, _ = device_ms(*argmin, TIMED_LAUNCHES, "")
+        host = min(host_us(pick, args, TIMED_LAUNCHES) for _ in range(2))
+        entry.update(ms=sum(kern) / 2, plain_ms=sum(plain_ms) / 2, library_ms=library_ms,
+                     library_device_ms=library_dev, host_us=host)
+        log(f"phase 2e: K3 at {label} ({plan}): {kern} ms by CUDA events over {TIMED_LAUNCHES} calls (host-bound: "
+            f"the wrapper's enqueue), plain chain {plain_ms} ms (10 calls), torch.argmin over the block "
+            f"{library_ms:.6f} ms ({library_dev * 1e3:.3f} us device-only); device-only {dev * 1e3:.3f} us per "
+            f"launch ({how}); host {host:.1f} us per call; bound {bound * 1e3:.4f} us ({nbytes} bytes at "
+            f"{HBM_BYTES_PER_S / 1e12} TB/s, {ops} operations at {FP32_OPS_PER_S / 1e12} T/s: {by}), share "
+            f"{bound / dev:.3f}; {card}")
+    if is_cuda(device):
+        label, args = next((label, args) for label, args, _, slices in cases
+                           if label == f"8 excluded row minima {K3_SHAPES[1]}" and slices is None)
+        log(f"phase 2e: K3 at {label} replayed 3 times in a CUDA graph ({k3_graph_replay(device, args)}): "
+            f"3 launches counted, the pick bit for bit")
     log(f"phase 2e: {time.time() - t0:.1f} s")
     main = dict(per[f"first pick {K3_SHAPES[0]}"])
     return {
@@ -1343,7 +1474,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
         launches0, k1_launches0 = nk.nqueens_neighborhood_scores.launches, qrm.qap_swap_row_min.launches
-        k2_0, k3_0 = k2_launches(), bp.block_pick.launches
+        k2_0, k3_0, k3_shapes0 = k2_launches(), bp.block_pick.launches, Counter(bp.block_pick.shapes)
         s = make(graphed)
         sync(device)
         t0 = time.time()
@@ -1359,6 +1490,8 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
             "k1_launches": qrm.qap_swap_row_min.launches - k1_launches0,
             "k2_launches": {k: v - k2_0[k] for k, v in k2_launches().items()},
             "k3_launches": bp.block_pick.launches - k3_0,
+            "k3_shapes": {str(k): v - k3_shapes0[k] for k, v in bp.block_pick.shapes.items()
+                          if v != k3_shapes0[k]},
             "peak_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
             "reserved_bytes": torch.cuda.memory_reserved(device) if cuda else None,
             "capture_s": graphs.capture_s if graphs is not None else None,
@@ -1368,7 +1501,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
     assert_tree_equal(graph["state"], eager["state"])
     if not np.array_equal(np.asarray(graph["result"]), np.asarray(eager["result"])):
         raise AssertionError(f"phase {label}: graphed and eager traces differ")
-    for key in ("stats", "launches", "k1_launches", "k2_launches", "k3_launches"):
+    for key in ("stats", "launches", "k1_launches", "k2_launches", "k3_launches", "k3_shapes"):
         if graph[key] != eager[key]:
             raise AssertionError(f"phase {label}: graphed and eager {key} differ: {graph[key]} != {eager[key]}")
     if not torch.equal(graph["generator"], eager["generator"]):
@@ -1376,18 +1509,27 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
     if is_cuda(device) and graph["units"] != 1:
         raise AssertionError(f"phase {label}: the graphed solver made {graph['units']} graphed descents, not 1")
     return {side: {k: v[k] for k in ("wall_s", "peak_bytes", "reserved_bytes", "capture_s", "launches", "k1_launches",
-                                     "k2_launches", "k3_launches", "stats")}
+                                     "k2_launches", "k3_launches", "k3_shapes", "stats")}
             for side, v in (("eager", eager), ("graphed", graph))}
 
 
-def phase_graphs(device, n=MAIN_N, population=MAIN_P, small_n=64, small_p=8, card=None) -> dict:
+def phase_graphs(device, n=MAIN_N, population=MAIN_P, small_n=64, small_p=8, clustered=(512, 64, 8, 4, 4),
+                 card=None) -> dict:
     """4b. The descent replayed as CUDA graphs against the eager loop, from one
     seed, drawing on the device: nqueens-``small_n`` P=``small_p`` in both tabu
     modes (phase 3's configuration, 3 chunks of 2 rounds with their traces),
     then nqueens-``n`` P=``population`` ``run(chunk=2)`` to zero, after a
-    2-round warm-up of each path."""
+    2-round warm-up of each path; then a few lanes whose K3 retries launch as
+    thread-block clusters (``clustered``: n, sample_cols, P, rounds, S; the
+    main path's configuration, seed "smoke-clusters"; the retries forced to S
+    blocks a lane through the wrapper's ``_slices``, since the plan takes a
+    cluster only for rows of 2048 candidates and more, whose solves retry late;
+    nqueens-512 P=8 retries some 26 times in its first round): K3's launches
+    by shape equal on both sides, retries among them."""
+    from constraint_solver_tpu_torch.core import problem as core_problem
     from constraint_solver_tpu_torch.core.ils import SolverConfig
     from constraint_solver_tpu_torch.models.nqueens import make_nqueens_problem
+    from constraint_solver_tpu_torch.ops import block_pick as bp
     from constraint_solver_tpu_torch.parallel.population import PopulationSolver
 
     card = card or (card_line() if is_cuda(device) else "cpu")
@@ -1446,6 +1588,30 @@ def phase_graphs(device, n=MAIN_N, population=MAIN_P, small_n=64, small_p=8, car
     log(f"phase 4b: capture {graph['capture_s']:.4f} s (host, inside the graphed wall); {card}")
     log(f"phase 4b: peak memory eager {eager['peak_bytes']} B, graphed {graph['peak_bytes']} B; reserved after "
         f"each {eager['reserved_bytes']} B, {graph['reserved_bytes']} B; {card}")
+    cl_n, cl_a, cl_p, cl_rounds, cl_s = clustered
+    cl_problem = make_nqueens_problem(cl_n, sample_cols=cl_a)
+    cl_config = dataclasses.replace(config, seed="smoke-clusters")
+
+    def clustered_pick(hard, row_valid, row_min, row_arg, excl=None):
+        return bp.block_pick(hard, row_valid, row_min, row_arg, excl, _slices=None if excl is None else cl_s)
+
+    core_problem.block_pick = clustered_pick  # ``Neighborhood.pick``: every retry
+    try:
+        clusters = out["clusters"] = graphs_pair(
+            device,
+            lambda graphed: PopulationSolver(cl_problem, cl_config, population=cl_p, exchange_every=2,
+                                             device=device, _graphed=graphed),
+            lambda s: s.run(max_rounds=cl_rounds, chunk=2) or np.asarray(s.get_best_score()),
+        )
+    finally:
+        core_problem.block_pick = bp.block_pick
+    retries = {k: v for k, v in clusters["graphed"]["k3_shapes"].items() if not k.endswith(", 0)")}
+    if is_cuda(device) and not retries:
+        raise AssertionError(f"phase 4b: nqueens-{cl_n} P={cl_p} made no K3 retry: "
+                             f"{clusters['graphed']['k3_shapes']}")
+    log(f"phase 4b: nqueens-{cl_n} P={cl_p} {cl_rounds} rounds, retries in clusters of {cl_s}: graphed == eager "
+        f"(state, stats, generator, K3 launches by (P, R, C, E) {clusters['graphed']['k3_shapes']}); walls eager "
+        f"{clusters['eager']['wall_s']:.3f} s, graphed {clusters['graphed']['wall_s']:.3f} s; {card}")
     if is_cuda(device):
         out["second_round"] = {}
         for graphed in (False, True):
@@ -3350,6 +3516,74 @@ def phase_bench(device, cell=BENCH_CELL) -> dict:
     return {"wall_s": wall, "launches": launches, "metrics": metrics, "breakdown": rec["breakdown"]}
 
 
+def phase_k3_solves(device, cells=("nqueens1000_p256", "nqueens16384_p16"), sets=()) -> dict:
+    """K3's launches over one whole solve of each N-Queens cell of
+    ``BENCHMARK.json`` (its configuration file and seed, ``run(max_rounds,
+    chunk)`` from a fresh solver, as ``bench_torch/run.py`` times it; ``sets``
+    as its ``--set``), by (P, R, C, E): E = 0 is a first pick, E > 0 a retry.
+    Graphed, then eagerly with each retry's rescanned rows a lane recorded (a
+    host read a retry): the same trajectory, so the same launches."""
+    import torch
+
+    from bench_torch import run as bench_run
+    from constraint_solver_tpu_torch.core import problem as core_problem
+    from constraint_solver_tpu_torch.ops import block_pick as bp
+    from constraint_solver_tpu_torch.parallel.population import PopulationSolver
+
+    bench = json.loads(bench_run.BENCHMARK.read_text())
+    chosen = bench_run.load_cells(bench, list(cells))
+    bench_run.apply_overrides(chosen, sets)
+    card = card_line() if is_cuda(device) else "cpu"
+    out = {}
+    pick = core_problem.block_pick
+    for name, cell in chosen.items():
+        config, traffic = cell["config"], cell["traffic"]
+        seed = bench["seed"] + config.get("seed_suffix", "")
+        kind = bench_run.KINDS[config["solver"]](config, traffic, device, seed)
+        sides = {}
+        for graphed in (True, False):
+            rows = Counter()  # rows a lane rescans in one retry -> how many (lane, retry) pairs
+
+            def recorded(hard, row_valid, row_min, row_arg, excl=None):
+                got = pick(hard, row_valid, row_min, row_arg, excl)
+                if excl is not None:
+                    c = hard.shape[2]
+                    flat = torch.arange(row_arg.shape[1], device=row_arg.device) * c + row_arg.long()
+                    per_lane = ((flat[:, :, None] == excl[:, None, :]).any(dim=-1) & row_valid).sum(dim=1)
+                    rows.update(per_lane.tolist())
+                return got
+
+            s = PopulationSolver(bench_run.counted(kind.problem, kind.iterations, False), kind.solver_config,
+                                 population=config["population"], exchange_every=config["exchange_every"],
+                                 cull_frac=config.get("cull_frac", 0.0), device=device, _graphed=graphed)
+            shapes0, kind.iterations.calls = Counter(bp.block_pick.shapes), 0
+            core_problem.block_pick = pick if graphed else recorded
+            try:
+                t0 = time.time()
+                s.run(max_rounds=traffic["max_rounds"], chunk=traffic["chunk"])
+                sync(device)
+                wall = time.time() - t0
+            finally:
+                core_problem.block_pick = pick
+            if s.get_best_score()[0] != 0:
+                raise AssertionError(f"{name}: not solved: {s.get_best_score()} after {s.stats()}")
+            shapes = {k: v - shapes0[k] for k, v in bp.block_pick.shapes.items() if v != shapes0[k]}
+            first = sum(v for k, v in shapes.items() if k[3] == 0)
+            side = {"wall_s": wall, "iterations": kind.iterations.calls, "rounds": s.stats()["rounds"],
+                    "first_picks": first, "retries": sum(shapes.values()) - first,
+                    "shapes": {str(k): v for k, v in shapes.items()}}
+            if not graphed:
+                side["rows_a_lane_a_retry"] = dict(sorted(rows.items()))
+                side["rows_rescanned"] = sum(k * v for k, v in rows.items())
+            sides["graphed" if graphed else "eager"] = side
+            log(f"K3 over one {name} solve ({'graphed' if graphed else 'eager'}): {side}; {card}")
+        if is_cuda(device) and sides["graphed"]["shapes"] != sides["eager"]["shapes"]:
+            raise AssertionError(f"{name}: K3's launches differ, graphed {sides['graphed']['shapes']}, eager "
+                                 f"{sides['eager']['shapes']}")
+        out[name] = sides
+    return out
+
+
 def build_kernels() -> None:
     """Phase 1: compile the five kernel libraries from the checkout's sources,
     one ``nvcc`` each, started together."""
@@ -3392,6 +3626,11 @@ def main() -> None:
         "--kernel-only", action="store_true",
         help="run phases 1, 2, 2b, 2c, 2d and 2e only, print the kernels' measurements and stop (no result line)",
     )
+    parser.add_argument(
+        "--k3-solves", action="store_true",
+        help="build the kernels, count K3's launches over one whole solve of each N-Queens cell, print them "
+             "and stop (no result line)",
+    )
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; the port's kernels run only on the card")
@@ -3401,6 +3640,11 @@ def main() -> None:
     build_kernels()
     card = card_line()
     log(f"phase 1: card {card}")
+    if args.k3_solves:
+        solves = phase_k3_solves(device)
+        log(card)
+        log(json.dumps({"k3_solves": solves}))
+        return
 
     kernel = phase_kernel(device)
     probe_entries, kernel["probe_shapes"] = phase_probes(device)

@@ -32,6 +32,20 @@ of pick-then-check (``core/local_search.py`` ``_retry``).
   minima to be the block's: row_min[p, j] is hard[p, j].amin() and row_arg[p,
   j] the first index holding it.  Under that precondition it equals the plain
   version bit for bit.
+- ``_launch_plan(p, r, c, e, sms)`` is the launch, a pure function of the
+  shapes and the card's SM count: a first pick (E = 0) is one block of
+  ``PICK_THREADS`` a lane; a retry is S blocks of ``RETRY_THREADS`` a lane,
+  one thread-block cluster, each block folding a contiguous slice of the
+  queued rows.  S is the smallest power of two with P·S ≥ the SMs, at most
+  ``MAX_SLICES`` (the portable cluster size), and no larger than leaves every
+  block ``RETRY_THREADS`` 16-byte items of one row: every retry of the
+  N-Queens solves rescans one row a lane (``chip_smoke.py --k3-solves``), and
+  R and E do not enter.  S = 8 at (16, 64, 16384), the fastest of S = 1, 2, 4
+  and 8 there at one row and at eight (``chip_smoke.py`` phase 2e); S = 1 at
+  (256, 50, 1000) and for rows under 2048 candidates.  With nothing to
+  rescan a cluster costs about 1 us more than one block, and no solve's
+  retry has nothing to rescan at (16, 64, 16384).  The wrapper's private
+  ``_slices`` forces S (1 to 8) for the chip's comparisons.
 - ``kernel_work(p, r, c, e, rescanned)`` is one call's (operations, bytes) by
   formula: what ``utils/roofline.py`` counts for the call (with the most rows a
   call can rescan, P·min(E, R)), and, given the rows that a call's data
@@ -44,7 +58,9 @@ of pick-then-check (``core/local_search.py`` ``_retry``).
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -56,9 +72,35 @@ from constraint_solver_tpu_torch.utils import roofline
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "block_pick.cu"
 _LIB_PATH = nk._BUILD_DIR / "libblock_pick.so"
 KERNEL_NAME = "block_pick"
-_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _LIBRARY = nk.KernelLibrary(_SRC, _LIB_PATH, {"block_pick_launch": _ARGS})
 MAX_EXCL = 256  # exclusion slots a lane (csrc kMaxExcl)
+PICK_THREADS, RETRY_THREADS = 128, 256  # a block's threads without and with exclusions (csrc)
+MAX_SLICES = 8  # blocks a lane: the portable cluster size (csrc kMaxSlices)
+
+
+class LaunchPlan(NamedTuple):
+    slices: int  # S: blocks a lane, one cluster (S, 1, 1) when S > 1
+    threads: int  # a block's threads
+    grid: int  # P·S blocks
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_plan(p: int, r: int, c: int, e: int, sms: int) -> LaunchPlan:
+    """K3's launch for P lanes of R rows of C candidates with E exclusion
+    slots on a card of ``sms`` SMs."""
+    if e == 0:
+        return LaunchPlan(1, PICK_THREADS, p)
+    items = -(-c // 4)  # 16-byte items of one row: the rows a lane rescans in the solves' retries
+    s = 1
+    while s < MAX_SLICES and p * s < sms and items >= 2 * s * RETRY_THREADS:
+        s *= 2
+    return LaunchPlan(s, RETRY_THREADS, p * s)
+
+
+@functools.lru_cache(maxsize=8)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def excluded(valid: torch.Tensor, excl: torch.Tensor | None) -> torch.Tensor:
@@ -126,31 +168,36 @@ def build_library(force: bool = False) -> str:
     return _LIBRARY.build(force)
 
 
-def block_pick(hard, row_valid, row_min, row_arg, excl=None) -> torch.Tensor:
+def block_pick(hard, row_valid, row_min, row_arg, excl=None, *, _slices=None) -> torch.Tensor:
     """K3: each lane's pick, int64[P], from the row block (hard float32[P, R, C],
     row_valid bool[P, R], row_min float32[P, R], row_arg int32[P, R]) with the
     candidates in ``excl`` int64[P, E] (or None) removed; all contiguous, on one
-    device."""
+    device.  ``_slices`` forces the plan's S on the card."""
     p, r, c, e = check_inputs(hard, row_valid, row_min, row_arg, excl)
+    if _slices is not None and not (1 <= _slices <= MAX_SLICES and (e or _slices == 1)):
+        raise ValueError(f"_slices must be 1 to {MAX_SLICES} with exclusions, 1 without; got {_slices}")
     count = roofline.active_count()
     if count is not None:
         # Counted by formula; the ops issued below are not counted.
         with count.kernel(KERNEL_NAME, *kernel_work(p, r, c, e)):
-            return _pick(hard, row_valid, row_min, row_arg, excl, p, r, c, e)
-    return _pick(hard, row_valid, row_min, row_arg, excl, p, r, c, e)
+            return _pick(hard, row_valid, row_min, row_arg, excl, p, r, c, e, _slices)
+    return _pick(hard, row_valid, row_min, row_arg, excl, p, r, c, e, _slices)
 
 
-def _pick(hard, row_valid, row_min, row_arg, excl, p, r, c, e):
+def _pick(hard, row_valid, row_min, row_arg, excl, p, r, c, e, slices):
     if hard.device.type == "cpu":
         return block_pick_ref(hard, row_valid, row_min, row_arg, excl)
     out = row_min.new_empty((p,), dtype=torch.int64)
     if p == 0:
         return out
+    index = hard.device.index
+    if slices is None:
+        slices = _launch_plan(p, r, c, e, _sms(index)).slices
     vec = int(c % 4 == 0 and hard.data_ptr() % 16 == 0)
     ptrs = [t.data_ptr() for t in (hard, row_valid, row_min, row_arg)]
     nk.launch(_LIBRARY.entry("block_pick_launch"),
-              (*ptrs, excl.data_ptr() if e else None, out.data_ptr(), p, r, c, e, vec),
-              hard.device.index, f"(P, R, C, E) = {(p, r, c, e)}")
+              (*ptrs, excl.data_ptr() if e else None, out.data_ptr(), p, r, c, e, vec, slices),
+              index, f"(P, R, C, E) = {(p, r, c, e)}, {slices} blocks a lane")
     launch_count.count(block_pick, (p, r, c, e))
     return out
 

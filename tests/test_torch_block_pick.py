@@ -9,8 +9,12 @@ The kernel runs only on the card (``tests/test_torch_cuda.py``,
   (ties everywhere), with invalid rows, lanes with no valid row, and exclusion
   lists with -1 slots, repeats and hits on and off each row's first minimum;
 - the kernel's algorithm (each row's first minimum, the rows whose minimum is
-  excluded scanned again) written out in torch, against the plain version,
-  also on floats with signed zeros, infinities and NaN;
+  excluded scanned again, as one flat space of items cut into S contiguous
+  slices, one block of a cluster each, merged by the same fold) written out in
+  torch, against the plain version for S = 1, 2, 3 and 8, also on floats with
+  signed zeros, infinities and NaN, and on ties, a NaN, signed zeros and a
+  fully excluded row placed across the slices' boundaries;
+- the launch plan (``_launch_plan``): blocks a lane and threads a block;
 - the N-Queens neighborhood's row block against the JAX neighborhood, and the
   descent's pick-then-check in the block form against the same problem with
   the block materialized, eagerly and through the graphed loop's segments,
@@ -104,28 +108,56 @@ def _jax_pick(hard, row_valid, excl):
     return np.asarray(j_lex_argmin(scores, mask))
 
 
-def _row_minimum_pick(hard, row_valid, row_min, row_arg, excl):
+_NO_INDEX = 2**63 - 1
+
+
+def _fold(best, v, i):
+    """The kernel's fold: (v, i) replaces the best when lower, or equal at a
+    lower index (-0.0 ties 0.0)."""
+    return (v, i) if v < best[0] or (v == best[0] and i < best[1]) else best
+
+
+def _row_minimum_pick(hard, row_valid, row_min, row_arg, excl, slices=1):
     """The kernel's algorithm in torch: each valid row's (row_min, j·C +
-    row_arg), the rows whose first minimum is excluded scanned again without
-    their excluded entries, the lowest (value, flat index); 0 where the minimum
-    is +inf or a candidate is NaN."""
+    row_arg); the rows whose first minimum is excluded queued in row order and
+    scanned again without their excluded entries, as one flat space of items
+    (queued row, 4 columns; 1 where C % 4 != 0) cut into ``slices`` contiguous
+    slices, one block each, block 0 also folding the rows' first minima; the
+    blocks' (value, index, NaN flag) merged by the same fold; 0 where the
+    minimum is +inf or a candidate is NaN."""
     p, r, c = hard.shape
+    w = 4 if c % 4 == 0 else 1
+    cw = c // w
+    inf = float("inf")
     out = torch.zeros(p, dtype=torch.int64)
     for lane in range(p):
         ex = set(excl[lane].tolist()) if excl is not None else set()
-        cands = []
+        firsts, queued = [], []
         for j in range(r):
             if not bool(row_valid[lane, j]):
                 continue
             flat = j * c + int(row_arg[lane, j])
-            if flat not in ex:
-                cands.append((float(row_min[lane, j]), flat))
-                continue
-            cands += [(float(hard[lane, j, k]), j * c + k) for k in range(c) if j * c + k not in ex]
-        if any(v != v for v, _ in cands):
-            continue
-        best = min(cands, default=(float("inf"), 0))
-        out[lane] = best[1] if best[0] < float("inf") else 0
+            if flat in ex:
+                queued.append(j)
+            else:
+                firsts.append((float(row_min[lane, j]), flat))
+        total = len(queued) * cw
+        best, nan = (inf, _NO_INDEX), False
+        for b in range(slices):
+            cands = list(firsts) if b == 0 else []
+            for i in range(total * b // slices, total * (b + 1) // slices):
+                q, k = divmod(i, cw)
+                flat0 = queued[q] * c + k * w
+                cands += [(float(hard[lane, queued[q], k * w + d]), flat0 + d) for d in range(w)
+                          if flat0 + d not in ex]
+            part = (inf, _NO_INDEX)
+            for v, i in cands:
+                if v != v:
+                    nan = True
+                else:
+                    part = _fold(part, v, i)
+            best = _fold(best, *part)
+        out[lane] = best[1] if not nan and best[0] < inf else 0
     return out
 
 
@@ -148,21 +180,26 @@ def test_plain_version_equals_the_port_chain_and_jax(p, r, c, e):
         assert torch.equal(got, bp.block_pick(hard, row_valid, row_min, row_arg))  # None: no exclusion
 
 
+SLICES = pytest.mark.parametrize("slices", [1, 2, 3, 8])
+
+
+@SLICES
 @SHAPES
-def test_row_minimum_algorithm_equals_the_plain_version(p, r, c, e):
+def test_row_minimum_algorithm_equals_the_plain_version(p, r, c, e, slices):
     rng = np.random.default_rng(7 + p * r * c + e)
     for high in (2, 4):  # mostly ties
         hard, row_valid, row_min, row_arg = _block(rng, p, r, c, high=high)
         excl = _exclusions(rng, hard, row_valid, row_arg, e, share_on_arg=0.8)
         want = bp.block_pick_ref(hard, row_valid, row_min, row_arg, excl)
-        assert torch.equal(_row_minimum_pick(hard, row_valid, row_min, row_arg, excl), want)
+        assert torch.equal(_row_minimum_pick(hard, row_valid, row_min, row_arg, excl, slices), want)
     # Every valid candidate excluded: 0.
     hard, row_valid, row_min, row_arg = _block(rng, 2, 2, 3, invalid=0.0, dead_lanes=())
     everything = torch.arange(6).expand(2, 6).contiguous()
     assert torch.equal(bp.block_pick(hard, row_valid, row_min, row_arg, everything), torch.zeros(2, dtype=torch.int64))
 
 
-def test_row_minimum_algorithm_on_signed_zeros_infinities_and_nan():
+@SLICES
+def test_row_minimum_algorithm_on_signed_zeros_infinities_and_nan(slices):
     """The precondition (row stats by ``amin`` and ``argmin``) carries the
     plain version's float semantics: -0.0 ties 0.0, a +inf minimum or a NaN
     candidate gives 0, -inf is a minimum like any other."""
@@ -180,7 +217,92 @@ def test_row_minimum_algorithm_on_signed_zeros_infinities_and_nan():
     for excl in (None, torch.tensor([[1, 5], [0, -1], [1, -1], [1, 3], [1, -1]]),
                  torch.tensor([[-1, -1], [3, 4], [-1, 0], [-1, -1], [5, 1]])):
         want = bp.block_pick_ref(hard, row_valid, row_min, row_arg, excl)
-        assert torch.equal(_row_minimum_pick(hard, row_valid, row_min, row_arg, excl), want), excl
+        assert torch.equal(_row_minimum_pick(hard, row_valid, row_min, row_arg, excl, slices), want), excl
+
+
+def _trap_block(trap):
+    """(hard, row_valid, row_min, row_arg, excl) of 1-2 lanes whose answer
+    depends on the slices' merge: 16 columns (4 items) a row, rows 1 and 3 (and
+    5) queued, so their items fall into different slices for S > 1."""
+    inf, nan = float("inf"), float("nan")
+    c = 16
+    base = [[5.0] * c for _ in range(6)]
+    lanes, excls = [], []
+    if trap == "ties":
+        # 1.0 in row 1 at 0 (its first minimum, excluded), 5 and 9; row 3 at 0 and 2; row 4 at 0, not queued:
+        # rank 0 holds row 4's (1.0, 64), later ranks lower indices.
+        rows = [list(x) for x in base]
+        for j, cols in ((1, (0, 5, 9)), (3, (0, 2)), (4, (0,))):
+            for k in cols:
+                rows[j][k] = 1.0
+        lanes.append(rows)
+        excls.append([1 * c, 3 * c, -1, -1, -1, -1, -1, -1])
+        rows = [list(x) for x in base]  # the tie inside one queued row, across its items
+        rows[3][0] = rows[3][7] = rows[3][12] = 0.5
+        lanes.append(rows)
+        excls.append([3 * c, 1 * c + 0, -1, -1, -1, -1, -1, -1])
+    elif trap == "nan_last":
+        rows = [list(x) for x in base]
+        for j in (1, 3):
+            rows[j][0] = 2.0
+        rows[5][0] = rows[5][15] = nan  # the first excluded, the second in the last item
+        lanes.append(rows)
+        excls.append([1 * c, 3 * c, 5 * c, -1, -1, -1, -1, -1])
+    elif trap == "signed_zeros":
+        for first, second in ((-0.0, 0.0), (0.0, -0.0)):
+            rows = [list(x) for x in base]
+            rows[1][0], rows[1][14] = first, first
+            rows[3][1], rows[3][2] = second, second
+            lanes.append(rows)
+            excls.append([1 * c, 3 * c + 1, -1, -1, -1, -1, -1, -1])
+    else:  # "excluded_row": row 1 wholly excluded; in the second lane every valid row is
+        rows = [list(x) for x in base]
+        rows[1] = [0.0] * c
+        rows[2][9] = 3.0
+        lanes.append(rows)
+        excls.append([1 * c + k for k in range(c)] + [-1] * 4)
+        rows = [list(x) for x in base]
+        lanes.append(rows)
+        excls.append([2 * c + k for k in range(c)] + [1 * c + k for k in range(4)])
+    hard = torch.tensor(lanes, dtype=torch.float32)
+    row_min, row_arg = _row_stats(hard)
+    row_valid = torch.ones(hard.shape[:2], dtype=torch.bool)
+    if trap == "excluded_row":
+        row_valid[1] = False
+        row_valid[1, 2] = True
+    excl = torch.tensor(excls, dtype=torch.int64)
+    return hard, row_valid, row_min, row_arg, excl
+
+
+@SLICES
+@pytest.mark.parametrize("trap, want", [("ties", [21, 55]), ("nan_last", [0]), ("signed_zeros", [30, 30]),
+                                        ("excluded_row", [41, 0])])
+def test_row_minimum_algorithm_across_slice_boundaries(trap, want, slices):
+    """Ties whose lowest index lies in a later block than rank 0's candidate,
+    a NaN only in the last block's slice, -0.0 and 0.0 in different blocks,
+    a queued row with every entry excluded: the merged pick is the plain
+    version's for every S."""
+    args = _trap_block(trap)
+    got = _row_minimum_pick(*args, slices)
+    assert torch.equal(bp.block_pick_ref(*args), torch.tensor(want)), trap
+    assert torch.equal(got, torch.tensor(want)), (trap, slices, got)
+
+
+@pytest.mark.parametrize("p, slices", [(1, 8), (16, 8), (64, 4), (256, 1), (300, 1)])
+def test_launch_plan_spreads_few_lanes_over_a_cluster(p, slices):
+    """S: the smallest power of two with P·S ≥ the SMs, at most 8; P·S blocks
+    of 256 threads a retry; a first pick one block of 128 a lane; a short row
+    (too few items of one row for a second block) S = 1, whatever R and E."""
+    plan = bp._launch_plan(p, 64, 16384, 8, 132)
+    assert plan == bp.LaunchPlan(slices, bp.RETRY_THREADS, p * slices)
+    assert bp._launch_plan(p, 64, 16384, 0, 132) == bp.LaunchPlan(1, bp.PICK_THREADS, p)
+    for r, c, e in ((50, 1000, 8), (3, 64, 8), (12, 2, 16), (64, 16384, 256), (64, 4099, 1), (64, 2048, 8)):
+        s = bp._launch_plan(p, r, c, e, 132).slices
+        assert s in (1, 2, 4, 8) and (s == 1 or p * s // 2 < 132)
+        assert s == 1 or -(-c // 4) >= s * bp.RETRY_THREADS  # a block's share of one row: 256 items or more
+        assert all(bp._launch_plan(p, r2, c, e2, 132).slices == s for r2, e2 in ((1, 1), (r, 256)))
+    assert bp._launch_plan(p, 64, 1000, 8, 132).slices == 1  # 250 items a row: one block
+    assert bp._launch_plan(p, 64, 16384, 8, 114).slices == {64: 2}.get(p, slices)  # an H100 PCIe's 114 SMs
 
 
 def _jax_state(boards):
@@ -326,6 +448,9 @@ def test_wrapper_checks_its_inputs():
         bp.block_pick(hard[:, :, :0], row_valid, row_min, row_arg, excl)
     with pytest.raises(ValueError, match="at most 256"):
         bp.block_pick(hard, row_valid, row_min, row_arg, torch.full((3, 257), -1, dtype=torch.int64))
+    for slices, x in ((0, excl), (9, excl), (2, None)):
+        with pytest.raises(ValueError, match="_slices"):
+            bp.block_pick(hard, row_valid, row_min, row_arg, x, _slices=slices)
     before = bp.block_pick.launches
     bp.block_pick(hard, row_valid, row_min, row_arg, excl)
     assert bp.block_pick.launches == before  # no kernel on the CPU
@@ -388,7 +513,11 @@ def test_the_library_builds_once_with_the_c_entry_it_declares(fake_toolchain):
     kinds = [ctypes.c_void_p if "*" in q else ctypes.c_int for q in params.split(",")]
     assert fn.argtypes == kinds == bp._ARGS
     assert bp._LIB_PATH == nk._BUILD_DIR / "libblock_pick.so"
-    assert re.search(r"kMaxExcl = (\d+);", bp._SRC.read_text()).group(1) == str(bp.MAX_EXCL)
+    src = bp._SRC.read_text()
+    consts = {name: int(re.search(rf"{name} = (\d+);", src).group(1))
+              for name in ("kMaxExcl", "kPickThreads", "kRetryThreads", "kMaxSlices")}
+    assert consts == {"kMaxExcl": bp.MAX_EXCL, "kPickThreads": bp.PICK_THREADS, "kRetryThreads": bp.RETRY_THREADS,
+                      "kMaxSlices": bp.MAX_SLICES}
 
 
 def test_a_failed_build_raises(fake_toolchain, monkeypatch):

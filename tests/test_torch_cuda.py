@@ -998,13 +998,15 @@ def test_cuda_fingerprint_rows_split_over_the_sms(cuda, rows, n):
 def test_cuda_block_pick_matches_plain_version_at_the_smoke_cases(cuda):
     """K3 at ``chip_smoke.py`` phase 2e's cases (the first pick and retries at
     (256, 50, 1000) and (16, 64, 16384), exclusions with -1 slots and invalid
-    rows, lanes with no valid row, a block off 16 bytes, the ragged (5, 7,
-    1003)): bit for bit the plain version."""
+    rows, lanes with no valid row, retries of 1, 3 and 8 rows at every cluster
+    size the plan can take, the cluster merge's traps, a block off 16 bytes,
+    one lane and 300 lanes, the ragged (5, 7, 1003)): bit for bit the plain
+    version."""
     import chip_smoke
     from constraint_solver_tpu_torch.ops import block_pick as bp
 
-    for label, args, _ in chip_smoke.k3_cases(cuda):
-        got, want = bp.block_pick(*args), bp.block_pick_ref(*args)
+    for label, args, _, slices in chip_smoke.k3_cases(cuda):
+        got, want = bp.block_pick(*args, _slices=slices), bp.block_pick_ref(*args)
         torch.cuda.synchronize()
         assert got.dtype == torch.int64 and torch.equal(got, want), label
 
@@ -1044,18 +1046,20 @@ def test_cuda_block_pick_counts_through_graph_replays_and_raises(cuda, tmp_path,
     from constraint_solver_tpu_torch.core import graphed
     from constraint_solver_tpu_torch.ops import block_pick as bp
 
-    label, args, _ = chip_smoke.k3_cases(cuda)[1]  # 8 excluded row minima at (256, 50, 1000)
-    want = bp.block_pick_ref(*args)
-    bp.block_pick(*args)  # built and loaded before the capture
-    torch.cuda.synchronize()
-    before = bp.block_pick.launches
-    seg = graphed.capture(lambda: bp.block_pick(*args), torch.cuda.CUDAGraph(), torch.cuda.Stream(cuda))
-    assert bp.block_pick.launches == before and sum(seg.launches.values()) == 1
-    for _ in range(3):
-        seg.out.fill_(-1)
-        seg.replay()
-    torch.cuda.synchronize()
-    assert bp.block_pick.launches == before + 3 and torch.equal(seg.out, want), label
+    cases = {label: args for label, args, _, slices in chip_smoke.k3_cases(cuda) if slices is None}
+    for label in ("8 excluded row minima (256, 50, 1000)", "8 excluded row minima (16, 64, 16384)"):
+        args = cases[label]  # one block a lane, then a cluster of 8
+        want = bp.block_pick_ref(*args)
+        bp.block_pick(*args)  # built and loaded before the capture
+        torch.cuda.synchronize()
+        before = bp.block_pick.launches
+        seg = graphed.capture(lambda: bp.block_pick(*args), torch.cuda.CUDAGraph(), torch.cuda.Stream(cuda))
+        assert bp.block_pick.launches == before and sum(seg.launches.values()) == 1
+        for _ in range(3):
+            seg.out.fill_(-1)
+            seg.replay()
+        torch.cuda.synchronize()
+        assert bp.block_pick.launches == before + 3 and torch.equal(seg.out, want), label
     for exact in (None, False):
         counts = {}
         for graphed_run in (False, True):
