@@ -2,14 +2,15 @@
 """Smoke run of the PyTorch port (``constraint_solver_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py                # every phase
-    python3 chip_smoke.py --kernel-only  # phases 1, 2, 2b, 2c, 2d and 2e, no result line
+    python3 chip_smoke.py --kernel-only  # phases 1, 2, 2b, 2c, 2d, 2e and 2f, no result line
     python3 chip_smoke.py --k3-solves    # phase 1, then K3's launches over a solve of each N-Queens cell
 
 Phases, each printing its own lines; any failure raises and exits nonzero:
 
-1. builds the five CUDA libraries from ``constraint_solver_tpu_torch/csrc``
+1. builds the six CUDA libraries from ``constraint_solver_tpu_torch/csrc``
    (``nqueens_scores.cu``, ``nqueens_probes.cu``, ``qap_row_min.cu``,
-   ``fingerprint.cu`` and ``block_pick.cu``, one ``nvcc`` each, started together) and prints the card's name and power limit (``nvidia-smi``);
+   ``fingerprint.cu``, ``block_pick.cu`` and ``nqueens_move.cu``, one ``nvcc``
+   each, started together) and prints the card's name and power limit (``nvidia-smi``);
    without a CUDA device it stops before printing any result;
 2. holds the kernel against its plain PyTorch version on the card, bit for bit,
    at the shapes the solvers give it (phase 13's sharded (128, 25, 1000) and
@@ -73,6 +74,16 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    events in a profiler trace), the wrapper's host us, the wrapper, the plain
    chain and ``torch.argmin`` over the block (the nearest single PyTorch call)
    by CUDA events, and the bound of this call's rows with the share;
+2f. K4, the masked N-Queens move (``ops/nqueens_move.py``,
+   ``csrc/nqueens_move.cu``), at the N-Queens cells' (256, 50, 1000) and (16,
+   64, 16384) and the ragged (5, 7, 1003), with masks all on, all off and
+   mixed, same-row moves and the columns 0 and n - 1 among the moves: every
+   leaf of the state equal to its plain version's bit for bit; the mixed case
+   at (16, 64, 16384) replayed once in a CUDA graph; at the two shapes' all-on
+   move and the headline's mixed one its device-only time (its events in a
+   profiler trace), the wrapper's host us, the wrapper, the plain version and
+   the select form's chain (``apply_move`` then the select) by CUDA events,
+   and the bound of this call's masked lanes with the share;
 3. runs a few rounds of nqueens-64 with 8 lanes on the card and on the CPU from
    the same host-side draws, in both tabu modes: the states must be equal;
 4. drives the main path, ``PopulationSolver(make_nqueens_problem(1000), ...,
@@ -81,14 +92,18 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    board with an independent numpy count, every lane's carried counters against
    a rebuild from its board, the carried fingerprints against a full
    recomputation by K2b and by the plain version, and that the kernel, K2a,
-   K2a's ring form, K2b and K3 were launched in the run;
+   K2a's ring form, K2b, K3 and K4 were launched in the run;
 4b. the descent replayed as CUDA graphs (``core/graphed.py``, the solvers'
    default on the card) against the eager loop (the solvers' private
    ``_graphed=False``), from one seed, drawing on the card: nqueens-64 with 8
    lanes in both tabu modes, 3 chunks of 2 rounds, and the main path's
    ``run(chunk=2)`` to zero after a warm-up of each: the final state trees,
    the traces, ``stats()``, the generator's state and the launches of the
-   kernel, of K2a, its ring form and K2b and of K3 must be equal, and each must have launched; it prints both walls, the capture time and both peak
+   kernel, of K2a, its ring form and K2b, of K3 and of K4 must be equal, and
+   each must have launched; nqueens-512 P=8 with its retries in clusters;
+   then nqueens-512 P=8 with its move written in place (K4) against the same
+   problem with ``in_place`` stripped, both graphed: state bits, traces and
+   ``stats()`` equal; it prints both walls, the capture time and both peak
    memories, each with the card's name and power limit, then the benchmark's
    traced round on the second round of a fresh solver on each path;
 4c. the same comparison for the other domains that replay their descents as
@@ -210,7 +225,7 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
 Each path's kernel launches are counted from 0 just before it runs: B1's on the
 N-Queens paths, K1's on phases 4c, 8, 11b and the QAP CLI, K2a's, its ring
 form's and K2b's on phases 4, 4b, 4c, 8, 11b and the nqueens and QAP CLIs,
-K3's on phases 4, 4b, 4d, 11b, 12 and 14.  The line before the
+K3's and K4's on phases 4, 4b, 4d, 11b, 12 and 14.  The line before the
 last is a JSON object with each kernel's measurements; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -275,6 +290,14 @@ K3_RAGGED = (5, 7, 1003)
 K3_EVENT = "block_pick"
 K3_REPLACES = ("constraint_solver_tpu/ops/lex.py:30-34 (make_score) via models/nqueens.py:327-329, :353, read at "
                "core/local_search.py:126, :144, :263 (lex_argmin, the pick's score; XLA fusion, no Pallas call)")
+# Phase 2f: K4 (the masked N-Queens move) at the N-Queens cells' (P, A, n) and a ragged one; its events in a trace.
+K4_SHAPES = ((MAIN_P, MAIN_A, MAIN_N), (16, 64, 16384))
+K4_RAGGED = (5, 7, 1003)
+K4_EVENT = "nqueens_move"
+L2_BYTES = 50 * 2**20  # H100 SXM's L2
+K4_L2_SPAN = 4  # phase 2f times K4 over state copies whose rows and cs hold this many times the L2
+K4_REPLACES = ("constraint_solver_tpu/models/nqueens.py:375-406 (apply_move) with core/local_search.py:107-108 "
+               "(_select) at :282-283, :290 and :305-316 (XLA fusion, no Pallas call)")
 
 
 def log(msg: str) -> None:
@@ -790,6 +813,13 @@ def require_k3(pair: dict, what: str) -> None:
     launches = (pair["eager"]["k3_launches"], pair["graphed"]["k3_launches"])
     if 0 in launches:
         raise AssertionError(f"{what}: K3 (block_pick) never launched (eager, graphed): {launches}")
+
+
+def require_k4(pair: dict, what: str) -> None:
+    """On the card, K4 must have launched on both sides of a graphed-against-eager pair."""
+    launches = (pair["eager"]["k4_launches"], pair["graphed"]["k4_launches"])
+    if 0 in launches:
+        raise AssertionError(f"{what}: K4 (nqueens_move) never launched (eager, graphed): {launches}")
 
 
 def k2_cases(device) -> list:
@@ -1315,6 +1345,191 @@ def phase_k3(device, cases=None) -> dict:
     }
 
 
+def k4_cases(device) -> list:
+    """(label, state, moves, idx, mask, timed) at the N-Queens cells' (256, 50,
+    1000) and (16, 64, 16384) and the ragged (5, 7, 1003): counters of random
+    boards, A distinct columns a lane as a row-strided view (the
+    neighborhood's sample is one), random moves with every fourth lane a
+    same-row move and the first lane's column 0 to row n - 1; masks all on,
+    all off and mixed (random, about half).  ``timed``: the all-on case of the
+    two cells' shapes and the mixed one of the headline's."""
+    import torch
+
+    from constraint_solver_tpu_torch.models.nqueens import NQMoves, build_state
+
+    rng = np.random.default_rng(21)
+    cases = []
+    for p, a, n in K4_SHAPES + (K4_RAGGED,):
+        st = build_state(torch.as_tensor(rng.integers(0, n, size=(p, n)), device=device))
+        perm = np.argsort(rng.random((p, n)), axis=1)
+        for lane, edge in ((0, 0), (1, n - 1)):  # lane 0 samples column 0 first, lane 1 column n - 1
+            perm[lane] = np.r_[edge, perm[lane][perm[lane] != edge]]
+        moves = NQMoves(torch.as_tensor(perm, device=device)[:, :a], n)
+        k = torch.as_tensor(rng.integers(0, a, size=p), device=device)
+        r_new = torch.as_tensor(rng.integers(0, n, size=p), device=device)
+        k[:2], r_new[:2] = 0, torch.tensor([n - 1, 0])  # column 0 to row n - 1, column n - 1 to row 0
+        lane = torch.arange(p, device=device)
+        r_new = torch.where(lane % 4 == 3, st.rows[lane, moves.cols[lane, k]], r_new)  # same-row moves
+        idx = k * n + r_new
+        masks = {"all on": torch.ones(p, dtype=torch.bool, device=device),
+                 "all off": torch.zeros(p, dtype=torch.bool, device=device),
+                 "mixed": torch.as_tensor(rng.random(p) < 0.5, device=device)}
+        for name, mask in masks.items():
+            timed = (p, a, n) != K4_RAGGED and (name == "all on" or (name == "mixed" and n == MAIN_N))
+            cases.append((f"{name} {(p, a, n)}", st, moves, idx.contiguous(), mask, timed))
+    return cases
+
+
+def k4_equal(got, want) -> bool:
+    """Every leaf of two N-Queens states equal, floats by their bits."""
+    import torch
+
+    bits = (lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t)
+    return all(torch.equal(bits(x), bits(y)) for x, y in zip(got, want, strict=True))
+
+
+def k4_graph_replay(device, st, moves, idx, mask) -> None:
+    """K4 captured in a CUDA graph and replayed once: one launch counted, the
+    state written bit for bit as the plain version writes it."""
+    import torch
+
+    from constraint_solver_tpu_torch.core import graphed
+    from constraint_solver_tpu_torch.ops import nqueens_move as nm
+    from constraint_solver_tpu_torch.utils.tree import tree_map
+
+    want, got = tree_map(torch.clone, st), tree_map(torch.clone, st)
+    nm.nqueens_move_ref(want, moves, idx, mask)
+    before = nm.nqueens_move.launches
+    seg = graphed.capture(lambda: nm.nqueens_move(got, moves, idx, mask), torch.cuda.CUDAGraph(),
+                          torch.cuda.Stream(device))
+    if not k4_equal(got, st):
+        raise AssertionError("phase 2f: capturing K4 wrote the state")
+    seg.replay()
+    sync(device)
+    if nm.nqueens_move.launches != before + 1 or not k4_equal(got, want):
+        raise AssertionError(f"phase 2f: K4 replayed in a CUDA graph: {nm.nqueens_move.launches - before} launches "
+                             f"counted for 1 replay, equal {k4_equal(got, want)}")
+
+
+def k4_rotation(st, moves, idx, mask):
+    """Copies of ``st`` whose rows and cs (what K4 streams) hold ``K4_L2_SPAN``
+    times the L2, and ``call(fn)``, which applies ``fn`` (K4 or a plain form,
+    with ``st``'s signature) to the next copy: each copy's move ``idx`` on
+    the first pass over them, the move back to the old row on the second, and
+    so on.  Every call does the same work from HBM; a run of ``2 * copies``
+    calls leaves every copy as it was.  Returns (copies, call)."""
+    import torch
+
+    from constraint_solver_tpu_torch.utils.tree import tree_map
+
+    p, n = st.rows.shape
+    count = max(2, -(-K4_L2_SPAN * L2_BYTES // (st.rows.nbytes + st.cs.nbytes)))
+    copies = [tree_map(torch.clone, st) for _ in range(count)]
+    lane, k = torch.arange(p, device=idx.device), idx // n
+    back = (k * n + st.rows[lane, moves.cols[lane, k]]).contiguous()
+    step = [0]
+
+    def call(fn):
+        i = step[0]
+        step[0] = i + 1
+        fn(copies[i % count], moves, back if i // count % 2 else idx, mask)
+
+    return copies, call
+
+
+def phase_k4(device, cases=None) -> dict:
+    """2f. K4, the masked N-Queens move, against its plain version bit for bit
+    at ``k4_cases`` (every leaf of the state, floats by their bits), and the
+    mixed case at (16, 64, 16384) replayed once in a CUDA graph; then, at the
+    timed cases, its device-only ms per launch (its events in a
+    ``torch.profiler`` trace), the wrapper's host us, its time, the plain
+    version's and the select form's chain (``apply_move`` then the select by
+    the mask, which the descent ran before K4) by CUDA events, each over
+    state copies that do not fit the L2 (``k4_rotation``), and the bound
+    (``move_work``: this call's bytes, from the lanes it masks and the scores
+    its moves change, over 3.35 TB/s, or its operations over 67 T/s, the
+    larger) with the share.  No single PyTorch call computes the move (no
+    library time).  Returns K4's entry of the kernels line (main case: the
+    headline's all-on move; launches filled in by the paths)."""
+    import torch
+
+    from constraint_solver_tpu_torch.models.nqueens import make_nqueens_problem
+    from constraint_solver_tpu_torch.ops import nqueens_move as nm
+    from constraint_solver_tpu_torch.utils.tree import tree_map, tree_where
+
+    t0 = time.time()
+    per, max_err = {}, 0.0
+    card = card_line() if is_cuda(device) else "cpu"
+    cases = cases or k4_cases(device)
+    for label, st, moves, idx, mask, timed in cases:
+        p, a = moves.cols.shape
+        n = moves.n
+        got, want = tree_map(torch.clone, st), tree_map(torch.clone, st)
+        nm.nqueens_move(got, moves, idx, mask)
+        nm.nqueens_move_ref(want, moves, idx, mask)
+        sync(device)
+        if not k4_equal(got, want):
+            raise AssertionError(f"phase 2f: K4 != its plain version ({label})")
+        max_err = max(max_err, *(float((x.double() - y.double()).abs().max()) for x, y in zip(got, want)))
+        masked = int(mask.sum())
+        changed = int((got.rows != st.rows).any(dim=1).sum())
+        log(f"phase 2f: K4 == plain version bit for bit at {label} ({nm._launch_plan(n)} threads a lane): "
+            f"{masked} lanes masked, {changed} boards changed")
+        if not timed:
+            continue
+        ops, nbytes = nm.move_work(st, moves, idx, mask)
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+        bound, by = max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+        entry = per[label] = {"bound_ms": bound, "bound_by": by, "bytes": nbytes, "operations": ops,
+                              "masked": masked, "threads": nm._launch_plan(n)}
+        if not is_cuda(device):
+            continue
+        copies, call = k4_rotation(st, moves, idx, mask)
+        cycle = 2 * len(copies)  # calls that leave every copy as it was
+        problem = make_nqueens_problem(n, sample_cols=a)
+
+        def select_chain(state, moves, idx, mask):
+            return tree_where(mask, problem.apply_move(state, moves, idx), state)
+
+        for f in (nm.nqueens_move, nm.nqueens_move_ref, select_chain):
+            time_ms(call, (f,), cycle)  # warm-up
+        dev, how = device_ms(call, (nm.nqueens_move,), cycle, K4_EVENT)
+        plain_ms = [time_ms(call, (nm.nqueens_move_ref,), cycle)]
+        chain_ms = [time_ms(call, (select_chain,), cycle)]
+        kern = [time_ms(call, (nm.nqueens_move,), cycle) for _ in range(2)]
+        plain_ms.append(time_ms(call, (nm.nqueens_move_ref,), cycle))
+        chain_ms.append(time_ms(call, (select_chain,), cycle))
+        args = (got, moves, idx, mask)  # the host's enqueue does not read the data
+        host = min(host_us(nm.nqueens_move, args, TIMED_LAUNCHES) for _ in range(2))
+        if not all(k4_equal(c, st) for c in copies):
+            raise AssertionError(f"phase 2f: K4's timed moves there and back did not restore the state ({label})")
+        del copies
+        entry.update(ms=sum(kern) / 2, device_ms=dev, bound_share=bound / dev, plain_ms=sum(plain_ms) / 2,
+                     select_chain_ms=sum(chain_ms) / 2, library_ms=None, host_us=host, state_copies=cycle // 2)
+        log(f"phase 2f: K4 at {label}: {kern} ms by CUDA events over {cycle} calls on {cycle // 2} state copies "
+            f"(host-bound: the wrapper's enqueue), plain version {plain_ms} ms, apply_move + select {chain_ms} ms; "
+            f"device-only {dev * 1e3:.3f} us per launch ({how}, the copies {K4_L2_SPAN}x the L2 in rows and cs); "
+            f"host {host:.1f} us per call; bound {bound * 1e3:.4f} us ({nbytes} bytes at "
+            f"{HBM_BYTES_PER_S / 1e12} TB/s, {ops} operations at {FP32_OPS_PER_S / 1e12} T/s: {by}), share "
+            f"{bound / dev:.3f}; {card}")
+    if is_cuda(device):
+        label, st, moves, idx, mask, _ = next(c for c in cases if c[0] == f"mixed {K4_SHAPES[1]}")
+        k4_graph_replay(device, st, moves, idx, mask)
+        log(f"phase 2f: K4 at {label} replayed once in a CUDA graph: 1 launch counted, the state bit for bit")
+    log(f"phase 2f: {time.time() - t0:.1f} s")
+    main = dict(per[f"all on {K4_SHAPES[0]}"])
+    return {
+        "name": nm.KERNEL_NAME,
+        "route": "cuda",
+        "source": "constraint_solver_tpu_torch/csrc/nqueens_move.cu",
+        "replaces": K4_REPLACES,
+        "max_abs_err": max_err,
+        **main,
+        "library_ms": None,
+        "shapes": per,
+    }
+
+
 def run_rounds(device, exact, chunks=3):
     """nqueens-64, 8 lanes, from draws made on the host; returns the state in
     the reference layout and the per-round traces."""
@@ -1385,6 +1600,7 @@ def phase_main(device, n=MAIN_N, population=MAIN_P, wall_cap=WALL_CAP_S):
     from constraint_solver_tpu_torch.models.nqueens import make_nqueens_problem
     from constraint_solver_tpu_torch.ops import block_pick as bp
     from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+    from constraint_solver_tpu_torch.ops import nqueens_move as nm
     from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32, fingerprint_i32_ref
     from constraint_solver_tpu_torch.parallel.population import PopulationSolver
 
@@ -1398,7 +1614,7 @@ def phase_main(device, n=MAIN_N, population=MAIN_P, wall_cap=WALL_CAP_S):
     solver().run(max_rounds=2, chunk=2)  # warm-up: first-call costs stay out of the timing
     log(f"phase 4: warm-up (2 rounds) {time.time() - t0:.3f} s")
 
-    nk.nqueens_neighborhood_scores.launches = bp.block_pick.launches = 0
+    nk.nqueens_neighborhood_scores.launches = bp.block_pick.launches = nm.nqueens_move.launches = 0
     k2_reset()
     s = solver()
     timer = threading.Timer(wall_cap, s.cancel)
@@ -1411,7 +1627,7 @@ def phase_main(device, n=MAIN_N, population=MAIN_P, wall_cap=WALL_CAP_S):
     finally:
         timer.cancel()
         timer.join()
-    launches, k3 = nk.nqueens_neighborhood_scores.launches, bp.block_pick.launches
+    launches, k3, k4 = nk.nqueens_neighborhood_scores.launches, bp.block_pick.launches, nm.nqueens_move.launches
     k2 = k2_launches()
     stats = s.stats()
     (hard, soft), best = s.get_best_solution()
@@ -1437,12 +1653,15 @@ def phase_main(device, n=MAIN_N, population=MAIN_P, wall_cap=WALL_CAP_S):
         require_k2(k2, "phase 4: the main path")
         if k3 == 0:
             raise AssertionError("the main path never launched K3 (block_pick)")
+        if k4 == 0:
+            raise AssertionError("the main path never launched K4 (nqueens_move)")
     log(
         f"phase 4: nqueens-{n} P={population} solved: time to zero {ttz:.3f} s, "
         f"{stats['rounds']} rounds, {stats['ls_iterations']} descent iterations, "
-        f"moves/s {stats.get('moves_per_sec')}, kernel launches {launches}, K2 launches {k2}, K3 launches {k3}"
+        f"moves/s {stats.get('moves_per_sec')}, kernel launches {launches}, K2 launches {k2}, K3 launches {k3}, "
+        f"K4 launches {k4}"
     )
-    return {"ttz_s": ttz, "launches": launches, "k2_launches": k2, "k3_launches": k3, **stats}, s
+    return {"ttz_s": ttz, "launches": launches, "k2_launches": k2, "k3_launches": k3, "k4_launches": k4, **stats}, s
 
 
 def card_line() -> str:
@@ -1457,12 +1676,13 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
     """4b's and 4c's comparison: ``drive`` on an eager solver (``_graphed=False``)
     and on a graphed one, each from ``make(graphed)``; the final state trees,
     what ``drive`` returns (the traces), ``stats()``, the generator's state and
-    the launches of B1, of K1, of K2a and K2b and of K3 must be equal.  Each side's wall, its peak
+    the launches of B1, of K1, of K2a and K2b, of K3 and of K4 must be equal.  Each side's wall, its peak
     memory, and the graphed side's capture time."""
     import torch
 
     from constraint_solver_tpu_torch.ops import block_pick as bp
     from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+    from constraint_solver_tpu_torch.ops import nqueens_move as nm
     from constraint_solver_tpu_torch.ops import qap_row_min as qrm
     from constraint_solver_tpu_torch.utils.convert import to_reference
 
@@ -1475,6 +1695,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
             torch.cuda.reset_peak_memory_stats(device)
         launches0, k1_launches0 = nk.nqueens_neighborhood_scores.launches, qrm.qap_swap_row_min.launches
         k2_0, k3_0, k3_shapes0 = k2_launches(), bp.block_pick.launches, Counter(bp.block_pick.shapes)
+        k4_0 = nm.nqueens_move.launches
         s = make(graphed)
         sync(device)
         t0 = time.time()
@@ -1492,6 +1713,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
             "k3_launches": bp.block_pick.launches - k3_0,
             "k3_shapes": {str(k): v - k3_shapes0[k] for k, v in bp.block_pick.shapes.items()
                           if v != k3_shapes0[k]},
+            "k4_launches": nm.nqueens_move.launches - k4_0,
             "peak_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
             "reserved_bytes": torch.cuda.memory_reserved(device) if cuda else None,
             "capture_s": graphs.capture_s if graphs is not None else None,
@@ -1501,7 +1723,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
     assert_tree_equal(graph["state"], eager["state"])
     if not np.array_equal(np.asarray(graph["result"]), np.asarray(eager["result"])):
         raise AssertionError(f"phase {label}: graphed and eager traces differ")
-    for key in ("stats", "launches", "k1_launches", "k2_launches", "k3_launches", "k3_shapes"):
+    for key in ("stats", "launches", "k1_launches", "k2_launches", "k3_launches", "k3_shapes", "k4_launches"):
         if graph[key] != eager[key]:
             raise AssertionError(f"phase {label}: graphed and eager {key} differ: {graph[key]} != {eager[key]}")
     if not torch.equal(graph["generator"], eager["generator"]):
@@ -1509,7 +1731,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
     if is_cuda(device) and graph["units"] != 1:
         raise AssertionError(f"phase {label}: the graphed solver made {graph['units']} graphed descents, not 1")
     return {side: {k: v[k] for k in ("wall_s", "peak_bytes", "reserved_bytes", "capture_s", "launches", "k1_launches",
-                                     "k2_launches", "k3_launches", "k3_shapes", "stats")}
+                                     "k2_launches", "k3_launches", "k3_shapes", "k4_launches", "stats")}
             for side, v in (("eager", eager), ("graphed", graph))}
 
 
@@ -1525,11 +1747,15 @@ def phase_graphs(device, n=MAIN_N, population=MAIN_P, small_n=64, small_p=8, clu
     blocks a lane through the wrapper's ``_slices``, since the plan takes a
     cluster only for rows of 2048 candidates and more, whose solves retry late;
     nqueens-512 P=8 retries some 26 times in its first round): K3's launches
-    by shape equal on both sides, retries among them."""
+    by shape equal on both sides, retries among them; then that configuration
+    with its move written in place (K4) against ``_replace(in_place=None)``,
+    both graphed (``select_form_pair``): state bits, traces and stats equal,
+    K4 launched."""
     from constraint_solver_tpu_torch.core import problem as core_problem
     from constraint_solver_tpu_torch.core.ils import SolverConfig
     from constraint_solver_tpu_torch.models.nqueens import make_nqueens_problem
     from constraint_solver_tpu_torch.ops import block_pick as bp
+    from constraint_solver_tpu_torch.ops import nqueens_move as nm
     from constraint_solver_tpu_torch.parallel.population import PopulationSolver
 
     card = card or (card_line() if is_cuda(device) else "cpu")
@@ -1549,9 +1775,11 @@ def phase_graphs(device, n=MAIN_N, population=MAIN_P, small_n=64, small_p=8, clu
         if is_cuda(device):
             require_k2(out[mode]["graphed"]["k2_launches"], f"phase 4b: nqueens-{small_n} ({mode})")
             require_k3(out[mode], f"phase 4b: nqueens-{small_n} ({mode})")
+            require_k4(out[mode], f"phase 4b: nqueens-{small_n} ({mode})")
         log(f"phase 4b: nqueens-{small_n} P={small_p} ({mode}): graphed == eager (state, traces, stats, "
             f"generator, {out[mode]['graphed']['launches']} kernel launches, K2 "
-            f"{out[mode]['graphed']['k2_launches']}, K3 {out[mode]['graphed']['k3_launches']}); walls eager "
+            f"{out[mode]['graphed']['k2_launches']}, K3 {out[mode]['graphed']['k3_launches']}, K4 "
+            f"{out[mode]['graphed']['k4_launches']}); walls eager "
             f"{out[mode]['eager']['wall_s']:.3f} s, graphed {out[mode]['graphed']['wall_s']:.3f} s")
 
     problem, config = make_nqueens_problem(n), main_config()
@@ -1580,8 +1808,10 @@ def phase_graphs(device, n=MAIN_N, population=MAIN_P, small_n=64, small_p=8, clu
     if is_cuda(device):
         require_k2(graph["k2_launches"], f"phase 4b: nqueens-{n}")
         require_k3(main, f"phase 4b: nqueens-{n}")
+        require_k4(main, f"phase 4b: nqueens-{n}")
     log(f"phase 4b: nqueens-{n} P={population} run(chunk=2) to zero: graphed == eager (state, stats, generator, "
         f"{graph['launches']} kernel launches, K2 {graph['k2_launches']}, K3 {graph['k3_launches']}, "
+        f"K4 {graph['k4_launches']}, "
         f"{graph['stats']['rounds']} rounds, "
         f"{graph['stats']['ls_iterations']} descent iterations)")
     log(f"phase 4b: wall eager {eager['wall_s']:.4f} s, graphed {graph['wall_s']:.4f} s; {card}")
@@ -1612,6 +1842,17 @@ def phase_graphs(device, n=MAIN_N, population=MAIN_P, small_n=64, small_p=8, clu
     log(f"phase 4b: nqueens-{cl_n} P={cl_p} {cl_rounds} rounds, retries in clusters of {cl_s}: graphed == eager "
         f"(state, stats, generator, K3 launches by (P, R, C, E) {clusters['graphed']['k3_shapes']}); walls eager "
         f"{clusters['eager']['wall_s']:.3f} s, graphed {clusters['graphed']['wall_s']:.3f} s; {card}")
+    # The masked move (K4) and the best carried as the board, against the select form, both graphed.
+    k4_0 = nm.nqueens_move.launches
+    sel = out["in_place"] = select_form_pair(device, cl_problem, cl_config, dict(population=cl_p, exchange_every=2),
+                                             2, (2,) * (cl_rounds // 2), label="4b")
+    sel["k4_launches"] = nm.nqueens_move.launches - k4_0  # the in-place side's and its warm-up's
+    if is_cuda(device) and sel["k4_launches"] == 0:
+        raise AssertionError(f"phase 4b: nqueens-{cl_n} P={cl_p} in place never launched K4 (nqueens_move)")
+    log(f"phase 4b: nqueens-{cl_n} P={cl_p} {cl_rounds} rounds: in place == select form (state bits, traces, "
+        f"stats), both {'graphed' if is_cuda(device) else 'eager'}, K4 launches {sel['k4_launches']}; walls "
+        f"select {sel['select']['wall_s']:.4f} s, in place {sel['in_place']['wall_s']:.4f} s; peak memory above "
+        f"the start select {sel['select']['peak_bytes']} B, in place {sel['in_place']['peak_bytes']} B; {card}")
     if is_cuda(device):
         out["second_round"] = {}
         for graphed in (False, True):
@@ -1753,9 +1994,9 @@ def phase_graphs_domains(device, card=None, **sizes) -> dict:
     return out
 
 
-def select_form_pair(device, problem, config, kw, warm, chunks) -> dict:
+def select_form_pair(device, problem, config, kw, warm, chunks, label="4c") -> dict:
     """4c's second comparison for a problem with a masked move and a keyed best
-    (QAP incremental): solves with ``in_place`` and with it stripped (the
+    (QAP incremental; N-Queens in 4b): solves with ``in_place`` and with it stripped (the
     select form, the JAX package's), each after its own warm-up, from one
     seed; the state trees bit for bit, the traces and ``stats()`` must be
     equal.  Each side's wall, and its peak memory above what the card held as
@@ -1788,9 +2029,9 @@ def select_form_pair(device, problem, config, kw, warm, chunks) -> dict:
     for i, (x, y) in enumerate(zip(tree_leaves(states["select"]), tree_leaves(states["in_place"]), strict=True)):
         bits = (lambda t: t.view(torch.int32)) if x.dtype == torch.float32 else (lambda t: t)
         if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(bits(x), bits(y)):
-            raise AssertionError(f"phase 4c: {problem.name}: in place and select form differ at state leaf {i}")
+            raise AssertionError(f"phase {label}: {problem.name}: in place and select form differ at state leaf {i}")
     if not np.array_equal(sel.pop("trace"), inp.pop("trace")) or sel["stats"] != inp["stats"]:
-        raise AssertionError(f"phase 4c: {problem.name}: in place and select form differ in traces or stats")
+        raise AssertionError(f"phase {label}: {problem.name}: in place and select form differ in traces or stats")
     return out
 
 
@@ -3585,13 +3826,14 @@ def phase_k3_solves(device, cells=("nqueens1000_p256", "nqueens16384_p16"), sets
 
 
 def build_kernels() -> None:
-    """Phase 1: compile the five kernel libraries from the checkout's sources,
+    """Phase 1: compile the six kernel libraries from the checkout's sources,
     one ``nvcc`` each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from constraint_solver_tpu_torch.ops import block_pick as bp
     from constraint_solver_tpu_torch.ops import fingerprint as fpk
     from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+    from constraint_solver_tpu_torch.ops import nqueens_move as nm
     from constraint_solver_tpu_torch.ops import nqueens_probes as npr
     from constraint_solver_tpu_torch.ops import qap_row_min as qrm
 
@@ -3601,7 +3843,7 @@ def build_kernels() -> None:
         return module._LIB_PATH.name, report, time.time() - t
 
     t0 = time.time()
-    modules = (nk, npr, qrm, fpk, bp)
+    modules = (nk, npr, qrm, fpk, bp, nm)
     with ThreadPoolExecutor(max_workers=len(modules)) as pool:
         built = [f.result() for f in [pool.submit(build, m) for m in modules]]
     for name, report, secs in built:
@@ -3609,7 +3851,7 @@ def build_kernels() -> None:
         for line in report.splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "spill")) or "error" in line.lower():
                 log(f"  nvcc: {line.strip()}")
-    log(f"phase 1: all five libraries in {time.time() - t0:.1f} s")
+    log(f"phase 1: all {len(modules)} libraries in {time.time() - t0:.1f} s")
 
 
 def main() -> None:
@@ -3619,12 +3861,13 @@ def main() -> None:
 
     from constraint_solver_tpu_torch.ops import block_pick as bp
     from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+    from constraint_solver_tpu_torch.ops import nqueens_move as nm
     from constraint_solver_tpu_torch.ops import qap_row_min as qrm
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--kernel-only", action="store_true",
-        help="run phases 1, 2, 2b, 2c, 2d and 2e only, print the kernels' measurements and stop (no result line)",
+        help="run phases 1, 2, 2b, 2c, 2d, 2e and 2f only, print the kernels' measurements and stop (no result line)",
     )
     parser.add_argument(
         "--k3-solves", action="store_true",
@@ -3651,28 +3894,32 @@ def main() -> None:
     k1 = phase_k1(device)
     k2 = phase_k2(device)
     k3 = phase_k3(device)
+    k4 = phase_k4(device)
     if args.kernel_only:
         log(card)
-        log(json.dumps({"kernels": [kernel, *probe_entries, k1, *k2, k3]}))
+        log(json.dumps({"kernels": [kernel, *probe_entries, k1, *k2, k3, k4]}))
         return
     phase_cross_device(device)
     main_run, main_solver = phase_main(device)
     k2_paths = {"nqueens_population": main_run["k2_launches"]}  # counted from 0 inside phase 4
     k3_paths = {"nqueens_population": main_run["k3_launches"]}
-    nk.nqueens_neighborhood_scores.launches = bp.block_pick.launches = 0
+    k4_paths = {"nqueens_population": main_run["k4_launches"]}
+    nk.nqueens_neighborhood_scores.launches = bp.block_pick.launches = nm.nqueens_move.launches = 0
     k2_reset()
     graphs = phase_graphs(device, card=card)
     graphs_launches = nk.nqueens_neighborhood_scores.launches
     k2_paths["graphs_vs_eager"] = k2_launches()
     k3_paths["graphs_vs_eager"] = bp.block_pick.launches
+    k4_paths["graphs_vs_eager"] = nm.nqueens_move.launches
     qrm.qap_swap_row_min.launches = 0
     k2_reset()
     graphs_domains = phase_graphs_domains(device, card=card)
     k1_paths = {"graphs_domains": qrm.qap_swap_row_min.launches}
     k2_paths["graphs_domains"] = k2_launches()
-    bp.block_pick.launches = 0
+    bp.block_pick.launches = nm.nqueens_move.launches = 0
     matrix_forms = phase_matrix_forms(device, card=card)
     k3_paths["matrix_forms"] = bp.block_pick.launches
+    k4_paths["matrix_forms"] = nm.nqueens_move.launches
     pmc_run = phase_pmc(device, card=card)
     phase_schedule_cross_device(device)
     sched = phase_schedule_bench(device)
@@ -3684,16 +3931,19 @@ def main() -> None:
     ackley = phase_ackley(device)
     diagram = phase_diagram(device)
     phased = phase_phased(device)
-    bp.block_pick.launches = 0
+    bp.block_pick.launches = nm.nqueens_move.launches = 0
     ckpt = phase_checkpoint(device)
     k3_paths["checkpoint_resume"] = bp.block_pick.launches
-    bp.block_pick.launches = 0
+    k4_paths["checkpoint_resume"] = nm.nqueens_move.launches
+    bp.block_pick.launches = nm.nqueens_move.launches = 0
     surface = phase_surface(device, main_solver)
     k3_paths["surface"] = bp.block_pick.launches  # the nqueens CLI, the service, the trace and the roofline
+    k4_paths["surface"] = nm.nqueens_move.launches
     multi = phase_multi(device)
-    bp.block_pick.launches = 0
+    bp.block_pick.launches = nm.nqueens_move.launches = 0
     bench = phase_bench(device)
     k3_paths["bench_nqueens"] = bp.block_pick.launches
+    k4_paths["bench_nqueens"] = nm.nqueens_move.launches
     paths = {
         "nqueens_population": main_run["launches"],
         "graphs_vs_eager": graphs_launches,
@@ -3720,6 +3970,8 @@ def main() -> None:
         entry["launches"] = sum(entry["launches_by_path"].values())
     k3["launches"] = sum(k3_paths.values())
     k3["launches_by_path"] = k3_paths
+    k4["launches"] = sum(k4_paths.values())
+    k4["launches_by_path"] = k4_paths
 
     log(json.dumps({
         "main_path": main_run, "graphs": graphs, "graphs_domains": graphs_domains, "matrix_forms": matrix_forms,
@@ -3728,7 +3980,7 @@ def main() -> None:
         "bench": bench, "card": card,
     }, default=str))
     log(card)
-    log(json.dumps({"kernels": [kernel, *probe_entries, k1, *k2, k3]}))
+    log(json.dumps({"kernels": [kernel, *probe_entries, k1, *k2, k3, k4]}))
     log(json.dumps({
         "ok": True,
         "device": {

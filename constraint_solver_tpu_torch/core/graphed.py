@@ -39,7 +39,8 @@ a replay that fails raises: nothing falls back to the eager loop.
 Every problem that declares itself ``capturable`` (N-Queens and QAP without
 ``nbr_axis``, scheduling with every proposer, Ackley, the diagram layout)
 takes this path; one unit serves whatever its problem's state tree holds (QAP
-incremental carries G and H, [P, n, n] each, and its best as its permutation),
+incremental carries G and H, [P, n, n] each, and its best as its permutation;
+N-Queens its counters, and its best as its board),
 and the phased solver, which switches problem at a round, makes one unit per
 phase.
 
@@ -54,7 +55,7 @@ a side stream in ``thread_local`` error mode, so the service's other handler
 threads may launch work meanwhile; the side stream is ordered after the
 current stream's queued replays, and before its next work (``capture``).  The
 launch counters of the hand-written kernels (``ops/launch_count.py``: N-Queens'
-B1 and K3, QAP's row minimum, the fingerprint kernels) count nothing at a
+B1, K3 and K4, QAP's row minimum, the fingerprint kernels) count nothing at a
 capture and what it captured at each replay, so they equal the eager run's.
 A neighborhood handed over as a row block (``core/problem.py``, N-Queens) is
 part of A's output like any other: A's K3 launch writes the first pick, each

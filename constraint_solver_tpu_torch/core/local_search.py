@@ -37,10 +37,12 @@ masked form it asks for.  The JAX package selects the whole state tree per lane
 twice an iteration (the step's and the best's), and again by the lanes still
 running; XLA fuses those selects into the move.  Here each would be a pass of
 its own over the state, so a problem with ``in_place`` (QAP's incremental G
-and H, ``models/qap.py``) has its move written in place into the carry's own
+and H, ``models/qap.py``; N-Queens without ``nbr_axis``, ``models/nqueens.py``,
+whose move is K4) has its move written in place into the carry's own
 state, under the mask of lanes that step and still run, and its state is not
-selected again; the descent carries its best as its key (QAP's permutation)
-and ``ls_execute`` rebuilds the best state from it once, at the end.  The
+selected again; the descent carries its best as its key (QAP's permutation,
+the N-Queens board) and ``ls_execute`` rebuilds the best state from it once,
+at the end.  The
 answers are the same bit for bit: the other lanes' state is left untouched,
 and the rebuilt state is the one the key stands for.
 

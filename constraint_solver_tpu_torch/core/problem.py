@@ -19,8 +19,10 @@ Divergences:
   ``idx`` is the move (column ``cols[idx // n]``, row ``idx % n``), so no
   [P, A·n] move arrays are built.  The engine only hands ``moves`` back to
   ``move_fp`` and ``apply_move``;
-- the optional field ``in_place`` (an ``InPlace``) lets a problem whose state
-  is large (QAP's incremental G and H) skip the descent's whole-state selects.
+- the optional field ``in_place`` (an ``InPlace``) lets a problem skip the
+  descent's whole-state selects: QAP's incremental G and H, carried by the
+  permutation, and N-Queens without ``nbr_axis``, whose move K4 writes
+  (``ops/nqueens_move.py``) and whose best is carried by the board.
   The JAX package selects whole state trees per lane, and XLA fuses each select
   into the update that feeds it; eagerly or in a CUDA graph each select is a
   pass of its own over the state.  With the field the engine writes the move in

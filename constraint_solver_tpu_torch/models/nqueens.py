@@ -51,6 +51,18 @@ Divergences from the JAX package:
   it is 0, where the JAX package's row-minimum form gives that lane's
   ``row_arg[0]``.  No such lane takes its pick (its ``n_valid`` is 0), so the
   trajectories are the same.
+- **The move written in place, the best carried by its board.** Without
+  ``nbr_axis`` the problem has ``in_place`` (``core/problem.py``): the descent
+  writes each lane's move into its own state under the mask of lanes that
+  step and still run (K4, ``ops/nqueens_move.py``: one launch on the card),
+  carries its best as the board ``rows`` alone, and rebuilds the best's
+  counters with ``build_state`` once, at its end.  The JAX package selects
+  whole state trees per lane and XLA fuses the selects into ``apply_move``'s
+  updates; here each select would be a pass of its own over the 8 MB state.
+  The counters are exact integers in float32, so the rebuild equals the
+  carried counters bit for bit and the trajectories are the same.
+  ``apply_move`` stays, the JAX package's interface: the sharded neighborhood
+  (``NQPairs``) and the tests use it.
 - **``col_sampling="approx"``** samples exactly, as ``"exact"`` does.  The JAX
   package's ``jax.lax.approx_max_k`` is approximate (recall ~0.95) only on the
   TPU; on the CPU, where the reference runs, it returns ``lax.top_k``'s indices,
@@ -77,11 +89,12 @@ from typing import NamedTuple
 
 import torch
 
-from constraint_solver_tpu_torch.core.problem import Neighborhood, Problem, RowBlock, replayable
+from constraint_solver_tpu_torch.core.problem import InPlace, Neighborhood, Problem, RowBlock, replayable
 from constraint_solver_tpu_torch.ops.block_pick import block_pick
 from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32, fp_update
 from constraint_solver_tpu_torch.ops.lex import make_score
 from constraint_solver_tpu_torch.ops.nqueens_kernel import block_from_windows, nqueens_neighborhood_scores
+from constraint_solver_tpu_torch.ops.nqueens_move import nqueens_move
 from constraint_solver_tpu_torch.parallel.mesh import active_axis, gather_best
 
 
@@ -162,6 +175,11 @@ def build_state(rows: torch.Tensor) -> NQState:
     rows = rows.long()
     rc, dc, ac = line_counts(rows)
     return NQState(rows=rows, rc=rc, dc=dc, ac=ac, cs=_col_scores_from_counts(rows, rc, dc, ac))
+
+
+def _board(state: NQState) -> torch.Tensor:
+    """The key of ``Problem.in_place``: a state stands for its board."""
+    return state.rows
 
 
 def default_log_weights(board_size: int) -> torch.Tensor:
@@ -377,4 +395,5 @@ def make_nqueens_problem(
         perturb=perturb,
         width=a_max * n,
         capturable=nbr_axis is None,
+        in_place=InPlace(move=nqueens_move, key=_board, rebuild=build_state) if nbr_axis is None else None,
     )

@@ -158,6 +158,13 @@ class WorkCount(TorchDispatchMode):
         entry.update(calls=1, flops=flops, bytes=nbytes)
         self.flops += flops
         self.bytes += nbytes
+        with self.muted():
+            yield
+
+    @contextlib.contextmanager
+    def muted(self):
+        """The ops issued inside the block are not counted (a wrapper reading
+        its call's data for the work it reports)."""
         self._muted += 1
         try:
             yield

@@ -20,7 +20,8 @@ The kernel runs only on the card (``tests/test_torch_cuda.py``,
   the block materialized, eagerly and through the graphed loop's segments,
   with retries forced by a large ring;
 - that a pick-then-check iteration stacks no score block;
-- the library's build (a faked compiler and ``ctypes``) and the wrapper's checks.
+- the wrapper's checks, and the library's build (a faked compiler and
+  ``ctypes``), K3's and K4's (``ops/nqueens_move.py``).
 """
 
 import ctypes
@@ -42,6 +43,7 @@ from constraint_solver_tpu_torch.core.ils import SolverConfig
 from constraint_solver_tpu_torch.models import nqueens as tnq
 from constraint_solver_tpu_torch.ops import block_pick as bp
 from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+from constraint_solver_tpu_torch.ops import nqueens_move as nm
 from constraint_solver_tpu_torch.ops.lex import lex_argmin, make_score
 from constraint_solver_tpu_torch.parallel.population import PopulationSolver
 from constraint_solver_tpu_torch.utils.convert import from_reference
@@ -478,8 +480,18 @@ def test_roofline_counts_k3_by_formula():
     assert (count.flops, count.bytes) == (ops, nbytes)
 
 
-@pytest.fixture
-def fake_toolchain(tmp_path, monkeypatch):
+# Each hand-written kernel's library built through a faked ``nvcc``: (its
+# module, its C entry, the constants its source shares with the module).
+BUILDS = {
+    "block_pick": (bp, "block_pick_launch", {"kMaxExcl": bp.MAX_EXCL, "kPickThreads": bp.PICK_THREADS,
+                                              "kRetryThreads": bp.RETRY_THREADS, "kMaxSlices": bp.MAX_SLICES}),
+    "nqueens_move": (nm, "nqueens_move_launch", {"kUnroll": nm.UNROLL, "kMaxThreads": nm.MAX_THREADS}),
+}
+
+
+@pytest.fixture(params=sorted(BUILDS))
+def fake_toolchain(request, tmp_path, monkeypatch):
+    mod, entry, consts = BUILDS[request.param]
     compiled, loaded = [], []
 
     def run(cmd, **kwargs):
@@ -491,38 +503,37 @@ def fake_toolchain(tmp_path, monkeypatch):
     class Library:
         def __init__(self, path):
             loaded.append(path)
-            self.block_pick_launch = type("Entry", (), {})()
+            setattr(self, entry, type("Entry", (), {})())
 
     monkeypatch.setattr(nk, "_nvcc", lambda: "nvcc")
     monkeypatch.setattr(nk.subprocess, "run", run)
     monkeypatch.setattr(nk.ctypes, "CDLL", Library)
-    monkeypatch.setattr(bp, "_LIBRARY", nk.KernelLibrary(bp._SRC, tmp_path / "libblock_pick.so",
-                                                         bp._LIBRARY.argtypes))
-    return compiled, loaded
+    monkeypatch.setattr(mod, "_LIBRARY", nk.KernelLibrary(mod._SRC, tmp_path / mod._LIB_PATH.name,
+                                                          mod._LIBRARY.argtypes))
+    return mod, entry, consts, compiled, loaded
 
 
 def test_the_library_builds_once_with_the_c_entry_it_declares(fake_toolchain):
-    compiled, loaded = fake_toolchain
-    fn = bp._LIBRARY.entry("block_pick_launch")
-    assert bp._LIBRARY.entry("block_pick_launch") is fn and len(compiled) == len(loaded) == 1
+    mod, entry, want, compiled, loaded = fake_toolchain
+    fn = mod._LIBRARY.entry(entry)
+    assert mod._LIBRARY.entry(entry) is fn and len(compiled) == len(loaded) == 1
     cmd = compiled[0]
-    assert cmd[-1] == str(bp._SRC) and "arch=compute_90a,code=sm_90a" in cmd
-    assert cmd[cmd.index("-o") + 1].startswith(str(bp._LIBRARY.lib) + f".{os.getpid()}.")
+    assert cmd[-1] == str(mod._SRC) and "arch=compute_90a,code=sm_90a" in cmd
+    assert cmd[cmd.index("-o") + 1].startswith(str(mod._LIBRARY.lib) + f".{os.getpid()}.")
     assert fn.restype is ctypes.c_int
-    params = re.search(r'extern "C" int block_pick_launch\(([^)]*)\)', bp._SRC.read_text()).group(1)
+    src = mod._SRC.read_text()
+    params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src).group(1)
     kinds = [ctypes.c_void_p if "*" in q else ctypes.c_int for q in params.split(",")]
-    assert fn.argtypes == kinds == bp._ARGS
-    assert bp._LIB_PATH == nk._BUILD_DIR / "libblock_pick.so"
-    src = bp._SRC.read_text()
-    consts = {name: int(re.search(rf"{name} = (\d+);", src).group(1))
-              for name in ("kMaxExcl", "kPickThreads", "kRetryThreads", "kMaxSlices")}
-    assert consts == {"kMaxExcl": bp.MAX_EXCL, "kPickThreads": bp.PICK_THREADS, "kRetryThreads": bp.RETRY_THREADS,
-                      "kMaxSlices": bp.MAX_SLICES}
+    assert fn.argtypes == kinds == mod._ARGS
+    assert mod._LIB_PATH == nk._BUILD_DIR / f"lib{mod.KERNEL_NAME}.so"
+    consts = {name: int(re.search(rf"{name} = (\d+);", src).group(1)) for name in want}
+    assert consts == want
 
 
 def test_a_failed_build_raises(fake_toolchain, monkeypatch):
+    mod, entry = fake_toolchain[:2]
     monkeypatch.setattr(nk.subprocess, "run",
                         lambda cmd, **kw: nk.subprocess.CompletedProcess(cmd, 2, "", "error: no sm_90a"))
     with pytest.raises(RuntimeError, match="nvcc failed"):
-        bp._LIBRARY.entry("block_pick_launch")
-    assert bp._LIBRARY.entries is None
+        mod._LIBRARY.entry(entry)
+    assert mod._LIBRARY.entries is None

@@ -553,15 +553,18 @@ def test_cuda_service_round(cuda):
     service.delete(sid)
 
 
-def _graphs_solver(device, exact, graphed, seed="graphs"):
+def _graphs_solver(device, exact, graphed, seed="graphs", in_place=True):
     """nqueens-40, 6 lanes, drawing on ``device``: on the card its descents
-    replay as CUDA graphs unless ``graphed`` is False."""
+    replay as CUDA graphs unless ``graphed`` is False; ``in_place`` False
+    strips the problem's masked move (the select form)."""
     config = SolverConfig(
         seed=seed, local_search_max_iterations=20, best_solutions_capacity=4,
         all_solutions_capacity=32, restart_every=3, tabu_exact_filter=exact,
     )
-    return PopulationSolver(make_nqueens_problem(40), config, population=6, exchange_every=2, device=device,
-                            _graphed=graphed)
+    problem = make_nqueens_problem(40)
+    if not in_place:
+        problem = problem._replace(in_place=None)
+    return PopulationSolver(problem, config, population=6, exchange_every=2, device=device, _graphed=graphed)
 
 
 def _graphs_run(solver, chunks=2):
@@ -1077,3 +1080,79 @@ def test_cuda_block_pick_counts_through_graph_replays_and_raises(cuda, tmp_path,
     with pytest.raises(RuntimeError, match="nvcc failed"):
         bp.block_pick(*args)
     assert bp.block_pick.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_nqueens_move_matches_plain_version_at_the_smoke_cases(cuda):
+    """K4 at ``chip_smoke.py`` phase 2f's cases ((256, 50, 1000), (16, 64,
+    16384) and the ragged (5, 7, 1003); masks all on, all off and mixed;
+    same-row moves; the columns 0 and n - 1): every leaf of the state bit for
+    bit the plain version's, floats by their bits."""
+    import chip_smoke
+    from constraint_solver_tpu_torch.ops import nqueens_move as nm
+    from constraint_solver_tpu_torch.utils.tree import tree_map
+
+    for label, st, moves, idx, mask, _ in chip_smoke.k4_cases(cuda):
+        got, want = tree_map(torch.clone, st), tree_map(torch.clone, st)
+        nm.nqueens_move(got, moves, idx, mask)
+        nm.nqueens_move_ref(want, moves, idx, mask)
+        torch.cuda.synchronize()
+        assert chip_smoke.k4_equal(got, want), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p, a, n", [(1, 1, 1), (3, 2, 2), (2, 3, 4097), (2, 3, 40000), (70, 5, 33)])
+def test_cuda_nqueens_move_on_edge_shapes(cuda, p, a, n):
+    """One column, a board of two, a ragged row of columns, more columns than
+    a block loads at once (the pass loops), more lanes than one wave; a
+    contiguous [P, A] sample and a strided one."""
+    from constraint_solver_tpu_torch.models.nqueens import NQMoves
+    from constraint_solver_tpu_torch.ops import nqueens_move as nm
+    from constraint_solver_tpu_torch.utils.tree import tree_map
+
+    import chip_smoke
+
+    rng = np.random.default_rng(p * a * n)
+    st = build_state(torch.as_tensor(rng.integers(0, n, size=(p, n)), device=cuda))
+    perm = torch.as_tensor(np.argsort(rng.random((p, n)), axis=1), device=cuda)
+    idx = torch.as_tensor(rng.integers(0, a * n, size=p), device=cuda)
+    mask = torch.as_tensor(rng.random(p) < 0.7, device=cuda)
+    for cols in (perm[:, :a], perm[:, :a].contiguous()):
+        got, want = tree_map(torch.clone, st), tree_map(torch.clone, st)
+        nm.nqueens_move(got, NQMoves(cols, n), idx, mask)
+        nm.nqueens_move_ref(want, NQMoves(cols, n), idx, mask)
+        torch.cuda.synchronize()
+        assert chip_smoke.k4_equal(got, want), cols.stride()
+
+
+@pytest.mark.cuda
+def test_cuda_nqueens_move_counts_through_graph_replays_and_raises(cuda, tmp_path, monkeypatch):
+    """A capture of K4 writes nothing and counts no launch, a replay counts
+    one and writes the move; a graphed N-Queens solve launches K4 as often as
+    the eager one and equals the select form, in both tabu modes; an operand
+    on another device and a failed build raise: no plain version on the card."""
+    import chip_smoke
+    from constraint_solver_tpu_torch.ops import nqueens_move as nm
+
+    label, st, moves, idx, mask, _ = next(c for c in chip_smoke.k4_cases(cuda) if c[0].startswith("mixed"))
+    nm.nqueens_move(st, moves, idx, mask)  # built and loaded before the capture
+    chip_smoke.k4_graph_replay(cuda, st, moves, idx, mask)
+    for exact in (None, False):
+        counts, runs = {}, {}
+        for graphed_run in (False, True):
+            before = nm.nqueens_move.launches
+            runs[graphed_run] = _graphs_run(_graphs_solver(cuda, exact, graphed_run))
+            counts[graphed_run] = nm.nqueens_move.launches - before
+        assert counts[True] == counts[False] > 0, (exact, counts)
+        _graphs_equal(runs[True], runs[False])
+        _graphs_equal(_graphs_run(_graphs_solver(cuda, exact, True, in_place=False)), runs[True])
+    with pytest.raises(ValueError):
+        nm.nqueens_move(st, moves, idx, mask.cpu())
+    monkeypatch.setattr(nm, "_LIBRARY", nk.KernelLibrary(nm._SRC, tmp_path / "libnqueens_move.so",
+                                                         nm._LIBRARY.argtypes))
+    monkeypatch.setattr(nk.subprocess, "run",
+                        lambda cmd, **kw: nk.subprocess.CompletedProcess(cmd, 1, "", "error: planted"))
+    before = nm.nqueens_move.launches
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        nm.nqueens_move(st, moves, idx, mask)
+    assert nm.nqueens_move.launches == before

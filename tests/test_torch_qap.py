@@ -295,18 +295,19 @@ def test_sharded_neighborhood_and_population_equal_jax_nbr_axis(tmp_path):
     n, p = 16, 4
     perms = _perms(np.random.default_rng(5), 3, n)
     mesh = j_mesh(n_pop=1, n_nbr=2)
-    jax.set_mesh(mesh)
-    jp = jq.make_qap_problem(jq.QAPSpec.random(n, seed=0), nbr_axis="nbr", nbr_shards=2, nbr_keep=16)
+    # The JAX part under the mesh, which the block restores on exit.
+    with jax.set_mesh(mesh):
+        jp = jq.make_qap_problem(jq.QAPSpec.random(n, seed=0), nbr_axis="nbr", nbr_shards=2, nbr_keep=16)
 
-    def nbr(perms):
-        return jax.vmap(lambda q: jp.neighborhood(q, jp.score(q), jax.random.key(0)))(perms)
+        def nbr(perms):
+            return jax.vmap(lambda q: jp.neighborhood(q, jp.score(q), jax.random.key(0)))(perms)
 
-    want = jax.jit(jax.shard_map(nbr, mesh=mesh, in_specs=PartitionSpec(), out_specs=PartitionSpec(),
-                                 check_vma=False))(jnp.asarray(perms, jnp.int32))
-    keys = jax.random.split(seed_string_to_key("qap-nbr"), p)
-    js = JSharded(jp, JConfig(**torch_ranks.qap_config()), population=p, mesh=mesh, exchange_every=2)
-    for _ in range(4):
-        js.execute_round()
+        want = jax.jit(jax.shard_map(nbr, mesh=mesh, in_specs=PartitionSpec(), out_specs=PartitionSpec(),
+                                     check_vma=False))(jnp.asarray(perms, jnp.int32))
+        keys = jax.random.split(seed_string_to_key("qap-nbr"), p)
+        js = JSharded(jp, JConfig(**torch_ranks.qap_config()), population=p, mesh=mesh, exchange_every=2)
+        for _ in range(4):
+            js.execute_round()
     ranks = torch_ranks.spawn(torch_ranks.qap_body, 2, tmp_path, n, perms,
                               np.asarray(jax.random.key_data(keys)))
     for out in ranks:
@@ -315,4 +316,5 @@ def test_sharded_neighborhood_and_population_equal_jax_nbr_axis(tmp_path):
         np.testing.assert_array_equal(out["b"], np.asarray(want.moves[1]))
         np.testing.assert_array_equal(out["valid"], np.asarray(want.valid))
         assert_tree_equal(jax.device_get(js.state), out["state"])
-        assert out["best"][0] == js.get_best_solution()[0]
+        with jax.set_mesh(mesh):
+            assert out["best"][0] == js.get_best_solution()[0]

@@ -42,12 +42,14 @@ def _key_data():
 def jax_runs():
     out = {}
     mesh = j_mesh(n_pop=2, n_nbr=2)
-    for name, (n, kw, run_kw) in RUNS.items():
-        problem = j_make(n, sample_cols=4, nbr_axis="nbr", nbr_shards=2, nbr_keep=16)
-        s = JSharded(problem, JConfig(**torch_ranks.sharded_config()), population=P, mesh=mesh, **kw)
-        s.run(**run_kw)
-        out[name] = {"state": jax.device_get(s.state), "best": s.get_best_solution(), "stats": s.stats(),
-                     "info": s.get_iteration_info()}
+    # The JAX solver sets its mesh globally; the block restores the worker's on exit.
+    with jax.set_mesh(mesh):
+        for name, (n, kw, run_kw) in RUNS.items():
+            problem = j_make(n, sample_cols=4, nbr_axis="nbr", nbr_shards=2, nbr_keep=16)
+            s = JSharded(problem, JConfig(**torch_ranks.sharded_config()), population=P, mesh=mesh, **kw)
+            s.run(**run_kw)
+            out[name] = {"state": jax.device_get(s.state), "best": s.get_best_solution(), "stats": s.stats(),
+                         "info": s.get_iteration_info()}
     return out
 
 
