@@ -240,6 +240,7 @@ import subprocess
 import threading
 import time
 from collections import Counter
+from typing import Any, NamedTuple
 
 import numpy as np
 
@@ -290,14 +291,16 @@ K3_RAGGED = (5, 7, 1003)
 K3_EVENT = "block_pick"
 K3_REPLACES = ("constraint_solver_tpu/ops/lex.py:30-34 (make_score) via models/nqueens.py:327-329, :353, read at "
                "core/local_search.py:126, :144, :263 (lex_argmin, the pick's score; XLA fusion, no Pallas call)")
-# Phase 2f: K4 (the masked N-Queens move) at the N-Queens cells' (P, A, n) and a ragged one; its events in a trace.
+# Phase 2f: K4 (the masked N-Queens move) at the N-Queens cells' (P, A, n) and a ragged one (n % 8 = 7, its
+# plan's S = 8), each at its plan and at S = 1 and 8; its events in a trace.
 K4_SHAPES = ((MAIN_P, MAIN_A, MAIN_N), (16, 64, 16384))
-K4_RAGGED = (5, 7, 1003)
+K4_RAGGED = (5, 7, 16383)
+K4_SLICES = (1, 8)
 K4_EVENT = "nqueens_move"
 L2_BYTES = 50 * 2**20  # H100 SXM's L2
-K4_L2_SPAN = 4  # phase 2f times K4 over state copies whose rows and cs hold this many times the L2
+K4_L2_SPAN = 4  # phase 2f times K4 over state copies whose rows, cs and best hold this many times the L2
 K4_REPLACES = ("constraint_solver_tpu/models/nqueens.py:375-406 (apply_move) with core/local_search.py:107-108 "
-               "(_select) at :282-283, :290 and :305-316 (XLA fusion, no Pallas call)")
+               "(_select) at :281-283, :290 and :305-316 (XLA fusion, no Pallas call)")
 
 
 def log(msg: str) -> None:
@@ -369,7 +372,7 @@ def device_ms(fn, args, launches: int, event: str = KERNEL_EVENT) -> tuple[float
         for _ in range(launches):
             fn(*args)
     graph.replay()  # warm-up
-    return time_ms(graph.replay, (), 1) / launches, "CUDA graph replay"
+    return time_ms(graph.replay, (), 1) / launches, f"CUDA graph replay; {len(us)} of its events in the trace"
 
 
 def host_us(fn, args, launches: int) -> float:
@@ -1345,14 +1348,39 @@ def phase_k3(device, cases=None) -> dict:
     }
 
 
+class K4Case(NamedTuple):
+    label: str
+    state: Any
+    moves: Any
+    idx: Any
+    mask: Any
+    best: Any  # int64[P, n] or None: the call carries no best board
+    save: Any
+    timed: bool
+
+
+def k4_edges(n: int, slices: int) -> list:
+    """The first and last column of each block's chunk of a lane at S =
+    ``slices`` (``csrc/nqueens_move.cu``: pairs of columns when n is even)."""
+    width = 2 if n % 2 == 0 else 1
+    items = n // width
+    return sorted({items * b // slices * width for b in range(slices)}
+                  | {items * (b + 1) // slices * width - 1 for b in range(slices)})
+
+
 def k4_cases(device) -> list:
-    """(label, state, moves, idx, mask, timed) at the N-Queens cells' (256, 50,
-    1000) and (16, 64, 16384) and the ragged (5, 7, 1003): counters of random
-    boards, A distinct columns a lane as a row-strided view (the
-    neighborhood's sample is one), random moves with every fourth lane a
-    same-row move and the first lane's column 0 to row n - 1; masks all on,
-    all off and mixed (random, about half).  ``timed``: the all-on case of the
-    two cells' shapes and the mixed one of the headline's."""
+    """``K4Case``s at the N-Queens cells' (256, 50, 1000) and (16, 64, 16384)
+    and the ragged (5, 7, 16383): counters of random boards, A distinct
+    columns a lane as a row-strided view (the neighborhood's sample is one),
+    random moves with every fourth lane a same-row move (r_old == r_new),
+    lane 0's column 0 to row n - 1, lane 1's column n - 1 to row 0, and every
+    other even lane moving the first or last column of a block's chunk at S =
+    8; masks all on, all off and mixed (random, about half), each without a
+    best board and with one saving a random half of the lanes (with the masks
+    all off and mixed, lanes that save their board as it is).  ``timed``: at
+    the two cells' shapes the all-on move with and without a best board, and
+    the headline's mixed and all-off ones (the latter the launch and the
+    masks' load alone)."""
     import torch
 
     from constraint_solver_tpu_torch.models.nqueens import NQMoves, build_state
@@ -1362,69 +1390,101 @@ def k4_cases(device) -> list:
     for p, a, n in K4_SHAPES + (K4_RAGGED,):
         st = build_state(torch.as_tensor(rng.integers(0, n, size=(p, n)), device=device))
         perm = np.argsort(rng.random((p, n)), axis=1)
-        for lane, edge in ((0, 0), (1, n - 1)):  # lane 0 samples column 0 first, lane 1 column n - 1
+        edges = k4_edges(n, 8)
+        for lane in range(p):  # lane 0 samples column 0 first, lane 1 column n - 1, the others a chunk's edge
+            edge = 0 if lane == 0 else n - 1 if lane == 1 else edges[lane % len(edges)]
             perm[lane] = np.r_[edge, perm[lane][perm[lane] != edge]]
         moves = NQMoves(torch.as_tensor(perm, device=device)[:, :a], n)
-        k = torch.as_tensor(rng.integers(0, a, size=p), device=device)
-        r_new = torch.as_tensor(rng.integers(0, n, size=p), device=device)
-        k[:2], r_new[:2] = 0, torch.tensor([n - 1, 0])  # column 0 to row n - 1, column n - 1 to row 0
         lane = torch.arange(p, device=device)
+        k = torch.as_tensor(rng.integers(0, a, size=p), device=device)
+        k = torch.where((lane < 2) | (lane % 2 == 0), 0, k)
+        r_new = torch.as_tensor(rng.integers(0, n, size=p), device=device)
+        r_new[:2] = torch.tensor([n - 1, 0])  # column 0 to row n - 1, column n - 1 to row 0
         r_new = torch.where(lane % 4 == 3, st.rows[lane, moves.cols[lane, k]], r_new)  # same-row moves
         idx = k * n + r_new
+        save = torch.as_tensor(rng.random(p) < 0.5, device=device)
+        best = torch.as_tensor(rng.integers(0, n, size=(p, n)), device=device)
         masks = {"all on": torch.ones(p, dtype=torch.bool, device=device),
                  "all off": torch.zeros(p, dtype=torch.bool, device=device),
                  "mixed": torch.as_tensor(rng.random(p) < 0.5, device=device)}
         for name, mask in masks.items():
-            timed = (p, a, n) != K4_RAGGED and (name == "all on" or (name == "mixed" and n == MAIN_N))
-            cases.append((f"{name} {(p, a, n)}", st, moves, idx.contiguous(), mask, timed))
+            for with_best in (False, True):
+                timed = (p, a, n) != K4_RAGGED and (name == "all on" or (n == MAIN_N and not with_best))
+                label = f"{name}{', best' if with_best else ''} {(p, a, n)}"
+                cases.append(K4Case(label, st, moves, idx.contiguous(), mask, best if with_best else None,
+                                    save if with_best else None, timed))
     return cases
 
 
 def k4_equal(got, want) -> bool:
-    """Every leaf of two N-Queens states equal, floats by their bits."""
+    """Every leaf of two N-Queens states (or boards) equal, floats by their bits."""
     import torch
 
     bits = (lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t)
     return all(torch.equal(bits(x), bits(y)) for x, y in zip(got, want, strict=True))
 
 
-def k4_graph_replay(device, st, moves, idx, mask) -> None:
-    """K4 captured in a CUDA graph and replayed once: one launch counted, the
-    state written bit for bit as the plain version writes it."""
+def k4_run(case, slices=None, ref=False):
+    """A copy of the case's state and best board after K4 at S = ``slices``
+    (None: the plan's), or after the plain version with ``ref``."""
+    import torch
+
+    from constraint_solver_tpu_torch.ops import nqueens_move as nm
+    from constraint_solver_tpu_torch.utils.tree import tree_map
+
+    st = tree_map(torch.clone, case.state)
+    best = None if case.best is None else case.best.clone()
+    if ref:
+        nm.nqueens_move_ref(st, case.moves, case.idx, case.mask, best, case.save)
+    else:
+        nm.nqueens_move(st, case.moves, case.idx, case.mask, best, case.save, _slices=slices)
+    return (*st, best) if best is not None else tuple(st)
+
+
+def k4_graph_replay(device, case) -> None:
+    """K4 at its plan captured in a CUDA graph and replayed once: one launch
+    counted, the state and best board written bit for bit as the plain
+    version writes them."""
     import torch
 
     from constraint_solver_tpu_torch.core import graphed
     from constraint_solver_tpu_torch.ops import nqueens_move as nm
     from constraint_solver_tpu_torch.utils.tree import tree_map
 
-    want, got = tree_map(torch.clone, st), tree_map(torch.clone, st)
-    nm.nqueens_move_ref(want, moves, idx, mask)
+    want = k4_run(case, ref=True)
+    got = tree_map(torch.clone, case.state)
+    best = None if case.best is None else case.best.clone()
     before = nm.nqueens_move.launches
-    seg = graphed.capture(lambda: nm.nqueens_move(got, moves, idx, mask), torch.cuda.CUDAGraph(),
-                          torch.cuda.Stream(device))
-    if not k4_equal(got, st):
+    seg = graphed.capture(lambda: nm.nqueens_move(got, case.moves, case.idx, case.mask, best, case.save),
+                          torch.cuda.CUDAGraph(), torch.cuda.Stream(device))
+    untouched = (*case.state, case.best) if best is not None else tuple(case.state)
+    if not k4_equal((*got, best) if best is not None else tuple(got), untouched):
         raise AssertionError("phase 2f: capturing K4 wrote the state")
     seg.replay()
     sync(device)
-    if nm.nqueens_move.launches != before + 1 or not k4_equal(got, want):
+    equal = k4_equal((*got, best) if best is not None else tuple(got), want)
+    if nm.nqueens_move.launches != before + 1 or not equal:
         raise AssertionError(f"phase 2f: K4 replayed in a CUDA graph: {nm.nqueens_move.launches - before} launches "
-                             f"counted for 1 replay, equal {k4_equal(got, want)}")
+                             f"counted for 1 replay, equal {equal}")
 
 
-def k4_rotation(st, moves, idx, mask):
-    """Copies of ``st`` whose rows and cs (what K4 streams) hold ``K4_L2_SPAN``
-    times the L2, and ``call(fn)``, which applies ``fn`` (K4 or a plain form,
-    with ``st``'s signature) to the next copy: each copy's move ``idx`` on
-    the first pass over them, the move back to the old row on the second, and
-    so on.  Every call does the same work from HBM; a run of ``2 * copies``
-    calls leaves every copy as it was.  Returns (copies, call)."""
+def k4_rotation(st, moves, idx, mask, best=None, save=None):
+    """Copies of ``st`` (and of ``best``) whose rows, cs and best boards (what
+    K4 streams) hold ``K4_L2_SPAN`` times the L2, and ``call(fn)``, which
+    applies ``fn`` (K4 or a plain form, with K4's signature) to the next copy:
+    each copy's move ``idx`` on the first pass over them, the move back to the
+    old row on the second, and so on.  Every call does the same work from
+    HBM; a run of ``2 * copies`` calls leaves every copy's state as it was
+    (and its best board, where it saves, the board).  Returns (copies, call),
+    a copy a pair (state, best or None)."""
     import torch
 
     from constraint_solver_tpu_torch.utils.tree import tree_map
 
     p, n = st.rows.shape
-    count = max(2, -(-K4_L2_SPAN * L2_BYTES // (st.rows.nbytes + st.cs.nbytes)))
-    copies = [tree_map(torch.clone, st) for _ in range(count)]
+    nbytes = st.rows.nbytes + st.cs.nbytes + (0 if best is None else best.nbytes)
+    count = max(2, -(-K4_L2_SPAN * L2_BYTES // nbytes))
+    copies = [(tree_map(torch.clone, st), None if best is None else best.clone()) for _ in range(count)]
     lane, k = torch.arange(p, device=idx.device), idx // n
     back = (k * n + st.rows[lane, moves.cols[lane, k]]).contiguous()
     step = [0]
@@ -1432,90 +1492,114 @@ def k4_rotation(st, moves, idx, mask):
     def call(fn):
         i = step[0]
         step[0] = i + 1
-        fn(copies[i % count], moves, back if i // count % 2 else idx, mask)
+        state, b = copies[i % count]
+        fn(state, moves, back if i // count % 2 else idx, mask, b, save)
 
     return copies, call
 
 
 def phase_k4(device, cases=None) -> dict:
     """2f. K4, the masked N-Queens move, against its plain version bit for bit
-    at ``k4_cases`` (every leaf of the state, floats by their bits), and the
-    mixed case at (16, 64, 16384) replayed once in a CUDA graph; then, at the
-    timed cases, its device-only ms per launch (its events in a
-    ``torch.profiler`` trace), the wrapper's host us, its time, the plain
-    version's and the select form's chain (``apply_move`` then the select by
-    the mask, which the descent ran before K4) by CUDA events, each over
-    state copies that do not fit the L2 (``k4_rotation``), and the bound
-    (``move_work``: this call's bytes, from the lanes it masks and the scores
-    its moves change, over 3.35 TB/s, or its operations over 67 T/s, the
-    larger) with the share.  No single PyTorch call computes the move (no
-    library time).  Returns K4's entry of the kernels line (main case: the
-    headline's all-on move; launches filled in by the paths)."""
+    at ``k4_cases`` (every leaf of the state and the best board, floats by
+    their bits), each at its launch plan and at S = 1 and 8 blocks a lane,
+    and the mixed case with a best board at (16, 64, 16384) (its plan: S = 8,
+    a thread-block cluster) replayed once in a CUDA graph; then, at the timed
+    cases, its device-only ms per launch (its events in a ``torch.profiler``
+    trace), the wrapper's host us, its time, the plain version's and the
+    select form's chain (``apply_move`` then the select by the mask, and the
+    best's select by ``save``: what the descent ran before K4) by CUDA
+    events, each over state copies that do not fit the L2 (``k4_rotation``),
+    and the bound (``move_work``: this call's bytes, from the lanes it masks
+    and saves and the scores its moves change, over 3.35 TB/s, or its
+    operations over 67 T/s, the larger) with the share; the all-on move at
+    (16, 64, 16384) with no best board also at S = 1, one block a lane.  No
+    single PyTorch call computes the move
+    (no library time).  Returns K4's entry of the kernels line (main case:
+    the headline's all-on move with no best board; launches filled in by the
+    paths)."""
     import torch
 
     from constraint_solver_tpu_torch.models.nqueens import make_nqueens_problem
     from constraint_solver_tpu_torch.ops import nqueens_move as nm
+    from constraint_solver_tpu_torch.ops.block_pick import _sms
     from constraint_solver_tpu_torch.utils.tree import tree_map, tree_where
 
     t0 = time.time()
     per, max_err = {}, 0.0
     card = card_line() if is_cuda(device) else "cpu"
+    sms = _sms(torch.device(device).index or 0) if is_cuda(device) else 132
     cases = cases or k4_cases(device)
-    for label, st, moves, idx, mask, timed in cases:
-        p, a = moves.cols.shape
-        n = moves.n
-        got, want = tree_map(torch.clone, st), tree_map(torch.clone, st)
-        nm.nqueens_move(got, moves, idx, mask)
-        nm.nqueens_move_ref(want, moves, idx, mask)
-        sync(device)
-        if not k4_equal(got, want):
-            raise AssertionError(f"phase 2f: K4 != its plain version ({label})")
-        max_err = max(max_err, *(float((x.double() - y.double()).abs().max()) for x, y in zip(got, want)))
-        masked = int(mask.sum())
-        changed = int((got.rows != st.rows).any(dim=1).sum())
-        log(f"phase 2f: K4 == plain version bit for bit at {label} ({nm._launch_plan(n)} threads a lane): "
-            f"{masked} lanes masked, {changed} boards changed")
-        if not timed:
+    for case in cases:
+        p, a = case.moves.cols.shape
+        n = case.moves.n
+        want = k4_run(case, ref=True)
+        plan = nm._launch_plan(p, n, sms)
+        for slices in dict.fromkeys((None, *K4_SLICES)):
+            got = k4_run(case, slices)
+            sync(device)
+            s = slices or plan.slices
+            if not k4_equal(got, want):
+                raise AssertionError(f"phase 2f: K4 != its plain version ({case.label}, S = {s})")
+            max_err = max(max_err, *(float((x.double() - y.double()).abs().max()) for x, y in zip(got, want)))
+        masked = int(case.mask.sum())
+        saved = -1 if case.save is None else int(case.save.sum())
+        changed = int((want[0] != case.state.rows).any(dim=1).sum())
+        log(f"phase 2f: K4 == plain version bit for bit at {case.label} at its plan (S = {plan.slices}, "
+            f"{plan.threads} threads a block) and S = {', '.join(map(str, K4_SLICES))}: {masked} lanes masked, "
+            f"{changed} boards changed, " + ("no best board" if saved < 0 else f"{saved} boards saved"))
+        if not case.timed:
             continue
-        ops, nbytes = nm.move_work(st, moves, idx, mask)
-        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-        bound, by = max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
-        entry = per[label] = {"bound_ms": bound, "bound_by": by, "bytes": nbytes, "operations": ops,
-                              "masked": masked, "threads": nm._launch_plan(n)}
-        if not is_cuda(device):
-            continue
-        copies, call = k4_rotation(st, moves, idx, mask)
-        cycle = 2 * len(copies)  # calls that leave every copy as it was
-        problem = make_nqueens_problem(n, sample_cols=a)
+        variants = [None]
+        if case.label.startswith("all on (") and plan.slices > 1:  # the cluster against one block a lane
+            variants.append(1)
+        for slices in variants:
+            label = case.label + (f" S={slices}" if slices else "")
+            st, moves, idx, mask, best, save = case.state, case.moves, case.idx, case.mask, case.best, case.save
+            ops, nbytes = nm.move_work(st, moves, idx, mask, best, save)
+            by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+            bound, by = max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+            use = nm._launch_plan(p, n, sms, slices)
+            entry = per[label] = {"bound_ms": bound, "bound_by": by, "bytes": nbytes, "operations": ops,
+                                  "masked": masked, "saved": max(saved, 0), "slices": use.slices,
+                                  "threads": use.threads}
+            if not is_cuda(device):
+                continue
+            copies, call = k4_rotation(st, moves, idx, mask, best, save)
+            cycle = 2 * len(copies)  # calls that leave every copy as it was
+            problem = make_nqueens_problem(n, sample_cols=a)
+            kernel = functools.partial(nm.nqueens_move, _slices=slices)
 
-        def select_chain(state, moves, idx, mask):
-            return tree_where(mask, problem.apply_move(state, moves, idx), state)
+            def select_chain(state, moves, idx, mask, best, save):
+                moved = tree_where(mask, problem.apply_move(state, moves, idx), state)
+                return moved if best is None else (moved, torch.where(save[:, None], moved.rows, best))
 
-        for f in (nm.nqueens_move, nm.nqueens_move_ref, select_chain):
-            time_ms(call, (f,), cycle)  # warm-up
-        dev, how = device_ms(call, (nm.nqueens_move,), cycle, K4_EVENT)
-        plain_ms = [time_ms(call, (nm.nqueens_move_ref,), cycle)]
-        chain_ms = [time_ms(call, (select_chain,), cycle)]
-        kern = [time_ms(call, (nm.nqueens_move,), cycle) for _ in range(2)]
-        plain_ms.append(time_ms(call, (nm.nqueens_move_ref,), cycle))
-        chain_ms.append(time_ms(call, (select_chain,), cycle))
-        args = (got, moves, idx, mask)  # the host's enqueue does not read the data
-        host = min(host_us(nm.nqueens_move, args, TIMED_LAUNCHES) for _ in range(2))
-        if not all(k4_equal(c, st) for c in copies):
-            raise AssertionError(f"phase 2f: K4's timed moves there and back did not restore the state ({label})")
-        del copies
-        entry.update(ms=sum(kern) / 2, device_ms=dev, bound_share=bound / dev, plain_ms=sum(plain_ms) / 2,
-                     select_chain_ms=sum(chain_ms) / 2, library_ms=None, host_us=host, state_copies=cycle // 2)
-        log(f"phase 2f: K4 at {label}: {kern} ms by CUDA events over {cycle} calls on {cycle // 2} state copies "
-            f"(host-bound: the wrapper's enqueue), plain version {plain_ms} ms, apply_move + select {chain_ms} ms; "
-            f"device-only {dev * 1e3:.3f} us per launch ({how}, the copies {K4_L2_SPAN}x the L2 in rows and cs); "
-            f"host {host:.1f} us per call; bound {bound * 1e3:.4f} us ({nbytes} bytes at "
-            f"{HBM_BYTES_PER_S / 1e12} TB/s, {ops} operations at {FP32_OPS_PER_S / 1e12} T/s: {by}), share "
-            f"{bound / dev:.3f}; {card}")
+            for f in (kernel, nm.nqueens_move_ref, select_chain):
+                time_ms(call, (f,), cycle)  # warm-up
+            dev, how = device_ms(call, (kernel,), cycle, K4_EVENT)
+            plain_ms = [time_ms(call, (nm.nqueens_move_ref,), cycle)]
+            chain_ms = [time_ms(call, (select_chain,), cycle)]
+            kern = [time_ms(call, (kernel,), cycle) for _ in range(2)]
+            plain_ms.append(time_ms(call, (nm.nqueens_move_ref,), cycle))
+            chain_ms.append(time_ms(call, (select_chain,), cycle))
+            args = (tree_map(torch.clone, st), moves, idx, mask, None if best is None else best.clone(), save)
+            host = min(host_us(kernel, args, TIMED_LAUNCHES) for _ in range(2))
+            restored = k4_run(case._replace(mask=torch.zeros_like(mask)), ref=True)  # the state, the board saved
+            if not all(k4_equal((*c, b) if b is not None else tuple(c), restored) for c, b in copies):
+                raise AssertionError(f"phase 2f: K4's timed moves there and back did not restore the state ({label})")
+            del copies
+            entry.update(ms=sum(kern) / 2, device_ms=dev, bound_share=bound / dev, plain_ms=sum(plain_ms) / 2,
+                         select_chain_ms=sum(chain_ms) / 2, library_ms=None, host_us=host, state_copies=cycle // 2)
+            log(f"phase 2f: K4 at {label} (S = {use.slices}, {use.threads} threads a block): {kern} ms by CUDA "
+                f"events over {cycle} calls on {cycle // 2} state copies (host-bound: the wrapper's enqueue), plain "
+                f"version {plain_ms} ms, the select form's chain {chain_ms} ms; device-only {dev * 1e3:.3f} us per "
+                f"launch ({how}, the copies {K4_L2_SPAN}x the L2 in rows, cs and best); host {host:.1f} us per "
+                f"call; bound {bound * 1e3:.4f} us ({nbytes} bytes at {HBM_BYTES_PER_S / 1e12} TB/s, {ops} "
+                f"operations at {FP32_OPS_PER_S / 1e12} T/s: {by}), share {bound / dev:.3f}; {card}")
     if is_cuda(device):
-        label, st, moves, idx, mask, _ = next(c for c in cases if c[0] == f"mixed {K4_SHAPES[1]}")
-        k4_graph_replay(device, st, moves, idx, mask)
-        log(f"phase 2f: K4 at {label} replayed once in a CUDA graph: 1 launch counted, the state bit for bit")
+        case = next(c for c in cases if c.label == f"mixed, best {K4_SHAPES[1]}")
+        k4_graph_replay(device, case)
+        log(f"phase 2f: K4 at {case.label} (S = {nm._launch_plan(*K4_SHAPES[1][::2], sms).slices}) replayed once "
+            f"in a CUDA graph: 1 launch counted, the state and best board bit for bit")
     log(f"phase 2f: {time.time() - t0:.1f} s")
     main = dict(per[f"all on {K4_SHAPES[0]}"])
     return {
@@ -1526,6 +1610,7 @@ def phase_k4(device, cases=None) -> dict:
         "max_abs_err": max_err,
         **main,
         "library_ms": None,
+        "plan": {label: {"slices": e["slices"], "threads": e["threads"]} for label, e in per.items()},
         "shapes": per,
     }
 

@@ -16,7 +16,8 @@ three graphs, split at that read:
 - **B** (``_finish``): the move and the carry's selects, then the select by the
   lanes still running, written in place into the static carry (a problem with
   ``in_place`` has its move written there under the lane mask, and its state is
-  not selected again).
+  not selected again; with ``saves_best`` neither is its best key, which the
+  move writes too).
 
 Under the exact filter nothing is read, and B follows A at once.  The host
 checks whether any lane still runs every ``_DONE_CHECK_EVERY`` iterations, as
@@ -214,7 +215,7 @@ class GraphedDescent:
     def _seg_b(self, a) -> None:
         """The move and the carry's selects, written into the static carry for
         the lanes still running (a masked move has written the state there
-        already)."""
+        already, and with ``saves_best`` the best key)."""
         active, b = a
         new = _finish(self.problem, self.params, self.carry, b, active)
         mine, fresh = _selected(self.problem, self.carry), _selected(self.problem, new)

@@ -42,9 +42,11 @@ whose move is K4) has its move written in place into the carry's own
 state, under the mask of lanes that step and still run, and its state is not
 selected again; the descent carries its best as its key (QAP's permutation,
 the N-Queens board) and ``ls_execute`` rebuilds the best state from it once,
-at the end.  The
-answers are the same bit for bit: the other lanes' state is left untouched,
-and the rebuilt state is the one the key stands for.
+at the end.  With ``InPlace.saves_best`` (N-Queens) the move also writes the
+key into the carried best, in the lanes that reach a new best and still
+run, so the best is not selected either.  The answers are the same bit for
+bit: the other lanes' state is left untouched, and the rebuilt state is the
+one the key stands for.
 
 Under a mesh (``parallel/mesh.py``) the done check is world-agreed
 (``world_any``), the port's form of ``fixed_trip``: every rank runs the same
@@ -196,7 +198,9 @@ def _finish(problem: Problem, params: LsParams, c: _LsCarry, b: _Begun, active) 
     """Apply each lane's pick and advance its carry (before the select by the
     lanes still running, ``_keep_running``).  With ``in_place`` the move is
     written into ``c.state`` itself, in the lanes that step and still run, and
-    the best is carried as its key."""
+    the best is carried as its key; with ``saves_best`` the move writes that
+    key into ``c.best_state`` too, in the lanes that reach a new best and
+    still run."""
     nb, pick, hit_best = b.nb, b.pick, b.hit_best
     if b.need is None:
         exhausted_event, empty_nbr = torch.zeros_like(pick.found), ~pick.found
@@ -214,6 +218,11 @@ def _finish(problem: Problem, params: LsParams, c: _LsCarry, b: _Begun, active) 
         cand_state = problem.apply_move(c.state, nb.moves, pick.idx)
         state = tree_where(step, cand_state, c.state)
         best_state = tree_where(new_best, tree_where(hit_best, c.state, cand_state), c.best_state)
+    elif ip.saves_best:
+        # A hit lane does not step, so its moved state is its old one; a lane
+        # that improves without a hit steps.  An inactive lane is not written.
+        ip.move(c.state, nb.moves, pick.idx, step & active, best=c.best_state, save=new_best & active)
+        state, best_state = c.state, c.best_state
     else:
         # A hit lane's new best is its old state: take its key before the
         # move writes over the old state.  A lane that takes the moved state
@@ -244,18 +253,29 @@ def _step(problem: Problem, params: LsParams, c: _LsCarry, draws, active) -> _Ls
     return _finish(problem, params, c, b, active)
 
 
+def _written(problem: Problem, c: _LsCarry) -> dict:
+    """The fields of carry ``c`` that the move writes in place: the state with
+    ``in_place``, the best key too with ``saves_best``."""
+    ip = problem.in_place
+    if ip is None:
+        return {}
+    return {"state": c.state, "best_state": c.best_state} if ip.saves_best else {"state": c.state}
+
+
 def _selected(problem: Problem, c: _LsCarry) -> _LsCarry:
     """The part of carry ``c`` that the select by the lanes still running
-    writes: all of it, but the state when ``in_place`` wrote it."""
-    return c if problem.in_place is None else c._replace(state=())
+    writes: all of it, but what the move wrote in place (``_written``)."""
+    return c._replace(**dict.fromkeys(_written(problem, c), ()))
 
 
 def _keep_running(problem: Problem, active, new: _LsCarry, old: _LsCarry) -> _LsCarry:
     """``new`` in the lanes still running, ``old`` in the others (with
-    ``in_place``, ``old.state``: the move has been written there)."""
+    ``in_place``, what the move wrote is taken from ``old``: the move has
+    written it there)."""
     if problem.in_place is None:
         return tree_where(active, new, old)
-    return tree_where(active, _selected(problem, new), _selected(problem, old))._replace(state=old.state)
+    kept = tree_where(active, _selected(problem, new), _selected(problem, old))
+    return kept._replace(**_written(problem, old))
 
 
 def ls_execute(problem: Problem, params: LsParams, start_state, tabu: TabuRing, draws, enabled, graphs=None):
@@ -282,8 +302,9 @@ def ls_execute(problem: Problem, params: LsParams, start_state, tabu: TabuRing, 
     if graphs is not None and graphs.applies(problem, draws, enabled.device):
         c = graphs.descend(problem, params, c, draws)  # copies c into the graphs' own carry
     else:
-        if problem.in_place is not None:  # the move writes the carry's state
-            c = c._replace(state=tree_map(torch.clone, start_state))
+        # The move writes the carry's state, and with ``saves_best`` its best
+        # key, which is taken from ``start_state`` itself: both become copies.
+        c = c._replace(**{k: tree_map(torch.clone, v) for k, v in _written(problem, c).items()})
         for i in range(params.max_iterations):
             active = ~c.done
             if i % _DONE_CHECK_EVERY == 0 and not world_any(active):

@@ -27,9 +27,11 @@ Divergences:
   into the update that feeds it; eagerly or in a CUDA graph each select is a
   pass of its own over the state.  With the field the engine writes the move in
   place under the lane mask and carries the descent's best as a key, from which
-  it rebuilds the state once at the end.  The answers are the same: the masked
-  move leaves the other lanes bit for bit as they were, and the rebuild gives
-  the state the key stands for;
+  it rebuilds the state once at the end (with ``InPlace.saves_best`` the move
+  writes that key too: N-Queens' K4 writes the best board in the same
+  launch).  The answers are the same: the masked move leaves the other lanes
+  bit for bit as they were, and the rebuild gives the state the key stands
+  for;
 - a neighborhood may hand its scores over as a row block (``Neighborhood.block``,
   a ``RowBlock``: N-Queens' B1 output, hard [P, R, C] with a soft channel that
   is identically 0, a validity per row, each row's minimum and first argmin)
@@ -141,11 +143,20 @@ class InPlace(NamedTuple):
     rebuild: (key) -> state, exactly the state the key stands for.  The
              descent carries its best as the key and rebuilds it once, at its
              end.
+    saves_best: the move also writes the descent's best key in place:
+             move(state, moves, idx, mask, best=key, save=save[P]) writes
+             ``key(state)`` after the move into the key ``best`` in the lanes
+             of ``save`` (a lane outside ``mask`` writes its key as it is),
+             and leaves every other lane of ``best`` as it was.  The engine
+             then selects no best key (N-Queens: the board, written by K4 in
+             the same launch).  False (the default): the engine selects the
+             best key from ``key(state)`` itself (QAP).
     """
 
     move: Callable
     key: Callable
     rebuild: Callable
+    saves_best: bool = False
 
 
 class Problem(NamedTuple):

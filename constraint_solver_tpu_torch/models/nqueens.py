@@ -55,8 +55,9 @@ Divergences from the JAX package:
   ``nbr_axis`` the problem has ``in_place`` (``core/problem.py``): the descent
   writes each lane's move into its own state under the mask of lanes that
   step and still run (K4, ``ops/nqueens_move.py``: one launch on the card),
-  carries its best as the board ``rows`` alone, and rebuilds the best's
-  counters with ``build_state`` once, at its end.  The JAX package selects
+  carries its best as the board ``rows`` alone, written by the same launch
+  in the lanes that reach a new best and still run (``InPlace.saves_best``),
+  and rebuilds the best's counters with ``build_state`` once, at its end.  The JAX package selects
   whole state trees per lane and XLA fuses the selects into ``apply_move``'s
   updates; here each select would be a pass of its own over the 8 MB state.
   The counters are exact integers in float32, so the rebuild equals the
@@ -395,5 +396,6 @@ def make_nqueens_problem(
         perturb=perturb,
         width=a_max * n,
         capturable=nbr_axis is None,
-        in_place=InPlace(move=nqueens_move, key=_board, rebuild=build_state) if nbr_axis is None else None,
+        in_place=InPlace(move=nqueens_move, key=_board, rebuild=build_state, saves_best=True)
+        if nbr_axis is None else None,
     )

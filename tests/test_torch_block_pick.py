@@ -485,7 +485,8 @@ def test_roofline_counts_k3_by_formula():
 BUILDS = {
     "block_pick": (bp, "block_pick_launch", {"kMaxExcl": bp.MAX_EXCL, "kPickThreads": bp.PICK_THREADS,
                                               "kRetryThreads": bp.RETRY_THREADS, "kMaxSlices": bp.MAX_SLICES}),
-    "nqueens_move": (nm, "nqueens_move_launch", {"kUnroll": nm.UNROLL, "kMaxThreads": nm.MAX_THREADS}),
+    "nqueens_move": (nm, "nqueens_move_launch", {"kColumns": nm.COLUMNS, "kMaxThreads": nm.MAX_THREADS,
+                                                  "kMaxSlices": nm.MAX_SLICES}),
 }
 
 

@@ -25,7 +25,10 @@ forms of the N-Queens block (``block_impl="mxu_conv"``, ``"mxu_toeplitz"``)
 equal the kernel's block bit for bit and replay as graphs too.  K3, the block
 pick, equals its plain version bit for bit at ``chip_smoke.py`` phase 2e's
 cases and on floats with NaN, counts through graph replays, and raises
-instead of falling back.  QAP's
+instead of falling back.  K4, the masked N-Queens move with its best board,
+equals its plain version bit for bit at phase 2f's cases and on edge shapes,
+at its plan and at 1, 3 and 8 blocks a lane, adds the column scores by a
+reduction (its SASS), counts through graph replays and raises.  QAP's
 incremental move written in place, with the best carried by its permutation,
 equals the select form bit for bit.  Two gloo
 ranks sharing the card run the pop- and nbr-sharded N-Queens solves, equal to
@@ -1085,30 +1088,62 @@ def test_cuda_block_pick_counts_through_graph_replays_and_raises(cuda, tmp_path,
 @pytest.mark.cuda
 def test_cuda_nqueens_move_matches_plain_version_at_the_smoke_cases(cuda):
     """K4 at ``chip_smoke.py`` phase 2f's cases ((256, 50, 1000), (16, 64,
-    16384) and the ragged (5, 7, 1003); masks all on, all off and mixed;
-    same-row moves; the columns 0 and n - 1): every leaf of the state bit for
-    bit the plain version's, floats by their bits."""
+    16384) and the ragged (5, 7, 16383); masks all on, all off and mixed,
+    each without and with a best board; same-row moves; the columns 0 and n
+    - 1 and a chunk's first and last), each at its launch plan and at S = 1
+    and 8: every leaf of the state and the best board bit for bit the plain
+    version's, floats by their bits."""
     import chip_smoke
-    from constraint_solver_tpu_torch.ops import nqueens_move as nm
-    from constraint_solver_tpu_torch.utils.tree import tree_map
 
-    for label, st, moves, idx, mask, _ in chip_smoke.k4_cases(cuda):
-        got, want = tree_map(torch.clone, st), tree_map(torch.clone, st)
-        nm.nqueens_move(got, moves, idx, mask)
-        nm.nqueens_move_ref(want, moves, idx, mask)
-        torch.cuda.synchronize()
-        assert chip_smoke.k4_equal(got, want), label
+    for case in chip_smoke.k4_cases(cuda):
+        want = chip_smoke.k4_run(case, ref=True)
+        for slices in (None, 1, 8):
+            got = chip_smoke.k4_run(case, slices)
+            torch.cuda.synchronize()
+            assert chip_smoke.k4_equal(got, want), (case.label, slices)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p, a, n", [(1, 1, 1), (3, 2, 2), (2, 3, 4097), (2, 3, 40000), (70, 5, 33)])
+def test_cuda_nqueens_move_plan_on_this_card(cuda):
+    """The plan reads the card's SMs: on a card of at least 128 (an H100 has
+    132) a lane of the nqueens-16384 cell is a cluster of 8 blocks and the
+    headline's lanes are one block each."""
+    from constraint_solver_tpu_torch.ops import block_pick as bp
+    from constraint_solver_tpu_torch.ops import nqueens_move as nm
+
+    sms = bp._sms(cuda.index)
+    assert nm._launch_plan(256, 1000, sms).slices == 1
+    if sms >= 128:
+        assert nm._launch_plan(16, 16384, sms).slices == 8
+
+
+@pytest.mark.cuda
+def test_cuda_nqueens_move_adds_the_column_scores_by_reduction(cuda):
+    """The column scores are updated by a reduction whose result is unused
+    (RED ... ADD.F32 in the kernel's SASS), never by an atomic that returns
+    the old value."""
+    import os
+    import subprocess
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from constraint_solver_tpu_torch.ops import nqueens_move as nm
+
+    nm.build_library()
+    cuobjdump = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(nm._LIB_PATH)], capture_output=True, text=True, check=True).stdout
+    lines = [line for line in sass.splitlines() if "ADD.F32" in line and ("RED" in line or "ATOM" in line)]
+    assert lines and all("RED" in line for line in lines), lines
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p, a, n", [(1, 1, 1), (3, 2, 2), (2, 3, 4097), (2, 3, 40000), (70, 5, 33), (3, 4, 2049)])
 def test_cuda_nqueens_move_on_edge_shapes(cuda, p, a, n):
     """One column, a board of two, a ragged row of columns, more columns than
     a block loads at once (the pass loops), more lanes than one wave; a
-    contiguous [P, A] sample and a strided one."""
+    contiguous [P, A] sample and a strided one; without and with a best
+    board, at the plan and at S = 1, 3 and 8 (a chunk of no item too)."""
     from constraint_solver_tpu_torch.models.nqueens import NQMoves
-    from constraint_solver_tpu_torch.ops import nqueens_move as nm
-    from constraint_solver_tpu_torch.utils.tree import tree_map
 
     import chip_smoke
 
@@ -1117,12 +1152,16 @@ def test_cuda_nqueens_move_on_edge_shapes(cuda, p, a, n):
     perm = torch.as_tensor(np.argsort(rng.random((p, n)), axis=1), device=cuda)
     idx = torch.as_tensor(rng.integers(0, a * n, size=p), device=cuda)
     mask = torch.as_tensor(rng.random(p) < 0.7, device=cuda)
+    best = torch.as_tensor(rng.integers(0, n, size=(p, n)), device=cuda)
+    save = torch.as_tensor(rng.random(p) < 0.5, device=cuda)
     for cols in (perm[:, :a], perm[:, :a].contiguous()):
-        got, want = tree_map(torch.clone, st), tree_map(torch.clone, st)
-        nm.nqueens_move(got, NQMoves(cols, n), idx, mask)
-        nm.nqueens_move_ref(want, NQMoves(cols, n), idx, mask)
-        torch.cuda.synchronize()
-        assert chip_smoke.k4_equal(got, want), cols.stride()
+        for b, sv in ((None, None), (best, save)):
+            case = chip_smoke.K4Case("edge", st, NQMoves(cols, n), idx, mask, b, sv, False)
+            want = chip_smoke.k4_run(case, ref=True)
+            for slices in (None, 1, 3, 8):
+                got = chip_smoke.k4_run(case, slices)
+                torch.cuda.synchronize()
+                assert chip_smoke.k4_equal(got, want), (cols.stride(), b is None, slices)
 
 
 @pytest.mark.cuda
@@ -1134,9 +1173,10 @@ def test_cuda_nqueens_move_counts_through_graph_replays_and_raises(cuda, tmp_pat
     import chip_smoke
     from constraint_solver_tpu_torch.ops import nqueens_move as nm
 
-    label, st, moves, idx, mask, _ = next(c for c in chip_smoke.k4_cases(cuda) if c[0].startswith("mixed"))
+    case = next(c for c in chip_smoke.k4_cases(cuda) if c.label == f"mixed, best {chip_smoke.K4_SHAPES[1]}")
+    st, moves, idx, mask = case.state, case.moves, case.idx, case.mask
     nm.nqueens_move(st, moves, idx, mask)  # built and loaded before the capture
-    chip_smoke.k4_graph_replay(cuda, st, moves, idx, mask)
+    chip_smoke.k4_graph_replay(cuda, case)
     for exact in (None, False):
         counts, runs = {}, {}
         for graphed_run in (False, True):

@@ -23,15 +23,18 @@ import torch
 
 from constraint_solver_tpu.core import history as jh
 from constraint_solver_tpu.core.ils import SolverConfig as JConfig
+from constraint_solver_tpu.core.local_search import _select as j_select
 from constraint_solver_tpu.core.local_search import ls_execute as j_ls_execute
 from constraint_solver_tpu.models.nqueens import build_state as j_build_state
 from constraint_solver_tpu.models.nqueens import make_nqueens_problem as j_make
 from constraint_solver_tpu_torch.core.ils import SolverConfig
+from constraint_solver_tpu_torch.core.history import TabuRing
 from constraint_solver_tpu_torch.core.local_search import ls_execute
 from constraint_solver_tpu_torch.models import nqueens as tnq
 from constraint_solver_tpu_torch.ops import nqueens_move as nm
 from constraint_solver_tpu_torch.parallel.population import PopulationSolver
 from constraint_solver_tpu_torch.utils.convert import from_reference, to_reference
+from constraint_solver_tpu_torch.utils.draws import TorchDraws
 from constraint_solver_tpu_torch.utils.tree import tree_leaves, tree_map, tree_where
 from jax_key_draws import JaxKeyDraws, reference_log_weights
 from test_torch_engine import assert_tree_equal
@@ -73,13 +76,27 @@ def _picks(rng, st, moves):
     return torch.tensor([int(ki) * n + int(ri) for ki, ri in zip(k, r, strict=True)])
 
 
+def _jax_moved(n, a, st, moves, idx):
+    """The JAX package's ``apply_move`` of each lane's pick, vmapped."""
+    jp = j_make(n, sample_cols=a)
+    cols = moves.cols.gather(1, idx[:, None] // n)[:, 0]
+    jst = jax.vmap(j_build_state)(jnp.asarray(st.rows.numpy(), jnp.int32))
+    pairs = (jnp.asarray(cols.numpy()[:, None], jnp.int32), jnp.asarray((idx % n).numpy()[:, None], jnp.int32))
+    return jst, jax.jit(jax.vmap(jp.apply_move))(jst, pairs, jnp.zeros(len(idx), jnp.int32))
+
+
+@pytest.mark.parametrize("saving", ["no best", "best"])
 @pytest.mark.parametrize("mask", ["all", "none", "mixed", "one"])
 @pytest.mark.parametrize("n", [5, 23, 64])
-def test_masked_move_equals_move_then_select(n, mask):
+def test_masked_move_equals_move_then_select(n, mask, saving):
     """In the lanes of the mask the move's rows, counters and column scores
     equal ``apply_move``'s and a rebuild from the moved board; in the others
     the old tensors, bit for bit (a -0 there too); the buffers are the
-    state's own and the call returns None."""
+    state's own and the call returns None.  ``best``: the best board carried
+    by the move equals the JAX package's ``apply_move`` followed by the
+    descent's two ``_select``s (the moved board in the lanes of the mask, the
+    old one in the others, then the old best outside ``save``), with lanes
+    that move and save, move only, save only (a hit lane) and do neither."""
     p, a = 8, min(n, 4)
     rng = np.random.default_rng(n)
     problem = tnq.make_nqueens_problem(n, sample_cols=a)
@@ -90,14 +107,26 @@ def test_masked_move_equals_move_then_select(n, mask):
     on = torch.tensor(on)
     if not on[1]:
         st.cs[1, 0] = -0.0  # a lane the mask leaves alone keeps its signed zeros
+    kw = {}
+    if saving == "best":
+        best = torch.from_numpy(rng.integers(0, n, size=(p, n)))
+        kw = dict(best=best, save=torch.tensor([True, True, False, False] * 2))
 
     old = tree_map(torch.clone, st)
+    old_best = kw["best"].clone() if kw else None
     want = tree_where(on, problem.apply_move(old, moves, idx), old)
-    buffers = list(st)
-    assert problem.in_place.move is nm.nqueens_move
-    assert problem.in_place.move(st, moves, idx, on) is None
-    assert all(x is y for x, y in zip(st, buffers))
+    buffers = list(st) + list(kw.values())
+    assert problem.in_place.move is nm.nqueens_move and problem.in_place.saves_best
+    assert problem.in_place.move(st, moves, idx, on, **kw) is None
+    assert all(x is y for x, y in zip(list(st) + list(kw.values()), buffers))
     assert_bits_equal(st, want)
+    if kw:
+        jst, moved = _jax_moved(n, a, old, moves, idx)
+        select = jax.vmap(j_select)
+        j_on, j_save = jnp.asarray(on.numpy()), jnp.asarray(kw["save"].numpy())
+        j_best = select(j_save, select(j_on, moved.rows, jst.rows), jnp.asarray(old_best.numpy(), jnp.int32))
+        np.testing.assert_array_equal(kw["best"].numpy(), np.asarray(j_best))
+        assert torch.equal(kw["best"], torch.where(kw["save"][:, None], st.rows, old_best))
     for k in range(p):
         if on[k]:
             assert_bits_equal(tnq.NQState(*(x[k : k + 1] for x in st)), tnq.build_state(st.rows[k : k + 1]))
@@ -109,14 +138,10 @@ def test_masked_move_equals_the_jax_move():
     masked move with every lane on."""
     n, p, a = 20, 8, 4
     rng = np.random.default_rng(7)
-    jp = j_make(n, sample_cols=a)
     st = _state(rng, p, n)
     moves = _moves(rng, p, n, a)
     idx = _picks(rng, st, moves)
-    cols = moves.cols.gather(1, idx[:, None] // n)[:, 0]
-    jst = jax.vmap(j_build_state)(jnp.asarray(st.rows.numpy(), jnp.int32))
-    pairs = (jnp.asarray(cols.numpy()[:, None], jnp.int32), jnp.asarray((idx % n).numpy()[:, None], jnp.int32))
-    want = jax.jit(jax.vmap(jp.apply_move))(jst, pairs, jnp.zeros(p, jnp.int32))
+    want = _jax_moved(n, a, st, moves, idx)[1]
     nm.nqueens_move(st, moves, idx, torch.ones(p, dtype=torch.bool))
     assert_tree_equal(want, to_reference(st), "moved")
 
@@ -232,6 +257,24 @@ def test_population_solve_with_the_field_equals_the_select_form(loop):
     assert_bits_equal(state.current_state, tnq.build_state(state.current_state.rows))
 
 
+def test_eager_descent_leaves_start_state_untouched():
+    """The move writes the carry's state and its best board in place; the
+    eager ``ls_execute`` copies both from ``start_state`` (whose board is the
+    best's first key), so ``start_state`` stays bit for bit as it was and the
+    best returned is a buffer of its own, though most lanes improve."""
+    n, p = 32, 4
+    problem = tnq.make_nqueens_problem(n)
+    params = SolverConfig(**_config()).ls_params(problem.width)
+    start = _state(np.random.default_rng(3), p, n)
+    before = tree_map(torch.clone, start)
+    best, best_score, *_ = ls_execute(problem, params, start, TabuRing.create(p, 16, 30, "cpu"),
+                                      TorchDraws("untouched", p, "cpu"), torch.ones(p, dtype=torch.bool))
+    assert_bits_equal(start, before)
+    assert best.rows.untyped_storage().data_ptr() != start.rows.untyped_storage().data_ptr()
+    assert int((best_score[:, 0] < problem.score(start)[:, 0]).sum()) >= p // 2
+    assert_bits_equal(best, tnq.build_state(best.rows))
+
+
 def test_wrapper_checks_its_inputs():
     rng = np.random.default_rng(1)
     p, n, a = 3, 6, 2
@@ -262,6 +305,20 @@ def test_wrapper_checks_its_inputs():
         nm.nqueens_move(st, moves._replace(cols=moves.cols[:, :0]), idx, mask)
     with pytest.raises(ValueError, match="at most"):
         nm.nqueens_move(st, moves._replace(n=nm.MAX_N + 1), idx, mask)
+    best, save = st.rows.clone(), mask.clone()
+    with pytest.raises(ValueError, match="together"):
+        nm.nqueens_move(st, moves, idx, mask, best=best)
+    with pytest.raises(TypeError):
+        nm.nqueens_move(st, moves, idx, mask, best=best.int(), save=save)
+    with pytest.raises(TypeError):
+        nm.nqueens_move(st, moves, idx, mask, best=best, save=save.int())
+    with pytest.raises(ValueError):
+        nm.nqueens_move(st, moves, idx, mask, best=best[:2], save=save)
+    with pytest.raises(ValueError, match="share no memory"):
+        nm.nqueens_move(st, moves, idx, mask, best=st.rows, save=save)
+    for slices in (0, 9):
+        with pytest.raises(ValueError, match="_slices"):
+            nm.nqueens_move(st, moves, idx, mask, _slices=slices)
     before = tree_map(torch.clone, st)
     nm.nqueens_move(st, moves, idx, torch.zeros(p, dtype=torch.bool))
     assert_bits_equal(st, before)
@@ -270,13 +327,54 @@ def test_wrapper_checks_its_inputs():
     assert nm.nqueens_move.launches == launches  # no kernel on the CPU
 
 
-def test_launch_plan_and_kernel_work():
-    assert [nm._launch_plan(n) for n in (1, 1000, 1024, 1025, 2048, 4097, 16384, 16385, 10**6)] == [
-        64, 64, 64, 128, 128, 512, 1024, 1024, 1024]
+def _chunks(n: int, slices: int) -> list:
+    """The columns of each block of a lane, as the kernel cuts them: the
+    lane's items (pairs of columns when n is even, else single columns) in
+    ``slices`` contiguous chunks, block b from items·b/S to items·(b+1)/S."""
+    width = 2 if n % 2 == 0 else 1
+    items = n // width
+    return [range(items * b // slices * width, items * (b + 1) // slices * width) for b in range(slices)]
+
+
+@pytest.mark.parametrize("args, plan", [
+    ((16, 16384, 132, None), (8, 256, 128)),   # the nqueens-16384 cell: 16 lanes, 8 blocks each
+    ((256, 1000, 132, None), (1, 256, 256)),   # the headline: enough lanes
+    ((5, 16383, 132, None), (8, 256, 40)),     # ragged: n % 8 = 7, single columns
+    ((5, 1003, 132, None), (1, 256, 5)),       # under 2 · 1024 columns: one block
+    ((16, 4096, 132, None), (4, 256, 64)),     # each of S blocks keeps 1024 columns
+    ((100, 16384, 132, None), (2, 256, 200)),  # P·S reaches the SMs
+    ((16, 16384, 16, None), (1, 256, 16)),     # a card of 16 SMs: the pass loops
+    ((1, 10**6, 132, None), (8, 256, 8)),      # the pass loops
+    ((256, 1000, 132, 8), (8, 32, 2048)),      # forced, ragged: 500 pairs over 8 blocks
+    ((16, 16384, 132, 1), (1, 256, 16)),       # forced
+    ((16, 2048, 132, None), (2, 256, 32)),     # just 2 · 1024 columns: two blocks of 1024
+] + [((300, n, 132, None), (1, t, 300)) for n, t in ((1, 32), (128, 32), (129, 64), (512, 128), (1000, 256),
+                                                     (16385, 256))],
+    ids=str)
+def test_launch_plan(args, plan):
+    """S, threads and grid for (P, n, SMs, forced S); the
+    blocks' chunks cover every column once, and one pass of the threads
+    covers the largest chunk unless a block holds more than ``MAX_THREADS ·
+    COLUMNS`` columns."""
+    got = nm._launch_plan(*args)
+    assert tuple(got) == plan
+    n = args[1]
+    chunks = _chunks(n, got.slices)
+    assert [j for c in chunks for j in c] == list(range(n))
+    widest = max(len(c) for c in chunks)
+    assert widest <= got.threads * nm.COLUMNS or got.threads == nm.MAX_THREADS
+    assert got.slices == 1 or args[3] or min(len(c) for c in chunks) >= nm.MIN_CHUNK
+
+
+def test_kernel_work_counts_the_best_board():
     assert nm.kernel_work(256, 1000) == (13 * 256 * 1000, 9 * 256 + 256 * (8 * 1000 + 68))
     assert nm.kernel_work(16, 16384, masked=3, changed=11) == (
         13 * 3 * 16384 + 11, 9 * 16 + 3 * (8 * 16384 + 68) + 8 * 11)
     assert nm.kernel_work(4, 10, masked=0) == (0, 36)
+    # With a best board: save read, 5 boards written, 2 of them (outside the mask) read too.
+    assert nm.kernel_work(16, 16384, masked=3, changed=11, saved=5, saved_only=2) == (
+        13 * 3 * 16384 + 11, 9 * 16 + 3 * (8 * 16384 + 68) + 8 * 11 + 16 + 8 * 16384 * 7)
+    assert nm.kernel_work(4, 10, masked=0, saved=0) == (0, 40)
 
 
 def test_move_work_counts_the_scores_the_moves_change():
@@ -299,6 +397,13 @@ def test_move_work_counts_the_scores_the_moves_change():
     changed = int(((got.cs != st.cs) & off_col).sum())
     assert changed > 0
     assert nm.move_work(st, moves, idx, mask) == nm.kernel_work(p, n, int(mask.sum()), changed)
+    save = torch.as_tensor(rng.random(p) < 0.5)
+    save[:2] = torch.tensor([True, True])
+    mask[1] = False  # a lane that saves its board as it is reads it too
+    changed = int(((got.cs != st.cs) & off_col & mask[:, None]).sum())  # got moved lane 1 too
+    got_work = nm.move_work(st, moves, idx, mask, st.rows.clone(), save)
+    assert got_work == nm.kernel_work(p, n, int(mask.sum()), changed, int(save.sum()), int((save & ~mask).sum()))
+    assert got_work[1] > nm.move_work(st, moves, idx, mask)[1] + 8 * n * int(save.sum())
 
 
 def test_roofline_counts_k4_by_formula():
@@ -317,10 +422,12 @@ def test_roofline_counts_k4_by_formula():
     assert (count.flops, count.bytes) == (ops, nbytes)
 
 
-def test_the_smoke_timing_rotation_moves_each_copy_there_and_back(monkeypatch):
-    """``chip_smoke.py`` phase 2f times K4 over state copies that do not fit
-    the L2: each call moves the next copy, forward on one pass and back on the
-    next, so every call does the same work and a cycle restores every copy."""
+@pytest.mark.parametrize("with_best", [False, True], ids=["no best", "best"])
+def test_the_smoke_timing_rotation_moves_each_copy_there_and_back(monkeypatch, with_best):
+    """``chip_smoke.py`` phase 2f times K4 over state copies (and best boards)
+    that do not fit the L2: each call moves the next copy, forward on one pass
+    and back on the next, so every call does the same work and a cycle
+    restores every copy's state, and leaves the saved board in its best."""
     import chip_smoke
 
     monkeypatch.setattr(chip_smoke, "L2_BYTES", 1000)  # a few copies of a small state
@@ -330,20 +437,27 @@ def test_the_smoke_timing_rotation_moves_each_copy_there_and_back(monkeypatch):
     moves = _moves(rng, p, n, a)
     idx = torch.as_tensor(rng.integers(0, a * n, size=p))
     mask = torch.tensor([True, True, False, True])
-    copies, call = chip_smoke.k4_rotation(st, moves, idx, mask)
-    assert len(copies) == -(-chip_smoke.K4_L2_SPAN * 1000 // (st.rows.nbytes + st.cs.nbytes))
+    best = torch.from_numpy(rng.integers(0, n, size=(p, n))) if with_best else None
+    save = torch.tensor([True, False, True, False]) if with_best else None
+    copies, call = chip_smoke.k4_rotation(st, moves, idx, mask, best, save)
+    extra = 0 if best is None else best.nbytes
+    assert len(copies) == -(-chip_smoke.K4_L2_SPAN * 1000 // (st.rows.nbytes + st.cs.nbytes + extra))
     works = []
 
-    def move(state, moves, idx, mask):
-        works.append(nm.move_work(state, moves, idx, mask))
-        nm.nqueens_move(state, moves, idx, mask)
+    def move(state, moves, idx, mask, best, save):
+        works.append(nm.move_work(state, moves, idx, mask, best, save))
+        nm.nqueens_move(state, moves, idx, mask, best, save)
 
     for _ in range(len(copies)):
         call(move)
     want = tree_map(torch.clone, st)
-    nm.nqueens_move_ref(want, moves, idx, mask)
-    assert all(chip_smoke.k4_equal(c, want) for c in copies)
+    want_best = None if best is None else best.clone()
+    nm.nqueens_move_ref(want, moves, idx, mask, want_best, save)
+    assert all(chip_smoke.k4_equal(c, want) for c, _ in copies)
+    assert all((b is None) == (best is None) and (b is None or torch.equal(b, want_best)) for _, b in copies)
     for _ in range(len(copies)):
         call(move)
-    assert all(chip_smoke.k4_equal(c, st) for c in copies)
+    assert all(chip_smoke.k4_equal(c, st) for c, _ in copies)
+    if best is not None:
+        assert all(torch.equal(b, torch.where(save[:, None], st.rows, best)) for _, b in copies)
     assert len(set(works)) == 1 and works[0][1] > nm.kernel_work(p, n, 3)[1]
