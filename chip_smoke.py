@@ -2,15 +2,15 @@
 """Smoke run of the PyTorch port (``constraint_solver_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py                # every phase
-    python3 chip_smoke.py --kernel-only  # phases 1, 2, 2b, 2c, 2d, 2e and 2f, no result line
+    python3 chip_smoke.py --kernel-only  # phases 1 and 2 to 2g, no result line
     python3 chip_smoke.py --k3-solves    # phase 1, then K3's launches over a solve of each N-Queens cell
 
 Phases, each printing its own lines; any failure raises and exits nonzero:
 
-1. builds the six CUDA libraries from ``constraint_solver_tpu_torch/csrc``
+1. builds the seven CUDA libraries from ``constraint_solver_tpu_torch/csrc``
    (``nqueens_scores.cu``, ``nqueens_probes.cu``, ``qap_row_min.cu``,
-   ``fingerprint.cu``, ``block_pick.cu`` and ``nqueens_move.cu``, one ``nvcc``
-   each, started together) and prints the card's name and power limit (``nvidia-smi``);
+   ``fingerprint.cu``, ``block_pick.cu``, ``nqueens_move.cu`` and
+   ``sched_dense.cu``, one ``nvcc`` each, started together) and prints the card's name and power limit (``nvidia-smi``);
    without a CUDA device it stops before printing any result;
 2. holds the kernel against its plain PyTorch version on the card, bit for bit,
    at the shapes the solvers give it (phase 13's sharded (128, 25, 1000) and
@@ -84,6 +84,18 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    profiler trace), the wrapper's host us, the wrapper, the plain version and
    the select form's chain (``apply_move`` then the select) by CUDA events,
    and the bound of this call's masked lanes with the share;
+2g. K5, the roster's dense neighborhood (``ops/sched_dense.py``,
+   ``csrc/sched_dense.cu``), at the roster cell's (64, 365, 20, 256, 4), 730
+   x 40 at P = 128, 31 d x 7 e with holidays at P = 8, an instance from a
+   Friday, D < 15 (no diagonals), no random swaps, and lanes on two
+   employees: every output (scores, validity, fingerprint deltas, the four
+   move tensors, padding slots included) equal to its plain version's, the
+   eager chain the dense proposer ran before it; the roster case replayed
+   once in a CUDA graph; at the roster's and 730 x 40's shapes its
+   device-only time (both kernels' events in a profiler trace), the
+   wrapper's host us, the wrapper and the plain version by CUDA events, the
+   plain version's kernels a call, and the bound (bytes over 3.35 TB/s) with
+   the share;
 3. runs a few rounds of nqueens-64 with 8 lanes on the card and on the CPU from
    the same host-side draws, in both tabu modes: the states must be equal;
 4. drives the main path, ``PopulationSolver(make_nqueens_problem(1000), ...,
@@ -115,7 +127,9 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    with 4 (2 rounds; G and H are 268 MB each; every compact and incremental
    case must launch K1, as often graphed as eager; every case K2, as often
    graphed as eager: K2a's ring form and K2b, and K2a but for the systematic
-   proposer, whose moves are whole states), Ackley d = 10 with 64 lanes
+   proposer, whose moves are whole states, and the dense one, whose
+   fingerprint deltas K5 hashes; every dense scheduling case K5, as often
+   graphed as eager), Ackley d = 10 with 64 lanes
    (6 rounds of descents of at most 40 iterations) and the diagram layout (8
    boxes with 4 lanes, 64 boxes with 64, 3 rounds): state trees, traces,
    ``stats()`` and the generator's state equal; both walls and ms per
@@ -225,7 +239,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
 Each path's kernel launches are counted from 0 just before it runs: B1's on the
 N-Queens paths, K1's on phases 4c, 8, 11b and the QAP CLI, K2a's, its ring
 form's and K2b's on phases 4, 4b, 4c, 8, 11b and the nqueens and QAP CLIs,
-K3's and K4's on phases 4, 4b, 4d, 11b, 12 and 14.  The line before the
+K3's and K4's on phases 4, 4b, 4d, 11b, 12 and 14, K5's on phases 4c, 6, 7,
+11a and 12 (the scheduling CLI and the service), each of which must launch it.  The line before the
 last is a JSON object with each kernel's measurements; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -236,6 +251,7 @@ import dataclasses
 import datetime
 import functools
 import json
+import re
 import subprocess
 import threading
 import time
@@ -301,6 +317,11 @@ L2_BYTES = 50 * 2**20  # H100 SXM's L2
 K4_L2_SPAN = 4  # phase 2f times K4 over state copies whose rows, cs and best hold this many times the L2
 K4_REPLACES = ("constraint_solver_tpu/models/nqueens.py:375-406 (apply_move) with core/local_search.py:107-108 "
                "(_select) at :281-283, :290 and :305-316 (XLA fusion, no Pallas call)")
+# Phase 2g: K5 (the roster's dense neighborhood), both its kernels' events in a trace.
+K5_EVENT = "sched_d"  # sched_dense_kernel and sched_diag_kernel
+K5_CALLS = 20  # timed calls of the wrapper (and of the plain version, a tenth as many)
+K5_REPLACES = ("constraint_solver_tpu/models/scheduling.py:594-884 (neighborhood_dense) with :454-555 "
+               "(exact_move_deltas; XLA fusion, no Pallas call)")
 
 
 def log(msg: str) -> None:
@@ -1615,6 +1636,225 @@ def phase_k4(device, cases=None) -> dict:
     }
 
 
+class K5Case(NamedTuple):
+    label: str
+    args: tuple  # sched_dense's: (assign, cur_score, tables, start_weekday, rs_d1, rs_off, delta)
+    timed: bool
+
+
+def k5_cases(device) -> list:
+    """``K5Case``s: the roster cell's (64, 365, 20, 256, 4) and 730 x 40 at P =
+    128 (the JAX bench's largest quality instance; both with the bench's
+    holidays), the reference CLI instance 31 d x 7 e with holidays at P = 8,
+    30 d x 4 e from a Friday, 14 d x 2 e (D < 15: no diagonals), 42 d x 5 e
+    with no random swaps, and 60 d x 5 e whose lanes use two employees (lane 0
+    one: S2-S4 with fewer than two present).  Assignments from a seeded numpy
+    generator, the draws from ``TorchDraws`` on the device, the diagonals
+    (n_off = 4 where D >= 15) and random swaps as the problem draws them."""
+    import torch
+
+    from constraint_solver_tpu_torch.models.scheduling import ScheduleSpec, make_scheduling_problem, make_tables
+    from constraint_solver_tpu_torch.utils.draws import TorchDraws
+
+    d0, fri = datetime.date(2022, 5, 9), datetime.date(2022, 5, 13)
+    day = datetime.timedelta
+
+    def spec(start, days, emps, hols=None):
+        return ScheduleSpec.from_dates(start, start + day(days=days - 1), emps, hols)
+
+    hol31 = {0: [d0 + day(days=3)], 2: [d0 + day(days=k) for k in (5, 6, 20)]}
+    rng = np.random.default_rng(23)
+    cases = []
+    for label, sp, p, n_rand, timed, used in (
+        ("roster (64, 365, 20, 256, 4)", bench_schedule(365, 20)[0], 64, 256, True, None),
+        ("730 x 40 P=128", bench_schedule(730, 40)[0], 128, 256, True, None),
+        ("31 d x 7 e with holidays P=8", spec(d0, 31, 7, hol31), 8, 64, False, None),
+        ("30 d x 4 e from a Friday P=8", spec(fri, 30, 4), 8, 64, False, None),
+        ("14 d x 2 e (D < 15) P=8", spec(d0, 14, 2), 8, 64, False, None),
+        ("42 d x 5 e, no random swaps P=8", spec(d0, 42, 5), 8, 0, False, None),
+        ("60 d x 5 e on two employees P=8", spec(fri, 60, 5), 8, 64, False, 2),
+    ):
+        d, e = sp.num_days, sp.num_employees
+        n_off = 4 if d >= 15 else 0
+        a = torch.as_tensor(rng.integers(0, used or e, size=(p, d)), device=device)
+        if used:
+            a[0] = 0
+        cur = make_scheduling_problem(sp).score(a)
+        dr = TorchDraws(label, p, device).dense_swaps(n_rand, n_off, d, torch.ones(p, dtype=torch.bool, device=device))
+        cases.append(K5Case(f"{label}, n_rand={n_rand}, n_off={n_off}",
+                            (a, cur, make_tables(sp, device), sp.start_weekday, dr.rs_d1, dr.rs_off, dr.delta), timed))
+    return cases
+
+
+def k5_equal(got, want) -> bool:
+    """Every output of two ``DenseOut``s equal (``torch.equal``: -0.0 is 0.0) with its dtype."""
+    import torch
+
+    return all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(got, want, strict=True))
+
+
+def k5_graph_replay(device, case) -> None:
+    """K5 captured in a CUDA graph and replayed once: its launches counted
+    once each at the replay, none at the capture, and every output written
+    as the plain version writes it."""
+    import torch
+
+    from constraint_solver_tpu_torch.core import graphed
+    from constraint_solver_tpu_torch.ops import sched_dense as sd
+
+    want = sd.sched_dense_ref(*case.args)
+    launches = 2 if case.args[-1].shape[1] else 1
+    before = sd.sched_dense.launches
+    seg = graphed.capture(lambda: sd.sched_dense(*case.args), torch.cuda.CUDAGraph(), torch.cuda.Stream(device))
+    captured = sum(seg.launches.values())
+    for t in seg.out:
+        t.zero_()
+    seg.replay()
+    sync(device)
+    if captured != launches or sd.sched_dense.launches != before + launches or not k5_equal(seg.out, want):
+        raise AssertionError(f"phase 2g: K5 in a CUDA graph: {captured} launches captured, "
+                             f"{sd.sched_dense.launches - before} counted for 1 replay of {launches}, "
+                             f"equal {k5_equal(seg.out, want)}")
+
+
+def k5_device_ms(fn, args, calls: int) -> tuple[float, dict, str]:
+    """K5's device-only ms per call, both kernels' events (``K5_EVENT``) in a
+    ``torch.profiler`` trace of ``calls`` calls summed, and each kernel's
+    share; where the trace holds fewer events than launches, the replay of a
+    CUDA graph of the calls timed with CUDA events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    per_call = 2 if args[-1].shape[1] else 1
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    split = Counter()
+    events = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and K5_EVENT in e.name:
+            split[re.search(r"sched_\w+_kernel", e.name).group(0)] += e.time_range.elapsed_us() / 1e3 / calls
+            events += 1
+    if events == per_call * calls:
+        return sum(split.values()), dict(split), "profiler"
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn(*args)
+    graph.replay()  # warm-up
+    return time_ms(graph.replay, (), 1) / calls, {}, f"CUDA graph replay; {events} of its events in the trace"
+
+
+def eager_chain_kernels(fn, args) -> dict:
+    """The device work of one call of ``fn``: its kernels, copies and sets in
+    a ``torch.profiler`` trace, and the sum of their device ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    out = Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out["copies" if e.name.startswith(("Memcpy", "Memset")) else "kernels"] += 1
+            out["device_ms"] += e.time_range.elapsed_us() / 1e3
+    return dict(out)
+
+
+def phase_k5(device, cases=None) -> dict:
+    """2g. K5, the roster's dense neighborhood, against its plain version
+    (the eager chain the dense proposer ran before it) bit for bit at
+    ``k5_cases``: scores, validity, fingerprint deltas and the four move
+    tensors, padding slots included, as ``torch.equal`` reads them; the
+    roster case replayed once in a CUDA graph; then at the timed cases its
+    device-only ms per call (both kernels' events in a ``torch.profiler``
+    trace; the inputs, 0.5 MB at the roster's shape, warm in L2, the 29 MB of
+    outputs written), the wrapper's host us, the wrapper and the plain version
+    by CUDA events, the plain version's kernels and copies in a trace of one
+    call (and their device ms), the device-only time of the same call without
+    its random swaps, and the bound (``kernel_work``: bytes over 3.35 TB/s or operations
+    over 67 T/s, the larger) with the share.  No single PyTorch call computes
+    the neighborhood (no library time).  Returns K5's entry of the kernels
+    line (main case: the roster's; launches filled in by the paths)."""
+    import torch
+
+    from constraint_solver_tpu_torch.ops import sched_dense as sd
+    from constraint_solver_tpu_torch.ops.block_pick import _sms
+
+    t0 = time.time()
+    per, max_err = {}, 0.0
+    card = card_line() if is_cuda(device) else "cpu"
+    sms = _sms(torch.device(device).index or 0) if is_cuda(device) else 132
+    cases = cases or k5_cases(device)
+    for case in cases:
+        a, _, tables, _, rs_d1, _, delta = case.args
+        p, d = a.shape
+        e, n_rand, n_off = tables.holiday_de.shape[1], rs_d1.shape[1], delta.shape[1]
+        want = sd.sched_dense_ref(*case.args)
+        got = sd.sched_dense(*case.args)
+        sync(device)
+        if not k5_equal(got, want):
+            bad = [f for f, x, y in zip(sd.DenseOut._fields, got, want) if not torch.equal(x, y)]
+            raise AssertionError(f"phase 2g: K5 != its plain version ({case.label}): {bad}")
+        max_err = max(max_err, *(float((x.double() - y.double()).abs().max()) for x, y in zip(got, want)))
+        plan = sd._launch_plan(p, d, e, n_rand, n_off, sms)
+        padding = int((~want.valid).sum())
+        log(f"phase 2g: K5 == plain version bit for bit at {case.label} (W = {want.valid.shape[1]}, {padding} "
+            f"padding slots; tiles of {plan.tile} days, {plan.grid} + {plan.diag_grid} blocks)")
+        if not case.timed:
+            continue
+        ops, nbytes = sd.kernel_work(p, d, e, n_rand, n_off)
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+        bound, by = max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+        entry = per[case.label] = {"bound_ms": bound, "bound_by": by, "bytes": nbytes, "operations": ops,
+                                   "plan": plan._asdict()}
+        if not is_cuda(device):
+            continue
+        for f in (sd.sched_dense, sd.sched_dense_ref):
+            time_ms(f, case.args, 2)  # warm-up
+        dev, split, how = k5_device_ms(sd.sched_dense, case.args, K5_CALLS)
+        plain_calls = max(2, K5_CALLS // 10)
+        plain_ms = [time_ms(sd.sched_dense_ref, case.args, plain_calls)]
+        kern = [time_ms(sd.sched_dense, case.args, K5_CALLS) for _ in range(2)]
+        plain_ms.append(time_ms(sd.sched_dense_ref, case.args, plain_calls))
+        host = min(host_us(sd.sched_dense, case.args, K5_CALLS) for _ in range(2))
+        chain = eager_chain_kernels(sd.sched_dense_ref, case.args)
+        entry.update(ms=sum(kern) / 2, device_ms=dev, device_split_ms=split, bound_share=bound / dev,
+                     plain_ms=sum(plain_ms) / 2, library_ms=None, host_us=host, plain_device_work=chain)
+        if n_rand:  # the same call without its random swaps: what the tile blocks alone take
+            bare = (*case.args[:4], rs_d1[:, :0], case.args[5][:, :0], delta)
+            if not k5_equal(sd.sched_dense(*bare), sd.sched_dense_ref(*bare)):
+                raise AssertionError(f"phase 2g: K5 != its plain version ({case.label} without random swaps)")
+            entry["device_ms_without_random_swaps"] = k5_device_ms(sd.sched_dense, bare, K5_CALLS)[:2]
+        log(f"phase 2g: K5 at {case.label}: {kern} ms by CUDA events over {K5_CALLS} calls, plain version "
+            f"{plain_ms} ms ({chain} a call); device-only {dev * 1e3:.3f} us per call ({how}; "
+            f"{ {k: round(v * 1e3, 3) for k, v in split.items()} } us); host {host:.1f} us per call; bound "
+            f"{bound * 1e3:.4f} us ({nbytes} bytes at {HBM_BYTES_PER_S / 1e12} TB/s, {ops} operations at "
+            f"{FP32_OPS_PER_S / 1e12} T/s: {by}), share {bound / dev:.3f}; without its random swaps "
+            f"{entry.get('device_ms_without_random_swaps')} ms; {card}")
+    if is_cuda(device):
+        case = cases[0]
+        k5_graph_replay(device, case)
+        log(f"phase 2g: K5 at {case.label} replayed once in a CUDA graph: its launches counted at the replay, "
+            f"every output bit for bit")
+    log(f"phase 2g: {time.time() - t0:.1f} s")
+    main = dict(per[cases[0].label])
+    return {
+        "name": sd.KERNEL_NAME,
+        "route": "cuda",
+        "source": "constraint_solver_tpu_torch/csrc/sched_dense.cu",
+        "replaces": K5_REPLACES,
+        "max_abs_err": max_err,
+        **main,
+        "library_ms": None,
+        "shapes": per,
+    }
+
+
 def run_rounds(device, exact, chunks=3):
     """nqueens-64, 8 lanes, from draws made on the host; returns the state in
     the reference layout and the per-round traces."""
@@ -1761,7 +2001,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
     """4b's and 4c's comparison: ``drive`` on an eager solver (``_graphed=False``)
     and on a graphed one, each from ``make(graphed)``; the final state trees,
     what ``drive`` returns (the traces), ``stats()``, the generator's state and
-    the launches of B1, of K1, of K2a and K2b, of K3 and of K4 must be equal.  Each side's wall, its peak
+    the launches of B1, of K1, of K2a and K2b, of K3, of K4 and of K5 must be equal.  Each side's wall, its peak
     memory, and the graphed side's capture time."""
     import torch
 
@@ -1769,6 +2009,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
     from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
     from constraint_solver_tpu_torch.ops import nqueens_move as nm
     from constraint_solver_tpu_torch.ops import qap_row_min as qrm
+    from constraint_solver_tpu_torch.ops import sched_dense as sd
     from constraint_solver_tpu_torch.utils.convert import to_reference
 
     out = {}
@@ -1780,7 +2021,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
             torch.cuda.reset_peak_memory_stats(device)
         launches0, k1_launches0 = nk.nqueens_neighborhood_scores.launches, qrm.qap_swap_row_min.launches
         k2_0, k3_0, k3_shapes0 = k2_launches(), bp.block_pick.launches, Counter(bp.block_pick.shapes)
-        k4_0 = nm.nqueens_move.launches
+        k4_0, k5_0 = nm.nqueens_move.launches, sd.sched_dense.launches
         s = make(graphed)
         sync(device)
         t0 = time.time()
@@ -1799,6 +2040,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
             "k3_shapes": {str(k): v - k3_shapes0[k] for k, v in bp.block_pick.shapes.items()
                           if v != k3_shapes0[k]},
             "k4_launches": nm.nqueens_move.launches - k4_0,
+            "k5_launches": sd.sched_dense.launches - k5_0,
             "peak_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
             "reserved_bytes": torch.cuda.memory_reserved(device) if cuda else None,
             "capture_s": graphs.capture_s if graphs is not None else None,
@@ -1808,7 +2050,8 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
     assert_tree_equal(graph["state"], eager["state"])
     if not np.array_equal(np.asarray(graph["result"]), np.asarray(eager["result"])):
         raise AssertionError(f"phase {label}: graphed and eager traces differ")
-    for key in ("stats", "launches", "k1_launches", "k2_launches", "k3_launches", "k3_shapes", "k4_launches"):
+    for key in ("stats", "launches", "k1_launches", "k2_launches", "k3_launches", "k3_shapes", "k4_launches",
+                "k5_launches"):
         if graph[key] != eager[key]:
             raise AssertionError(f"phase {label}: graphed and eager {key} differ: {graph[key]} != {eager[key]}")
     if not torch.equal(graph["generator"], eager["generator"]):
@@ -1816,7 +2059,8 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
     if is_cuda(device) and graph["units"] != 1:
         raise AssertionError(f"phase {label}: the graphed solver made {graph['units']} graphed descents, not 1")
     return {side: {k: v[k] for k in ("wall_s", "peak_bytes", "reserved_bytes", "capture_s", "launches", "k1_launches",
-                                     "k2_launches", "k3_launches", "k3_shapes", "k4_launches", "stats")}
+                                     "k2_launches", "k3_launches", "k3_shapes", "k4_launches", "k5_launches",
+                                     "stats")}
             for side, v in (("eager", eager), ("graphed", graph))}
 
 
@@ -2043,16 +2287,20 @@ def phase_graphs_domains(device, card=None, **sizes) -> dict:
         if is_cuda(device) and label.startswith("qap") and ("compact" in label or "incremental" in label) \
                 and graph["k1_launches"] == 0:
             raise AssertionError(f"phase 4c: {label}: K1 (qap_swap_row_min) never launched")
+        dense = label.startswith("scheduling") and " dense" in label
         if is_cuda(device):
+            # K5 hashes the dense proposer's fingerprint deltas itself; the systematic one's moves are states.
             require_k2(graph["k2_launches"], f"phase 4c: {label}",
-                       ("K2b", "K2a-ring") if "systematic" in label else ("K2a", "K2b", "K2a-ring"))
+                       ("K2b", "K2a-ring") if "systematic" in label or dense else ("K2a", "K2b", "K2a-ring"))
+            if dense and graph["k5_launches"] == 0:
+                raise AssertionError(f"phase 4c: {label}: K5 (sched_dense) never launched")
         iterations = counters.calls  # the graphed side's, which equal the eager side's (stats)
         out[label] = {**pair, "iterations": iterations, "warm_up_s": warm_s,
                       "ms_per_iteration": {k: 1e3 * v["wall_s"] / max(iterations, 1) for k, v in pair.items()}}
         log(f"phase 4c: {label}: graphed == eager (state, traces, stats, generator) after {graph['stats']['rounds']} "
             f"rounds, {iterations} lockstep iterations, {graph['stats']['ls_iterations']} descent iterations, "
-            f"K1 launches {graph['k1_launches']}, K2 {graph['k2_launches']}; walls eager {eager['wall_s']:.4f} s, "
-            f"graphed {graph['wall_s']:.4f} s "
+            f"K1 launches {graph['k1_launches']}, K2 {graph['k2_launches']}, K5 {graph['k5_launches']}; walls eager "
+            f"{eager['wall_s']:.4f} s, graphed {graph['wall_s']:.4f} s "
             f"({out[label]['ms_per_iteration']['eager']:.4f} / {out[label]['ms_per_iteration']['graphed']:.4f} "
             f"ms per iteration); capture {graph['capture_s']:.4f} s (host, inside the graphed wall); peak memory "
             f"eager {eager['peak_bytes']} B, graphed {graph['peak_bytes']} B, reserved after each "
@@ -3911,7 +4159,7 @@ def phase_k3_solves(device, cells=("nqueens1000_p256", "nqueens16384_p16"), sets
 
 
 def build_kernels() -> None:
-    """Phase 1: compile the six kernel libraries from the checkout's sources,
+    """Phase 1: compile the seven kernel libraries from the checkout's sources,
     one ``nvcc`` each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -3921,6 +4169,7 @@ def build_kernels() -> None:
     from constraint_solver_tpu_torch.ops import nqueens_move as nm
     from constraint_solver_tpu_torch.ops import nqueens_probes as npr
     from constraint_solver_tpu_torch.ops import qap_row_min as qrm
+    from constraint_solver_tpu_torch.ops import sched_dense as sd
 
     def build(module):
         t = time.time()
@@ -3928,7 +4177,7 @@ def build_kernels() -> None:
         return module._LIB_PATH.name, report, time.time() - t
 
     t0 = time.time()
-    modules = (nk, npr, qrm, fpk, bp, nm)
+    modules = (nk, npr, qrm, fpk, bp, nm, sd)
     with ThreadPoolExecutor(max_workers=len(modules)) as pool:
         built = [f.result() for f in [pool.submit(build, m) for m in modules]]
     for name, report, secs in built:
@@ -3948,11 +4197,12 @@ def main() -> None:
     from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
     from constraint_solver_tpu_torch.ops import nqueens_move as nm
     from constraint_solver_tpu_torch.ops import qap_row_min as qrm
+    from constraint_solver_tpu_torch.ops import sched_dense as sd
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--kernel-only", action="store_true",
-        help="run phases 1, 2, 2b, 2c, 2d, 2e and 2f only, print the kernels' measurements and stop (no result line)",
+        help="run phases 1 and 2 to 2g only, print the kernels' measurements and stop (no result line)",
     )
     parser.add_argument(
         "--k3-solves", action="store_true",
@@ -3980,9 +4230,10 @@ def main() -> None:
     k2 = phase_k2(device)
     k3 = phase_k3(device)
     k4 = phase_k4(device)
+    k5 = phase_k5(device)
     if args.kernel_only:
         log(card)
-        log(json.dumps({"kernels": [kernel, *probe_entries, k1, *k2, k3, k4]}))
+        log(json.dumps({"kernels": [kernel, *probe_entries, k1, *k2, k3, k4, k5]}))
         return
     phase_cross_device(device)
     main_run, main_solver = phase_main(device)
@@ -3996,18 +4247,23 @@ def main() -> None:
     k2_paths["graphs_vs_eager"] = k2_launches()
     k3_paths["graphs_vs_eager"] = bp.block_pick.launches
     k4_paths["graphs_vs_eager"] = nm.nqueens_move.launches
-    qrm.qap_swap_row_min.launches = 0
+    qrm.qap_swap_row_min.launches = sd.sched_dense.launches = 0
     k2_reset()
     graphs_domains = phase_graphs_domains(device, card=card)
     k1_paths = {"graphs_domains": qrm.qap_swap_row_min.launches}
     k2_paths["graphs_domains"] = k2_launches()
+    k5_paths = {"graphs_domains": sd.sched_dense.launches}
     bp.block_pick.launches = nm.nqueens_move.launches = 0
     matrix_forms = phase_matrix_forms(device, card=card)
     k3_paths["matrix_forms"] = bp.block_pick.launches
     k4_paths["matrix_forms"] = nm.nqueens_move.launches
     pmc_run = phase_pmc(device, card=card)
+    sd.sched_dense.launches = 0
     phase_schedule_cross_device(device)
+    k5_paths["schedule_cross_device"] = sd.sched_dense.launches
+    sd.sched_dense.launches = 0
     sched = phase_schedule_bench(device)
+    k5_paths["schedule_bench"] = sd.sched_dense.launches
     qrm.qap_swap_row_min.launches = 0
     k2_reset()
     qap = phase_qap(device)
@@ -4015,15 +4271,21 @@ def main() -> None:
     k2_paths["qap"] = k2_launches()
     ackley = phase_ackley(device)
     diagram = phase_diagram(device)
+    sd.sched_dense.launches = 0
     phased = phase_phased(device)
+    k5_paths["phased"] = sd.sched_dense.launches
     bp.block_pick.launches = nm.nqueens_move.launches = 0
     ckpt = phase_checkpoint(device)
     k3_paths["checkpoint_resume"] = bp.block_pick.launches
     k4_paths["checkpoint_resume"] = nm.nqueens_move.launches
-    bp.block_pick.launches = nm.nqueens_move.launches = 0
+    bp.block_pick.launches = nm.nqueens_move.launches = sd.sched_dense.launches = 0
     surface = phase_surface(device, main_solver)
     k3_paths["surface"] = bp.block_pick.launches  # the nqueens CLI, the service, the trace and the roofline
     k4_paths["surface"] = nm.nqueens_move.launches
+    k5_paths["surface"] = sd.sched_dense.launches  # the scheduling CLI and the service's scheduling request
+    missing = [path for path, n in k5_paths.items() if n == 0]
+    if missing:
+        raise AssertionError(f"K5 (sched_dense) never launched on the roster's paths {missing}: {k5_paths}")
     multi = phase_multi(device)
     bp.block_pick.launches = nm.nqueens_move.launches = 0
     bench = phase_bench(device)
@@ -4057,6 +4319,8 @@ def main() -> None:
     k3["launches_by_path"] = k3_paths
     k4["launches"] = sum(k4_paths.values())
     k4["launches_by_path"] = k4_paths
+    k5["launches"] = sum(k5_paths.values())
+    k5["launches_by_path"] = k5_paths
 
     log(json.dumps({
         "main_path": main_run, "graphs": graphs, "graphs_domains": graphs_domains, "matrix_forms": matrix_forms,
@@ -4065,7 +4329,7 @@ def main() -> None:
         "bench": bench, "card": card,
     }, default=str))
     log(card)
-    log(json.dumps({"kernels": [kernel, *probe_entries, k1, *k2, k3, k4]}))
+    log(json.dumps({"kernels": [kernel, *probe_entries, k1, *k2, k3, k4, k5]}))
     log(json.dumps({
         "ok": True,
         "device": {

@@ -9,6 +9,8 @@
 //
 //   h(i, v) = mix32(v ^ mix32(i ^ salt)),   mix32 = murmur3's fmix32 finalizer
 //
+// (fp_hash.cuh, which K5's csrc/sched_dense.cu includes too).
+//
 // - K2a `fp_hash_xor`: out = base ^ XOR_{k < K} h(idx_k, val_k) for both lanes,
 //   K = 1..4 (position, value) terms and an optional base fingerprint, over the
 //   broadcast of the operands' shapes (at most 4 dimensions).  Every operand
@@ -69,10 +71,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "fp_hash.cuh"
+
 namespace {
 
-constexpr uint32_t kSalt0 = 0x9E3779B9u;  // the JAX package's two lane salts
-constexpr uint32_t kSalt1 = 0x85EBCA77u;
+using fp_hash::kSalt0;  // the JAX package's two lane salts
+using fp_hash::kSalt1;
+using fp_hash::mix32;
 constexpr int kDims = 4;                  // dimensions of an operand or of K2a's output
 constexpr int kMaxTerms = 4;              // (position, value) terms of K2a
 constexpr int kThreads = 256;             // threads of a block, both kernels
@@ -145,15 +150,6 @@ struct ProbeArgs {
   int* out_head;
   int* out_count;
 };
-
-__device__ __forceinline__ uint32_t mix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
 
 __device__ __forceinline__ uint32_t load_bits(const Operand& o, long long off) {
   return o.wide ? static_cast<uint32_t>(static_cast<const long long*>(o.ptr)[off])

@@ -18,9 +18,11 @@ and four proposers:
 - ``"rescore"``: the same moves, each candidate fully rescored (bit-identical
   to ``"random"``);
 - ``"dense"``: every ChangeDay move as one [D, E] block, ``n_rand_swaps``
-  unrestricted random swaps through ``exact_move_deltas``, and
+  unrestricted random swaps scored as ``exact_move_deltas`` scores them, and
   ``n_swap_offsets`` window-disjoint swap diagonals (days d and d + δ, δ ≥ 14),
-  concatenated in that order (the flat index decides first-index ties);
+  in that order (the flat index decides first-index ties): one call of K5
+  (``ops/sched_dense.py``), whose kernels write each block in its place on
+  the card and whose plain version, the eager chain, runs on the CPU;
 - ``"systematic"``: the reference's unused proposer, every day rotated through
   its E − 1 successor employees, D·(E − 1) full candidate states [P, D(E−1), D],
   each scored by ``score``; a move is its candidate state (``move_fp`` is the
@@ -50,6 +52,11 @@ Divergences from the JAX package:
 - **The systematic proposer draws nothing** and calls ``draws.advance``, as
   the other draw-free proposers do.
 
+The module-level tensor helpers (``region_deltas``, ``move_region_deltas``,
+``s2_of``, ``s34_of``, ``spread_of``, ``_one_hot``, ``exact_move_deltas``,
+``make_tables``) serve the date-sharded solver (``parallel/seq_solver.py``,
+``parallel/seq_shard.py``) and K5's plain version too.
+
 Every proposer is ``capturable`` (``core/problem.py``): on the card the solvers
 replay its descent iterations as CUDA graphs.  The per-device tables are filled
 by the first ``score`` on a device, before any capture.
@@ -68,6 +75,7 @@ import torch
 from constraint_solver_tpu_torch.core.problem import Neighborhood, Problem, replayable
 from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32, hash_xor
 from constraint_solver_tpu_torch.ops.lex import make_score
+from constraint_solver_tpu_torch.ops.sched_dense import sched_dense
 
 # Delta-evaluation region: the widest window is 14 days (H4), so windows
 # containing day d start in [d-13, d] and span days [d-13, d+13].
@@ -251,18 +259,6 @@ def _swap_fp_delta_planes(d1, e1, n1, d2, e2, n2):
     return tuple(hash_xor(None, ((d1, e1), (d1, n1), (d2, e2), (d2, n2)), planes=True))
 
 
-def _cat_blocks(blocks) -> Neighborhood:
-    """Concatenate (hard, soft, moves, valid, fp0, fp1) blocks, each [P, w], in order."""
-    cat = lambda *xs: torch.cat(xs, dim=1)  # noqa: E731
-    parts = list(zip(*blocks))
-    return Neighborhood(
-        scores=torch.stack([cat(*parts[0]), cat(*parts[1])], dim=-1),
-        moves=SchedMoves(*(cat(*m) for m in zip(*parts[2]))),
-        valid=cat(*parts[3]),
-        fp_deltas=torch.stack([cat(*parts[4]), cat(*parts[5])], dim=-1),
-    )
-
-
 def s2_of(wd_counts: torch.Tensor) -> torch.Tensor:
     """S2 from [..., 5, E] weekday × employee counts: per weekday with more than
     one employee, the least count among those present."""
@@ -298,6 +294,74 @@ class _Tables(NamedTuple):
     band14: torch.Tensor        # float32[max(D - 13, 0), D]: the same for 14 days
 
 
+def make_tables(spec: ScheduleSpec, device) -> _Tables:
+    """The tables of ``spec`` on ``device``: what ``score`` and the proposers read."""
+    d_days = spec.num_days
+    weekend = torch.as_tensor(spec.is_weekend())
+    t = _Tables(
+        holiday_de=torch.as_tensor(spec.holiday_array().T, dtype=torch.float32).contiguous(),
+        weekend=weekend,
+        weekend_f=weekend.to(torch.float32),
+        weekday=torch.as_tensor(spec.weekdays(), dtype=torch.int64),
+        wk_pad=torch.cat([torch.zeros(PAD, dtype=torch.bool), weekend, torch.zeros(PAD, dtype=torch.bool)]),
+        band7=_window_band(d_days, 7, "cpu"),
+        band14=_window_band(d_days, 14, "cpu"),
+    )
+    return t._replace(**{f: getattr(t, f).to(device) for f in t._fields})
+
+
+def _wd_counts(t: _Tables, oh: torch.Tensor) -> torch.Tensor:
+    """[P, 5, E] weekday × employee counts of one-hot assignments [P, D, E]."""
+    out = oh.new_zeros((oh.shape[0], 7, oh.shape[-1]))
+    return out.index_add_(1, t.weekday, oh)[:, :5]
+
+
+def _totals(t: _Tables, oh: torch.Tensor):
+    """Totals and weekend totals [P, E] of one-hot assignments [P, D, E]."""
+    return oh.sum(1), (oh * t.weekend_f[:, None]).sum(1)
+
+
+def exact_move_deltas(t: _Tables, assign, moves: SchedMoves, n_emp: int, d_days: int):
+    """Exact (d_hard [P, W], d_soft [P, W], fp delta planes) of W arbitrary
+    ChangeDay/SwapDays moves per lane, any day pair, through the 27-day
+    region deltas; ``t`` the problem's tables on the assignment's device."""
+    p = assign.shape[0]
+    oh = _one_hot(assign, n_emp)
+    wd_counts = _wd_counts(t, oh)     # [P, 5, E]
+    tot, wk = _totals(t, oh)          # [P, E]
+    s2_base = s2_of(wd_counts)
+    s34_base = s34_of(tot, wk)
+    edge = assign.new_full((p, PAD), -1)
+    a_pad = torch.cat([edge, assign, edge], dim=1)
+
+    is_swap, d1, d2, new_emp = moves
+    e1, e2 = assign.gather(1, d1), assign.gather(1, d2)
+    n1 = torch.where(is_swap, e2, new_emp)
+    n2 = torch.where(is_swap, e1, e2)  # identity for ChangeDay
+
+    dh, ds1 = move_region_deltas(a_pad, t.wk_pad, d1, n1, d2, n2, e1, e2, d_days)  # [P, 2, W]
+
+    def hol(d, e):
+        return t.holiday_de.view(-1)[d * n_emp + e]
+
+    d_h1 = (hol(d1, n1) - hol(d1, e1)) + (hol(d2, n2) - hol(d2, e2))
+
+    oh1 = _one_hot(n1, n_emp) - _one_hot(e1, n_emp)  # [P, W, E]
+    oh2 = _one_hot(n2, n_emp) - _one_hot(e2, n_emp)
+    upd = (
+        wd_counts[:, None]
+        + _one_hot(t.weekday[d1], 5)[..., :, None] * oh1[..., None, :]
+        + _one_hot(t.weekday[d2], 5)[..., :, None] * oh2[..., None, :]
+    )  # [P, W, 5, E]
+    d_s2 = s2_of(upd) - s2_base[:, None]
+    tot_new = tot[:, None] + oh1 + oh2
+    wk_new = wk[:, None] + t.weekend_f[d1][..., None] * oh1 + t.weekend_f[d2][..., None] * oh2
+    d_s34 = s34_of(tot_new, wk_new) - s34_base[:, None]
+
+    fpd = _swap_fp_delta_planes(d1, e1, n1, d2, e2, n2)
+    return d_h1 + dh[:, 0] + dh[:, 1], ds1[:, 0] + ds1[:, 1] + d_s2 + d_s34, fpd
+
+
 @lru_cache(maxsize=32)
 def make_scheduling_problem(
     spec: ScheduleSpec,
@@ -319,27 +383,8 @@ def make_scheduling_problem(
 
     def tab(device: torch.device) -> _Tables:
         if device not in tables:
-            weekend = torch.as_tensor(spec.is_weekend())
-            holiday_de = torch.as_tensor(spec.holiday_array().T, dtype=f32).contiguous()
-            t = _Tables(
-                holiday_de=holiday_de,
-                weekend=weekend,
-                weekend_f=weekend.to(f32),
-                weekday=torch.as_tensor(spec.weekdays(), dtype=torch.int64),
-                wk_pad=torch.cat([torch.zeros(PAD, dtype=torch.bool), weekend, torch.zeros(PAD, dtype=torch.bool)]),
-                band7=_window_band(d_days, 7, "cpu"),
-                band14=_window_band(d_days, 14, "cpu"),
-            )
-            tables[device] = t._replace(**{f: getattr(t, f).to(device) for f in t._fields})
+            tables[device] = make_tables(spec, device)
         return tables[device]
-
-    def wd_counts_of(t: _Tables, oh: torch.Tensor) -> torch.Tensor:
-        """[P, 5, E] weekday × employee counts of one-hot assignments [P, D, E]."""
-        out = oh.new_zeros((oh.shape[0], 7, n_emp))
-        return out.index_add_(1, t.weekday, oh)[:, :5]
-
-    def totals(t: _Tables, oh: torch.Tensor):
-        return oh.sum(1), (oh * t.weekend_f[:, None]).sum(1)
 
     def score(assign: torch.Tensor) -> torch.Tensor:
         t = tab(assign.device)
@@ -358,8 +403,8 @@ def make_scheduling_problem(
         csum = torch.cat([oh.new_zeros((a.shape[0], 1, n_emp)), oh.cumsum(1)], dim=1)
         h4 = (csum[:, 14:] - csum[:, :-14] > 3).sum((1, 2)) if d_days >= 14 else 0
         s1 = (csum[:, 7:] - csum[:, :-7] > 2).sum((1, 2)) if d_days >= 7 else 0
-        s2 = s2_of(wd_counts_of(t, oh))
-        s34 = s34_of(*totals(t, oh))
+        s2 = s2_of(_wd_counts(t, oh))
+        s34 = s34_of(*_totals(t, oh))
         return make_score((h1 + h2 + h3 + h4).to(f32), (s1 + s2 + s34).to(f32))
 
     def init(draws):
@@ -378,50 +423,9 @@ def make_scheduling_problem(
         n2 = torch.where(is_swap, e1, e2)
         return tuple(x.view(idx.shape) for x in (d1, e1, n1, d2, e2, n2))
 
-    def exact_move_deltas(assign, moves: SchedMoves):
-        """Exact (d_hard [P, W], d_soft [P, W], fp delta planes) of W arbitrary
-        ChangeDay/SwapDays moves per lane, any day pair, through the 27-day
-        region deltas."""
-        t = tab(assign.device)
-        p = assign.shape[0]
-        oh = _one_hot(assign, n_emp)
-        wd_counts = wd_counts_of(t, oh)   # [P, 5, E]
-        tot, wk = totals(t, oh)           # [P, E]
-        s2_base = s2_of(wd_counts)
-        s34_base = s34_of(tot, wk)
-        edge = assign.new_full((p, PAD), -1)
-        a_pad = torch.cat([edge, assign, edge], dim=1)
-
-        is_swap, d1, d2, new_emp = moves
-        e1, e2 = assign.gather(1, d1), assign.gather(1, d2)
-        n1 = torch.where(is_swap, e2, new_emp)
-        n2 = torch.where(is_swap, e1, e2)  # identity for ChangeDay
-
-        dh, ds1 = move_region_deltas(a_pad, t.wk_pad, d1, n1, d2, n2, e1, e2, d_days)  # [P, 2, W]
-
-        def hol(d, e):
-            return t.holiday_de.view(-1)[d * n_emp + e]
-
-        d_h1 = (hol(d1, n1) - hol(d1, e1)) + (hol(d2, n2) - hol(d2, e2))
-
-        oh1 = _one_hot(n1, n_emp) - _one_hot(e1, n_emp)  # [P, W, E]
-        oh2 = _one_hot(n2, n_emp) - _one_hot(e2, n_emp)
-        upd = (
-            wd_counts[:, None]
-            + _one_hot(t.weekday[d1], 5)[..., :, None] * oh1[..., None, :]
-            + _one_hot(t.weekday[d2], 5)[..., :, None] * oh2[..., None, :]
-        )  # [P, W, 5, E]
-        d_s2 = s2_of(upd) - s2_base[:, None]
-        tot_new = tot[:, None] + oh1 + oh2
-        wk_new = wk[:, None] + t.weekend_f[d1][..., None] * oh1 + t.weekend_f[d2][..., None] * oh2
-        d_s34 = s34_of(tot_new, wk_new) - s34_base[:, None]
-
-        fpd = _swap_fp_delta_planes(d1, e1, n1, d2, e2, n2)
-        return d_h1 + dh[:, 0] + dh[:, 1], ds1[:, 0] + ds1[:, 1] + d_s2 + d_s34, fpd
-
     def neighborhood(assign, cur_score, draws, active):
         moves = sample_random_moves(draws, w_size, d_days, n_emp, active)
-        d_hard, d_soft, fpd = exact_move_deltas(assign, moves)
+        d_hard, d_soft, fpd = exact_move_deltas(tab(assign.device), assign, moves, n_emp, d_days)
         return Neighborhood(
             scores=cur_score[:, None, :] + torch.stack([d_hard, d_soft], dim=-1),
             moves=moves,
@@ -456,213 +460,15 @@ def make_scheduling_problem(
 
     def neighborhood_dense(assign, cur_score, draws, active):
         """Every D × E ChangeDay delta as one dense block, ``n_rand`` random
-        swaps and ``n_off`` swap diagonals; every delta is exact."""
-        t = tab(assign.device)
-        a = assign
-        p = a.shape[0]
-        dev = a.device
-        oh = _one_hot(a, n_emp)  # [P, D, E]
-        iota_d = torch.arange(d_days, device=dev)
-        iota_e = torch.arange(n_emp, device=dev)
-
-        # H1: holiday row minus the current day's holiday flag.
-        h1_old = (t.holiday_de * oh).sum(-1)
-        d_h1 = t.holiday_de - h1_old[..., None]
-
-        # H2: the two adjacent pairs of each day.
-        a_l, a_r = _shf(a, -1, -2, 1), _shf(a, 1, -3, 1)
-        m_l = (iota_d >= 1).to(f32)
-        m_r = (iota_d <= d_days - 2).to(f32)
-        old2 = m_l * (a_l == a) + m_r * (a == a_r)
-        new2 = m_l[:, None] * (a_l[..., None] == iota_e) + m_r[:, None] * (a_r[..., None] == iota_e)
-        d_h2 = new2 - old2[..., None]
-
-        # H3: the four windows where day d sits at position 0/1/7/8.
-        cond = t.weekend & _shf(t.weekend, 1, False, 0)
-        pairs = ((0, 7), (0, 8), (1, 7), (1, 8))
-
-        def eq(i, j):
-            return (_shf(a, i, -2, 1) == _shf(a, j, -3, 1)).to(f32)
-
-        old3 = eq(0, 7) + eq(0, 8) + eq(1, 7) + eq(1, 8)
-        d_h3 = oh.new_zeros((p, d_days, n_emp))
-        for q in (0, 1, 7, 8):
-            m_q = ((iota_d >= q) & (iota_d <= d_days - 9 + q)).to(f32) * _shf(cond, -q, False, 0)
-            new_q = oh.new_zeros((p, d_days, n_emp))
-            for i, j in pairs:
-                if i == q:
-                    new_q += (_shf(a, j - q, -2, 1)[..., None] == iota_e).to(f32)
-                elif j == q:
-                    new_q += (_shf(a, i - q, -2, 1)[..., None] == iota_e).to(f32)
-                else:
-                    new_q += (_shf(a, i - q, -2, 1) == _shf(a, j - q, -3, 1)).to(f32)[..., None]
-            d_h3 += m_q[:, None] * (new_q - _shf(old3, -q, 0.0, 1)[..., None])
-
-        # H4/S1: +1 on employee e flips a window iff its count is at the
-        # threshold; -1 on the old employee iff one above.  The banded
-        # matmuls count each window and sum the flips over the windows
-        # containing each day.
-        def crossings(band, thresh):
-            if band.shape[0] == 0:
-                z = oh.new_zeros((p, d_days, n_emp))
-                return z, z
-            cnt = band @ oh  # [P, D-width+1, E]
-            return band.T @ (cnt == thresh).to(f32), band.T @ (cnt == thresh + 1).to(f32)
-
-        sp14, sm14 = crossings(t.band14, 3)
-        sp7, sm7 = crossings(t.band7, 2)
-        d_h4 = sp14 - (sm14 * oh).sum(-1)[..., None]
-        d_s1 = sp7 - (sm7 * oh).sum(-1)[..., None]
-
-        # S2: per-day first/second-minimum trick on the weekday row.
-        iswd = t.weekday < 5
-        c_base = wd_counts_of(t, oh)  # [P, 5, E]
-        row_present = c_base > 0
-        row_np = row_present.sum(-1)
-        row_min = torch.where(row_present, c_base, torch.inf).amin(-1)
-        row_score = torch.where(row_np > 1, row_min, 0.0)  # [P, 5]
-        s2_base = row_score.sum(-1)
-        old_rs = torch.cat([row_score, row_score.new_zeros((p, 2))], dim=1)[:, t.weekday]  # 0 on weekends
-        c_day = torch.cat([c_base, c_base.new_zeros((p, 2, n_emp))], dim=1)[:, t.weekday]  # [P, D, E]
-        v2 = c_day - oh * iswd[:, None].to(f32)
-        p2 = v2 > 0
-        np2 = p2.sum(-1)
-        v2m = torch.where(p2, v2, _BIG)
-        min1 = v2m.amin(-1)
-        arg1 = v2m.argmin(-1)
-        at1 = iota_e == arg1[..., None]
-        min2 = torch.where(at1, _BIG, v2m).amin(-1)
-        cand2 = v2 + 1.0
-        min_new = torch.where(at1, torch.minimum(cand2, min2[..., None]), torch.minimum(min1[..., None], cand2))
-        np_new2 = np2[..., None] + (v2 == 0)
-        rs_new = torch.where(np_new2 > 1, min_new, 0.0)
-        d_s2 = iswd[:, None].to(f32) * (rs_new - old_rs[..., None])
-
-        # S3/S4: per-day extrema tricks on totals / weekend totals.
-        tot, wk = totals(t, oh)
-        pres_b = tot > 0
-        np_b = pres_b.sum(-1)
-        s3_base = spread_of(tot, pres_b, np_b)
-        s4_base = spread_of(wk, pres_b, np_b)
-
-        v3 = tot[:, None] - oh
-        p3 = v3 > 0
-        np3 = p3.sum(-1)
-        v3m = torch.where(p3, v3, _BIG)
-        min1_3 = v3m.amin(-1)
-        at1_3 = iota_e == v3m.argmin(-1)[..., None]
-        min2_3 = torch.where(at1_3, _BIG, v3m).amin(-1)
-        max1_3 = torch.where(p3, v3, -_BIG).amax(-1)
-        cand3 = v3 + 1.0
-        min_new3 = torch.where(
-            at1_3, torch.minimum(cand3, min2_3[..., None]), torch.minimum(min1_3[..., None], cand3)
-        )
-        max_new3 = torch.maximum(max1_3[..., None], cand3)
-        np_new3 = np3[..., None] + (v3 == 0)
-        d_s3 = torch.where(np_new3 >= 2, max_new3 - min_new3, 0.0) - s3_base[:, None, None]
-
-        v4 = wk[:, None] - t.weekend_f[:, None] * oh
-        v4m = torch.where(p3, v4, _BIG)
-        min1_4 = v4m.amin(-1)
-        at1_4 = iota_e == v4m.argmin(-1)[..., None]
-        min2_4 = torch.where(at1_4, _BIG, v4m).amin(-1)
-        v4x = torch.where(p3, v4, -_BIG)
-        max1_4 = v4x.amax(-1)
-        atx_4 = iota_e == v4x.argmax(-1)[..., None]
-        max2_4 = torch.where(atx_4, -_BIG, v4x).amax(-1)
-        cand4 = v4 + t.weekend_f[:, None]
-        min_new4 = torch.where(
-            at1_4, torch.minimum(cand4, min2_4[..., None]), torch.minimum(min1_4[..., None], cand4)
-        )
-        max_new4 = torch.where(
-            atx_4, torch.maximum(cand4, max2_4[..., None]), torch.maximum(max1_4[..., None], cand4)
-        )
-        d_s4 = torch.where(np_new3 >= 2, max_new4 - min_new4, 0.0) - s4_base[:, None, None]
-
-        noop = oh > 0  # e == a[d] is the identity move: exact delta 0
-        d_hard = torch.where(noop, 0.0, d_h1 + d_h2 + d_h3 + d_h4)
-        d_soft = torch.where(noop, 0.0, d_s1 + d_s2 + d_s3 + d_s4)
-
-        cur_h, cur_s = cur_score[:, 0:1], cur_score[:, 1:2]
-        ch_moves = SchedMoves(
-            torch.zeros((p, d_days * n_emp), dtype=torch.bool, device=dev),
-            iota_d.repeat_interleave(n_emp).expand(p, -1),
-            iota_d.repeat_interleave(n_emp).expand(p, -1),
-            iota_e.repeat(d_days).expand(p, -1),
-        )
-        # Dense batch fingerprints: fp' = fp ^ h(d, a[d]) ^ h(d, e), one K2a launch.
-        fd0, fd1 = hash_xor(None, ((iota_d[:, None], a[..., None]), (iota_d[:, None], iota_e)), planes=True)
-        blocks = [(
-            cur_h + d_hard.reshape(p, -1), cur_s + d_soft.reshape(p, -1), ch_moves,
-            torch.ones((p, d_days * n_emp), dtype=torch.bool, device=dev),
-            fd0.reshape(p, -1), fd1.reshape(p, -1),
-        )]
+        swaps and ``n_off`` swap diagonals; every delta is exact.  One call of
+        K5 (``ops/sched_dense.py``), which writes each block in its place."""
         dr = draws.dense_swaps(n_rand, n_off, d_days, active)
-
-        if n_rand > 0:
-            # Unrestricted random swaps: any day pair, scored by the region path.
-            rs_moves = SchedMoves(
-                torch.ones((p, n_rand), dtype=torch.bool, device=dev),
-                dr.rs_d1,
-                (dr.rs_d1 + dr.rs_off) % d_days,
-                torch.zeros((p, n_rand), dtype=torch.int64, device=dev),
-            )
-            rs_dh, rs_ds, (rf0, rf1) = exact_move_deltas(a, rs_moves)
-            blocks.append((
-                cur_h + rs_dh, cur_s + rs_ds, rs_moves,
-                torch.ones((p, n_rand), dtype=torch.bool, device=dev), rf0, rf1,
-            ))
-
-        if n_off == 0:
-            return _cat_blocks(blocks)
-
-        # Swap diagonals swap(d, d + delta), delta >= 14: window-disjoint, so the
-        # windowed deltas decompose into the two ChangeDay deltas; S2/S4 are
-        # re-derived coupled (S3 is zero: totals are unchanged).
-        delta = dr.delta  # [P, n_off]
-        a_ext = torch.cat([a, a.new_full((p, d_days), -2)], dim=1)
-        blk = torch.stack([d_hard, d_s1])  # [2, P, D, E]
-        blk_ext = torch.cat([blk, blk.new_zeros((2, p, d_days, n_emp))], dim=2)
-        wd_oh5 = _one_hot(t.weekday, 5)  # [D, 5], 0 on weekends
-        far = iota_d + delta[..., None]  # [P, n_off, D] (>= D: padding)
-        a2 = a_ext.gather(1, far.view(p, -1)).view(p, n_off, d_days)
-        oh2 = _one_hot(a2, n_emp)  # -2 padding: a zero row
-        blk_sh = blk_ext.gather(2, far.view(1, p, -1, 1).expand(2, p, -1, n_emp))
-        blk_sh = blk_sh.view(2, p, n_off, d_days, n_emp)
-        term_a = (blk[:, :, None] * oh2).sum(-1)      # block[d, a2]
-        term_b = (blk_sh * oh[:, None]).sum(-1)       # block[d + delta, a1]
-
-        wd2 = (t.weekday + delta[..., None]) % 7  # [P, n_off, D]
-        diff = oh2 - oh[:, None]
-        upd = (
-            c_base[:, None, None]
-            + wd_oh5[:, :, None] * diff[..., None, :]
-            - _one_hot(wd2, 5)[..., None] * diff[..., None, :]
-        )  # [P, n_off, D, 5, E]
-        s2_sw = s2_of(upd) - s2_base[:, None, None]
-        dw = (t.weekend_f - (wd2 >= 5).to(f32))[..., None]
-        s4_sw = (
-            spread_of(wk[:, None, None] + dw * diff, pres_b[:, None, None], np_b[:, None, None])
-            - s4_base[:, None, None]
+        t = tab(assign.device)
+        out = sched_dense(assign, cur_score, t, spec.start_weekday, dr.rs_d1, dr.rs_off, dr.delta)
+        return Neighborhood(
+            scores=out.scores, moves=SchedMoves(out.is_swap, out.d1, out.d2, out.new_emp), valid=out.valid,
+            fp_deltas=out.fp_deltas,
         )
-        noop_sw = a2 == a[:, None]
-        hard_sw = torch.where(noop_sw, 0.0, term_a[0] + term_b[0])  # [P, n_off, D]
-        soft_sw = torch.where(noop_sw, 0.0, term_a[1] + term_b[1] + s2_sw + s4_sw)
-        d2_sw = far.clamp(max=d_days - 1)
-        d1_b = iota_d.expand(p, n_off, d_days)
-        a_b = a[:, None, :].expand(p, n_off, d_days)
-        f0, f1 = _swap_fp_delta_planes(d1_b, a_b, a2, d2_sw, a2, a_b)
-        sw_moves = SchedMoves(
-            torch.ones((p, n_off * d_days), dtype=torch.bool, device=dev),
-            d1_b.reshape(p, -1),
-            d2_sw.reshape(p, -1),
-            torch.zeros((p, n_off * d_days), dtype=torch.int64, device=dev),
-        )
-        blocks.append((
-            cur_h + hard_sw.reshape(p, -1), cur_s + soft_sw.reshape(p, -1), sw_moves,
-            (far <= d_days - 1).reshape(p, -1), f0.reshape(p, -1), f1.reshape(p, -1),
-        ))
-        return _cat_blocks(blocks)
 
     def move_fp(assign, cur_fp, moves, idx):
         d1, e1, n1, d2, e2, n2 = resolve_move(assign, moves, idx)

@@ -107,9 +107,11 @@ def _build(force: bool) -> str:
 
 def compile_library(src: Path, lib: Path, force: bool) -> str:
     """Compile ``src`` with ``nvcc`` into the shared library ``lib`` if it is
-    missing, older than its source, or ``force`` is set; the caller holds the
-    library's lock.  Returns the compiler's report, or "" when up to date."""
-    if not force and lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+    missing, older than its source or a header beside it (``*.cuh``), or
+    ``force`` is set; the caller holds the library's lock.  Returns the
+    compiler's report, or "" when up to date."""
+    newest = max(f.stat().st_mtime for f in (src, *src.parent.glob("*.cuh")))
+    if not force and lib.exists() and lib.stat().st_mtime >= newest:
         return ""
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")

@@ -153,7 +153,12 @@ class WorkCount(TorchDispatchMode):
     @contextlib.contextmanager
     def kernel(self, name: str, flops: int, nbytes: int):
         """One call of kernel ``name`` doing ``flops`` operations and moving
-        ``nbytes`` bytes; the ops issued inside the block are not counted."""
+        ``nbytes`` bytes; the ops issued inside the block are not counted, nor
+        is a kernel called inside a block that is (a plain version that calls
+        another kernel's wrapper: its work is the outer kernel's)."""
+        if self._muted:
+            yield
+            return
         entry = self.kernels.setdefault(name, Counter())
         entry.update(calls=1, flops=flops, bytes=nbytes)
         self.flops += flops

@@ -28,7 +28,9 @@ cases and on floats with NaN, counts through graph replays, and raises
 instead of falling back.  K4, the masked N-Queens move with its best board,
 equals its plain version bit for bit at phase 2f's cases and on edge shapes,
 at its plan and at 1, 3 and 8 blocks a lane, adds the column scores by a
-reduction (its SASS), counts through graph replays and raises.  QAP's
+reduction (its SASS), counts through graph replays and raises.  K5, the
+roster's dense neighborhood, equals its plain version on every output at phase
+2g's cases and on edge shapes, counts through graph replays and raises.  QAP's
 incremental move written in place, with the best carried by its permutation,
 equals the select form bit for bit.  Two gloo
 ranks sharing the card run the pop- and nbr-sharded N-Queens solves, equal to
@@ -865,7 +867,8 @@ def test_cuda_fingerprint_rows_at_every_warp_grouping(cuda, rows, n):
 def test_cuda_fingerprint_launches_count_through_graph_replays(cuda):
     """A capture counts no K2 launch; each replay counts what it captured and
     rewrites the result.  A graphed solve of every domain launches K2a and K2b
-    as often as the eager one."""
+    as often as the eager one: K2b in each, K2a in each but the dense roster,
+    whose fingerprint deltas K5 hashes itself."""
     from constraint_solver_tpu_torch.core import graphed
     from constraint_solver_tpu_torch.ops import fingerprint as fpk
 
@@ -883,13 +886,16 @@ def test_cuda_fingerprint_launches_count_through_graph_replays(cuda):
         seg.replay()
     torch.cuda.synchronize()
     assert fpk.hash_xor.launches == before + 3 and torch.equal(seg.out, want)
-    for domain in ("scheduling-dense", "qap-incremental", "ackley", "diagram"):
+    for domain in ("scheduling-dense", "scheduling-random", "qap-incremental", "ackley", "diagram"):
         counts = {}
         for graphed_run in (False, True):
             before = (fpk.hash_xor.launches, fpk.fingerprint_i32.launches)
             _domain_run(cuda, domain, None, graphed_run)
             counts[graphed_run] = (fpk.hash_xor.launches - before[0], fpk.fingerprint_i32.launches - before[1])
-        assert counts[True] == counts[False] and min(counts[True]) > 0, (domain, counts)
+        need = counts[True][1:] if domain == "scheduling-dense" else counts[True]
+        assert counts[True] == counts[False] and min(need) > 0, (domain, counts)
+        if domain == "scheduling-dense":
+            assert counts[True][0] == 0, counts
 
 
 @pytest.mark.cuda
@@ -1196,3 +1202,85 @@ def test_cuda_nqueens_move_counts_through_graph_replays_and_raises(cuda, tmp_pat
     with pytest.raises(RuntimeError, match="nvcc failed"):
         nm.nqueens_move(st, moves, idx, mask)
     assert nm.nqueens_move.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_sched_dense_matches_plain_version_at_the_smoke_cases(cuda):
+    """K5 at ``chip_smoke.py`` phase 2g's cases (the roster's (64, 365, 20,
+    256, 4), 730 x 40 at P = 128, 31 d x 7 e with holidays, a Friday start, D
+    < 15, no random swaps, lanes on two employees): every output equal to the
+    plain version's, padding slots included."""
+    import chip_smoke
+
+    from constraint_solver_tpu_torch.ops import sched_dense as sd
+
+    for case in chip_smoke.k5_cases(cuda):
+        got = sd.sched_dense(*case.args)
+        torch.cuda.synchronize()
+        assert chip_smoke.k5_equal(got, sd.sched_dense_ref(*case.args)), case.label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("days, emps, p, n_rand, n_off", [
+    (1, 3, 2, 0, 0), (2, 2, 3, 5, 0), (9, 3, 4, 16, 0), (15, 1, 3, 8, 4), (50, 256, 2, 300, 2),
+    (4096, 2, 1, 16, 1), (31, 7, 200, 16, 4),
+])
+def test_cuda_sched_dense_on_edge_shapes(cuda, days, emps, p, n_rand, n_off):
+    """One day, two days, no diagonal, one employee, the most employees and
+    the most days the kernels take, more random swaps than a block's threads,
+    more lanes than a wave; ``cur_score`` and the draws as strided views: every
+    output equal to the plain version's."""
+    from constraint_solver_tpu_torch.models.scheduling import make_tables
+    from constraint_solver_tpu_torch.ops import sched_dense as sd
+
+    start = datetime.date(2022, 5, 13)
+    spec = ScheduleSpec.from_dates(start, start + datetime.timedelta(days=days - 1), emps,
+                                   {0: [start + datetime.timedelta(days=k) for k in range(0, days, 5)]})
+    rng = np.random.default_rng(days * emps)
+    a = torch.as_tensor(rng.integers(0, emps, size=(p, days)), device=cuda)
+    cur = torch.as_tensor(rng.integers(0, 50, size=(p, 3)), dtype=torch.float32, device=cuda)[:, 1:]
+    draws = [torch.as_tensor(rng.integers(lo, max(lo + 1, days), size=(p, 2 * k)), device=cuda)[:, ::2]
+             for lo, k in ((0, n_rand), (1, n_rand), (14, n_off))]
+    args = (a, cur, make_tables(spec, cuda), spec.start_weekday, *draws)
+    got = sd.sched_dense(*args)
+    torch.cuda.synchronize()
+    want = sd.sched_dense_ref(*args)
+    for name, x, y in zip(sd.DenseOut._fields, got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+def test_cuda_sched_dense_counts_through_graph_replays_and_raises(cuda, tmp_path, monkeypatch):
+    """A capture of K5 counts no launch, a replay counts both kernels and
+    writes every output; a graphed dense roster solve launches K5 as often as
+    the eager one, in both tabu modes; an operand on another device, a shape
+    the kernels do not take and a failed build raise: no plain version on the
+    card."""
+    import chip_smoke
+    from constraint_solver_tpu_torch.ops import sched_dense as sd
+
+    case = chip_smoke.k5_cases(cuda)[2]  # 31 d x 7 e with holidays
+    sd.sched_dense(*case.args)  # built and loaded before the capture
+    chip_smoke.k5_graph_replay(cuda, case)
+    for exact in (True, False):
+        counts = {}
+        for graphed_run in (False, True):
+            before = sd.sched_dense.launches
+            _domain_run(cuda, "scheduling-dense", exact, graphed_run)
+            counts[graphed_run] = sd.sched_dense.launches - before
+        assert counts[True] == counts[False] > 0, (exact, counts)
+    a, cur, tables, start, rs_d1, rs_off, delta = case.args
+    with pytest.raises(ValueError):
+        sd.sched_dense(a, cur.cpu(), tables, start, rs_d1, rs_off, delta)
+    wide = a.new_zeros((a.shape[0], sd.MAX_DAYS + 1))
+    wide_tables = tables._replace(holiday_de=tables.holiday_de.new_zeros((sd.MAX_DAYS + 1, 7)))
+    with pytest.raises(ValueError, match="at most"):
+        sd.sched_dense(wide, cur, wide_tables, start, rs_d1, rs_off, delta)
+    monkeypatch.setattr(sd, "_LIBRARY", nk.KernelLibrary(sd._SRC, tmp_path / "libsched_dense.so",
+                                                         sd._LIBRARY.argtypes))
+    monkeypatch.setattr(nk.subprocess, "run",
+                        lambda cmd, **kw: nk.subprocess.CompletedProcess(cmd, 1, "", "error: planted"))
+    before = sd.sched_dense.launches
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        sd.sched_dense(*case.args)
+    assert sd.sched_dense.launches == before

@@ -289,8 +289,10 @@ def test_plan_layouts_match_the_cuda_source():
     assert f"kProbePlanLen == {fp.PROBE_PLAN_LEN}" in src
     assert len(fp._rows_values(fp._rows_plan((2, 3), (3, 1), torch.int32), torch.zeros((2, 3), dtype=torch.int32),
                                torch.zeros((2, 2), dtype=torch.int64))) == fp.ROWS_PLAN_LEN
+    hashed = (fp._SRC.parent / "fp_hash.cuh").read_text()  # the hash and its salts, shared with K5
+    assert '#include "fp_hash.cuh"' in src
     for salt in fp._SALTS:
-        assert f"0x{salt:08X}u" in src
+        assert f"0x{salt:08X}u" in hashed
 
 
 # ---------------------------------------------------------------- the call sites
