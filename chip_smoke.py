@@ -90,12 +90,13 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    Friday, D < 15 (no diagonals), no random swaps, and lanes on two
    employees: every output (scores, validity, fingerprint deltas, the four
    move tensors, padding slots included) equal to its plain version's, the
-   eager chain the dense proposer ran before it; the roster case replayed
-   once in a CUDA graph; at the roster's and 730 x 40's shapes its
-   device-only time (both kernels' events in a profiler trace), the
-   wrapper's host us, the wrapper and the plain version by CUDA events, the
-   plain version's kernels a call, and the bound (bytes over 3.35 TB/s) with
-   the share;
+   eager chain the dense proposer ran before it, each case's plan logged
+   (cluster size, blocks, dynamic shared memory a block, the plane's place,
+   registers, blocks an SM and clusters the card holds at once); the roster
+   case replayed once in a CUDA graph; at the roster's and 730 x 40's shapes
+   its device-only time (its events in a profiler trace), the wrapper's host
+   us, the wrapper and the plain version by CUDA events, the plain version's
+   kernels a call, and the bound (bytes over 3.35 TB/s) with the share;
 3. runs a few rounds of nqueens-64 with 8 lanes on the card and on the CPU from
    the same host-side draws, in both tabu modes: the states must be equal;
 4. drives the main path, ``PopulationSolver(make_nqueens_problem(1000), ...,
@@ -317,8 +318,8 @@ L2_BYTES = 50 * 2**20  # H100 SXM's L2
 K4_L2_SPAN = 4  # phase 2f times K4 over state copies whose rows, cs and best hold this many times the L2
 K4_REPLACES = ("constraint_solver_tpu/models/nqueens.py:375-406 (apply_move) with core/local_search.py:107-108 "
                "(_select) at :281-283, :290 and :305-316 (XLA fusion, no Pallas call)")
-# Phase 2g: K5 (the roster's dense neighborhood), both its kernels' events in a trace.
-K5_EVENT = "sched_d"  # sched_dense_kernel and sched_diag_kernel
+# Phase 2g: K5 (the roster's dense neighborhood), its kernel's events in a trace.
+K5_EVENT = "sched_d"  # the start of every K5 kernel's name (sched_dense_kernel)
 K5_CALLS = 20  # timed calls of the wrapper (and of the plain version, a tenth as many)
 K5_REPLACES = ("constraint_solver_tpu/models/scheduling.py:594-884 (neighborhood_dense) with :454-555 "
                "(exact_move_deltas; XLA fusion, no Pallas call)")
@@ -1703,7 +1704,6 @@ def k5_graph_replay(device, case) -> None:
     from constraint_solver_tpu_torch.ops import sched_dense as sd
 
     want = sd.sched_dense_ref(*case.args)
-    launches = 2 if case.args[-1].shape[1] else 1
     before = sd.sched_dense.launches
     seg = graphed.capture(lambda: sd.sched_dense(*case.args), torch.cuda.CUDAGraph(), torch.cuda.Stream(device))
     captured = sum(seg.launches.values())
@@ -1711,22 +1711,26 @@ def k5_graph_replay(device, case) -> None:
         t.zero_()
     seg.replay()
     sync(device)
-    if captured != launches or sd.sched_dense.launches != before + launches or not k5_equal(seg.out, want):
+    if captured != 1 or sd.sched_dense.launches != before + 1 or not k5_equal(seg.out, want):
         raise AssertionError(f"phase 2g: K5 in a CUDA graph: {captured} launches captured, "
-                             f"{sd.sched_dense.launches - before} counted for 1 replay of {launches}, "
+                             f"{sd.sched_dense.launches - before} counted for 1 replay of 1 launch, "
                              f"equal {k5_equal(seg.out, want)}")
 
 
 def k5_device_ms(fn, args, calls: int) -> tuple[float, dict, str]:
-    """K5's device-only ms per call, both kernels' events (``K5_EVENT``) in a
+    """K5's device-only ms per call, its kernels' events (``K5_EVENT``) in a
     ``torch.profiler`` trace of ``calls`` calls summed, and each kernel's
-    share; where the trace holds fewer events than launches, the replay of a
-    CUDA graph of the calls timed with CUDA events."""
+    share; where the trace holds fewer events than the wrapper's launches,
+    the replay of a CUDA graph of the calls timed with CUDA events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    per_call = 2 if args[-1].shape[1] else 1
+    from constraint_solver_tpu_torch.ops import sched_dense as sd
+
+    before = sd.sched_dense.launches
+    fn(*args)
     torch.cuda.synchronize()
+    per_call = sd.sched_dense.launches - before
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn(*args)
@@ -1771,7 +1775,7 @@ def phase_k5(device, cases=None) -> dict:
     ``k5_cases``: scores, validity, fingerprint deltas and the four move
     tensors, padding slots included, as ``torch.equal`` reads them; the
     roster case replayed once in a CUDA graph; then at the timed cases its
-    device-only ms per call (both kernels' events in a ``torch.profiler``
+    device-only ms per call (its events in a ``torch.profiler``
     trace; the inputs, 0.5 MB at the roster's shape, warm in L2, the 29 MB of
     outputs written), the wrapper's host us, the wrapper and the plain version
     by CUDA events, the plain version's kernels and copies in a trace of one
@@ -1786,7 +1790,7 @@ def phase_k5(device, cases=None) -> dict:
     from constraint_solver_tpu_torch.ops.block_pick import _sms
 
     t0 = time.time()
-    per, max_err = {}, 0.0
+    per, plans, max_err = {}, {}, 0.0
     card = card_line() if is_cuda(device) else "cpu"
     sms = _sms(torch.device(device).index or 0) if is_cuda(device) else 132
     cases = cases or k5_cases(device)
@@ -1801,17 +1805,25 @@ def phase_k5(device, cases=None) -> dict:
             bad = [f for f, x, y in zip(sd.DenseOut._fields, got, want) if not torch.equal(x, y)]
             raise AssertionError(f"phase 2g: K5 != its plain version ({case.label}): {bad}")
         max_err = max(max_err, *(float((x.double() - y.double()).abs().max()) for x, y in zip(got, want)))
-        plan = sd._launch_plan(p, d, e, n_rand, n_off, sms)
+        plan = (sd.occupancy(p, d, e, n_rand, n_off, device) if is_cuda(device)
+                else sd._launch_plan(p, d, e, n_rand, n_off, sms)._asdict())
+        plans[case.label] = plan
         padding = int((~want.valid).sum())
+        where = ", ".join(f"{name} in {'shared' if plan[f'{k}_shared'] else 'global'} memory" for k, name in
+                          (("flags", "window flags"), ("plane", "plane"), ("hol", "holiday rows")))
         log(f"phase 2g: K5 == plain version bit for bit at {case.label} (W = {want.valid.shape[1]}, {padding} "
-            f"padding slots; tiles of {plan.tile} days, {plan.grid} + {plan.diag_grid} blocks)")
+            f"padding slots); plan: clusters of {plan['slices']} blocks, {plan['grid']} blocks of {sd.THREADS} "
+            f"threads, {plan['smem']} B of dynamic shared memory a block, spans of {plan['span']} days in chunks "
+            f"of {plan['chunk']}, swaps in batches of {plan['swap_batch']}, {where}"
+            + (f"; {plan['registers']} registers, {plan['local_bytes']} B local a thread, {plan['blocks_per_sm']} "
+               f"blocks an SM, {plan['clusters_at_once']} clusters at once" if 'registers' in plan else ""))
         if not case.timed:
             continue
         ops, nbytes = sd.kernel_work(p, d, e, n_rand, n_off)
         by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
         bound, by = max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
         entry = per[case.label] = {"bound_ms": bound, "bound_by": by, "bytes": nbytes, "operations": ops,
-                                   "plan": plan._asdict()}
+                                   "plan": plan}
         if not is_cuda(device):
             continue
         for f in (sd.sched_dense, sd.sched_dense_ref):
@@ -1851,6 +1863,7 @@ def phase_k5(device, cases=None) -> dict:
         "max_abs_err": max_err,
         **main,
         "library_ms": None,
+        "plan": plans,
         "shapes": per,
     }
 

@@ -18,27 +18,39 @@ scores float32[P, W, 2] (``cur_score`` plus each delta), ``valid`` bool[P, W],
   strides (the assignment with unit stride along D, the holiday table
   contiguous; ``cur_score`` and the draws any strides), takes the plain version
   for tensors on the CPU, and for tensors on a CUDA device launches the
-  kernels in ``csrc/sched_dense.cu`` or raises: there is no fallback, and a
-  shape the kernels do not take (D above ``MAX_DAYS``, E above ``MAX_EMPS``)
-  raises on the card.  ``sched_dense.launches`` counts its kernel launches (two
-  a call with diagonals, one without) and ``.shapes`` them per (P, D, E, R, O,
-  kernel), through ``ops/launch_count.py``, so CUDA graph replays count too.
-  Every employee of ``assign`` must lie in [0, E), as the solvers' do.
+  kernel in ``csrc/sched_dense.cu`` or raises: there is no fallback, and a
+  shape the kernel does not take (D above ``MAX_DAYS``, E above ``MAX_EMPS``)
+  raises on the card.  One launch a call: ``sched_dense.launches`` counts it
+  and ``.shapes`` counts it per (P, D, E, R, O), through
+  ``ops/launch_count.py``, so CUDA graph replays count too.  Every employee of
+  ``assign`` must lie in [0, E), as the solvers' do.
 - ``sched_dense_ref`` is the plain version: the eager chain the dense proposer
   ran before K5, bit for bit (one-hot planes, banded window matmuls, the
   first / second minimum tricks, ``exact_move_deltas`` for the random swaps,
   K2a for the fingerprints, the blocks concatenated).
 - ``_launch_plan(p, d, e, n_rand, n_off, sms)`` is the launch (its design is
-  in the source), a pure function of the shapes and the card's SM count:
-  the first kernel has ⌈R / 256⌉ swap blocks and ⌈D / tile⌉ tile blocks a lane,
-  a tile of about ``TILE_CELLS`` cells (at most ``MAX_TILE`` days, its window
-  counts within ``MAX_COUNTS``), halved while the grid has fewer than two
-  blocks an SM and a tile keeps ``MIN_CELLS``; the second ⌈O·D / 256⌉ blocks
-  a lane.  At (64, 365, 20, 256, 4): tiles of 26 days, 1,024 and 384 blocks.
+  in the source), a pure function of the shapes and the card's SM count: a
+  lane is one thread-block cluster of S blocks of ``THREADS`` threads, S as
+  many as fit the card in one wave (P·S at most ``WAVE_FILL`` of
+  ``BLOCKS_PER_SM`` blocks on each SM), at most ``MAX_SLICES`` and at most D
+  (grid P·S); block r owns the days [D·r/S, D·(r+1)/S), at most ``span`` =
+  ⌈D/S⌉, takes ``chunk`` = min(span, ``MAX_CHUNK``) days at a time and its
+  random swaps ``swap_batch`` at a time, with ``smem`` bytes of dynamic
+  shared memory (``_smem_bytes``, laid out as the source's ``layout``).  In
+  shared memory while a block stays within ``SMEM_MAX``: the lane's window
+  flags (``flags_shared``), then the block's (hard, S1) plane that the
+  diagonals read across the cluster (``plane_shared``), then its holiday rows
+  (``hol_shared``); the wrapper allocates a global scratch for the flags or
+  the plane that does not fit (both at 4096 x 256).  At (64, 365, 20, 256,
+  4): S = 7, spans of 53 days, 448 blocks of 17,968 bytes, everything in
+  shared memory; at (128, 730, 40, 256, 4): S = 3, 384 blocks of 93,568
+  bytes.
+- ``occupancy(p, d, e, n_rand, n_off, device)`` is the plan with what the card
+  makes of it (registers, blocks an SM, clusters at once), for a log.
 - ``kernel_work(p, d, e, n_rand, n_off)`` is one call's (operations, bytes) by
   formula: what ``utils/roofline.py`` counts for the call.
-- ``build_library`` compiles the kernels with ``nvcc`` into ``build/kernels/``
-  at first use and loads them with ``ctypes``, through ``ops/nqueens_kernel.py``'s
+- ``build_library`` compiles the kernel with ``nvcc`` into ``build/kernels/``
+  at first use and loads it with ``ctypes``, through ``ops/nqueens_kernel.py``'s
   ``KernelLibrary``.
 """
 
@@ -61,15 +73,22 @@ _SRC = Path(__file__).resolve().parent.parent / "csrc" / "sched_dense.cu"
 _LIB_PATH = nk._BUILD_DIR / "libsched_dense.so"
 KERNEL_NAME = "sched_dense"
 _ARGS = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]  # (const long long* plan, void* stream)
-_LIBRARY = nk.KernelLibrary(_SRC, _LIB_PATH, {"sched_dense_launch": _ARGS})
-THREADS = 256  # threads of a block, both kernels (csrc kThreads)
+_OCCUPANCY_ARGS = [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]  # (plan, int out[4])
+_LIBRARY = nk.KernelLibrary(_SRC, _LIB_PATH, {"sched_dense_launch": _ARGS, "sched_dense_occupancy": _OCCUPANCY_ARGS})
+THREADS = 256  # threads of a block (csrc kThreads)
 MAX_DAYS = 4096  # D: the lane's assignment in shared memory (csrc kMaxDays)
 MAX_EMPS = 256  # E (csrc kMaxEmps)
-MAX_TILE = 256  # days of a tile block (csrc kMaxTile)
-MAX_COUNTS = 4096  # a tile's window counts, (tile + 13)·E (csrc kMaxCounts)
-PLAN_LEN = 36  # int64 entries of the plan (csrc kPlanLen)
-TILE_CELLS = 512  # cells a tile block takes at first
-MIN_CELLS = 128  # cells a tile keeps when it is halved for more blocks
+MAX_SLICES = 8  # blocks a lane, one thread-block cluster: the portable size (csrc kMaxSlices)
+MAX_CHUNK = 128  # days of a chunk: its per-day fields (csrc kMaxChunk)
+SMEM_MAX = 232_448  # dynamic shared memory a block may have, 227 KB (csrc kSmemMax)
+BLOCKS_PER_SM = 4  # blocks of THREADS an SM holds: the kernel's registers leave room for 4 (csrc kMinBlocks)
+WAVE_FILL = 0.9  # the share of P·S ≤ BLOCKS_PER_SM·SMs blocks that clusters of S pack onto the card at once
+PLAN_LEN = 40  # int64 entries of the plan (csrc kPlanLen)
+LIST_WORDS = 33  # the lists and their counts (csrc kListWords)
+DAY_FIELDS = 18  # int fields a day of a chunk (csrc kDayFields)
+HASH_FIELDS = 4  # uint32 hash terms a day of a block (csrc kHashFields)
+SWAP_FIELDS = 4  # int fields a random swap of a batch (csrc kSwapFields)
+FLAGS = 4  # window flag rows an employee (csrc kFlags)
 CELL_OPS = 100  # integer operations a ChangeDay cell, about (window and row terms)
 SWAP_OPS = 1200  # a random swap's window terms, about (and 3 an employee for its rows)
 DIAG_OPS = 40  # a diagonal slot's, about (and 3 an employee for its rows)
@@ -87,34 +106,64 @@ class DenseOut(NamedTuple):
 
 
 class LaunchPlan(NamedTuple):
-    tile: int  # days of a tile block
-    tiles: int  # tile blocks a lane
-    swap_blocks: int  # random-swap blocks a lane, before the tiles
-    diag_blocks: int  # diagonal blocks a lane (the second kernel)
-    grid: int  # the first kernel's blocks: P·(swap_blocks + tiles)
-    diag_grid: int  # the second's: P·diag_blocks (0: no second launch)
+    slices: int  # S: blocks a lane, one thread-block cluster; block r owns days [D·r/S, D·(r+1)/S)
+    span: int  # days a block owns at most, ⌈D/S⌉
+    chunk: int  # days a block takes at a time, min(span, MAX_CHUNK)
+    swap_batch: int  # random swaps a block takes at a time, min(THREADS, ⌈R/S⌉)
+    smem: int  # dynamic shared memory bytes a block
+    flags_shared: bool  # the lane's window flags in every block's shared memory, else in a global scratch
+    plane_shared: bool  # the blocks' (hard, S1) planes in shared memory, else in a global scratch
+    hol_shared: bool  # the block's holiday rows copied into its shared memory, else read from global memory
+    grid: int  # blocks: P·S, one launch
+
+
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def _smem_bytes(d: int, e: int, slices: int, chunk: int, span: int, n_off: int, batch: int, flags: bool,
+                hol: bool, plane: bool) -> int:
+    """A block's dynamic shared memory (csrc ``layout``): the assignment
+    int16[D], the block's membership words uint32[E][⌈N/S⌉ + 1] (N = ⌈D/32⌉),
+    the counts int[7][E], the totals and weekend totals, the lists,
+    ``DAY_FIELDS`` ints a day of the chunk, ``HASH_FIELDS`` a day of the span,
+    the O offsets, ``SWAP_FIELDS`` ints a swap of a batch; with ``flags`` the
+    lane's window flags uint32[4][E][N + 2], with ``plane`` the block's (hard,
+    S1) plane int8[span][E][2], with ``hol`` its holiday rows float32[span][E]."""
+    nw = -(-d // 32)
+    sizes = (2 * d, 4 * e * (-(-nw // slices) + 1), 4 * 7 * e, 4 * e, 4 * e, 4 * LIST_WORDS, 4 * DAY_FIELDS * chunk,
+             4 * HASH_FIELDS * span, 4 * n_off, 4 * SWAP_FIELDS * batch, 16 * e * (nw + 2) if flags else 0,
+             2 * span * e if plane else 0, 4 * span * e if hol else 0)
+    return sum(_align16(x) for x in sizes)
 
 
 @functools.lru_cache(maxsize=64)
 def _launch_plan(p: int, d: int, e: int, n_rand: int, n_off: int, sms: int) -> LaunchPlan:
     """K5's launch for P lanes of D days and E employees with R random swaps
-    and O diagonals on a card of ``sms`` SMs (E <= ``MAX_EMPS``)."""
-    tile = max(1, min(MAX_TILE, d, -(-TILE_CELLS // e), MAX_COUNTS // e - 13))
-    while tile > 1 and p * -(-d // tile) < 2 * sms and -(-tile // 2) * e >= MIN_CELLS:
-        tile = -(-tile // 2)
-    tiles = -(-d // tile)
-    swap_blocks = -(-n_rand // THREADS)
-    diag_blocks = -(-(n_off * d) // THREADS)
-    return LaunchPlan(tile, tiles, swap_blocks, diag_blocks, p * (swap_blocks + tiles), p * diag_blocks)
+    and O diagonals on a card of ``sms`` SMs (D <= ``MAX_DAYS``, E <=
+    ``MAX_EMPS``): S blocks a lane, as many as fit the card in one wave
+    (P·S at most ``WAVE_FILL`` of ``BLOCKS_PER_SM`` blocks on each SM), at
+    most ``MAX_SLICES`` and at most D; in shared memory, while a block stays
+    within ``SMEM_MAX``: the window flags, then the plane, then the holiday
+    rows."""
+    slices = max(1, min(MAX_SLICES, d, int(WAVE_FILL * BLOCKS_PER_SM * sms) // p))
+    span = -(-d // slices)
+    chunk = min(span, MAX_CHUNK)
+    batch = min(THREADS, -(-n_rand // slices))
+    fits = functools.partial(_smem_bytes, d, e, slices, chunk, span, n_off, batch)
+    flags = fits(True, False, False) <= SMEM_MAX
+    plane = fits(flags, False, True) <= SMEM_MAX
+    hol = fits(flags, True, plane) <= SMEM_MAX
+    return LaunchPlan(slices, span, chunk, batch, fits(flags, hol, plane), flags, plane, hol, p * slices)
 
 
 def kernel_work(p: int, d: int, e: int, n_rand: int, n_off: int) -> tuple[int, int]:
     """(operations, bytes) of one call.  Bytes: the assignment, ``cur_score``,
     the holiday table and the draws read once, and ``OUT_BYTES`` written a
-    candidate (what the function must move; the kernels' [P, D, E, 2] int8
-    scratch for the diagonals is not counted).  Operations: about
-    ``CELL_OPS`` a ChangeDay cell, ``SWAP_OPS`` + 3·E a random swap and
-    ``DIAG_OPS`` + 3·E a diagonal slot, integer operations of the kernels'
+    candidate (what the function must move; the [P, D, E, 2] int8 scratch
+    of the diagonals, where the plan has one, is not counted).  Operations:
+    about ``CELL_OPS`` a ChangeDay cell, ``SWAP_OPS`` + 3·E a random swap and
+    ``DIAG_OPS`` + 3·E a diagonal slot, integer operations of the kernel's
     loops; they take a tenth of the bytes' time."""
     width = d * e + n_rand + n_off * d
     nbytes = 8 * p * d + 8 * p + 4 * d * e + 16 * p * n_rand + 8 * p * n_off + OUT_BYTES * p * width
@@ -401,17 +450,19 @@ def sched_dense(assign, cur_score, tables, start_weekday: int, rs_d1, rs_off, de
     return _dense(args, *dims)
 
 
-def _plan_values(assign, cur_score, holiday, start_weekday: int, rs_d1, rs_off, delta, out: DenseOut, block,
-                 plan: LaunchPlan) -> list:
+def _plan_values(assign, cur_score, holiday, start_weekday: int, rs_d1, rs_off, delta, out: DenseOut, scratch,
+                 flag_scratch, plan: LaunchPlan) -> list:
     """The C entry's plan (the layout in ``csrc/sched_dense.cu``)."""
     p, d = assign.shape
     e = holiday.shape[1]
     n_rand, n_off = rs_d1.shape[1], delta.shape[1]
     ptr = (lambda t: t.data_ptr() if t.numel() else 0)  # noqa: E731
-    values = [p, d, e, n_rand, n_off, start_weekday, *plan[:4], out.valid.shape[1], ptr(assign),
-              assign.stride(0), ptr(cur_score), *cur_score.stride(), ptr(holiday), ptr(rs_d1), ptr(rs_off),
-              ptr(delta), *rs_d1.stride(), *rs_off.stride(), *delta.stride(), *(ptr(t) for t in out),
-              0 if block is None else block.data_ptr()]
+    values = [p, d, e, n_rand, n_off, start_weekday, plan.slices, plan.chunk, plan.span, plan.smem,
+              out.valid.shape[1], ptr(assign), assign.stride(0), ptr(cur_score), *cur_score.stride(), ptr(holiday),
+              ptr(rs_d1), ptr(rs_off), ptr(delta), *rs_d1.stride(), *rs_off.stride(), *delta.stride(),
+              *(ptr(t) for t in out), 0 if scratch is None else scratch.data_ptr(), int(plan.plane_shared),
+              plan.swap_batch, int(plan.hol_shared), int(plan.flags_shared),
+              0 if flag_scratch is None else flag_scratch.data_ptr()]
     return values + [0] * (PLAN_LEN - len(values))
 
 
@@ -432,15 +483,34 @@ def _dense(args, p: int, d: int, e: int, n_rand: int, n_off: int) -> DenseOut:
         return out
     index = device.index
     plan = _launch_plan(p, d, e, n_rand, n_off, _sms(index))
-    block = torch.empty((p, d, e, 2), dtype=torch.int8, device=device) if n_off else None
+    scratch = None if plan.plane_shared else torch.empty((p, d, e, 2), dtype=torch.int8, device=device)
+    flag_scratch = (None if plan.flags_shared else
+                    torch.empty((p, FLAGS, e, -(-d // 32) + 2), dtype=torch.int32, device=device))
     values = _plan_values(assign, cur_score, tables.holiday_de, start_weekday, rs_d1, rs_off, delta, out,
-                          block, plan)
+                          scratch, flag_scratch, plan)
     nk.launch(_LIBRARY.entry("sched_dense_launch"), ((ctypes.c_longlong * PLAN_LEN)(*values),), index,
               f"(P, D, E, R, O) = {(p, d, e, n_rand, n_off)}, {plan}")
-    launch_count.count(sched_dense, (p, d, e, n_rand, n_off, "block"))
-    if n_off:
-        launch_count.count(sched_dense, (p, d, e, n_rand, n_off, "diagonals"))
+    launch_count.count(sched_dense, (p, d, e, n_rand, n_off))
     return out
 
 
-launch_count.counted(sched_dense)  # .launches, and .shapes per (P, D, E, R, O, kernel)
+def occupancy(p: int, d: int, e: int, n_rand: int, n_off: int, device) -> dict:
+    """What the card makes of the plan for (P, D, E, R, O) on CUDA ``device``,
+    for a log: the plan, the kernel's registers and local (spill) bytes a
+    thread, its blocks that fit an SM and the plan's clusters that the card
+    holds at once.  Launches nothing."""
+    device = torch.device(device)
+    plan = _launch_plan(p, d, e, n_rand, n_off, _sms(device.index))
+    values = [p, d, e, n_rand, n_off, 0, plan.slices, plan.chunk, plan.span, plan.smem, d * e + n_rand + n_off * d,
+              *[0] * 22, int(not plan.plane_shared), int(plan.plane_shared), plan.swap_batch, int(plan.hol_shared),
+              int(plan.flags_shared), int(not plan.flags_shared), 0]  # placeholder scratches: no pointer is read
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        err = _LIBRARY.entry("sched_dense_occupancy")((ctypes.c_longlong * PLAN_LEN)(*values), out)
+    if err != 0:
+        raise RuntimeError(f"sched_dense_occupancy failed: cudaError_t {err} for {plan}")
+    return {**plan._asdict(), "registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2],
+            "clusters_at_once": out[3]}
+
+
+launch_count.counted(sched_dense)  # .launches, and .shapes per (P, D, E, R, O)

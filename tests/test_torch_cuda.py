@@ -1223,13 +1223,19 @@ def test_cuda_sched_dense_matches_plain_version_at_the_smoke_cases(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("days, emps, p, n_rand, n_off", [
     (1, 3, 2, 0, 0), (2, 2, 3, 5, 0), (9, 3, 4, 16, 0), (15, 1, 3, 8, 4), (50, 256, 2, 300, 2),
-    (4096, 2, 1, 16, 1), (31, 7, 200, 16, 4),
+    (4096, 2, 1, 16, 1), (31, 7, 200, 16, 4), (15, 3, 1100, 4, 2), (4096, 256, 1, 16, 2), (2048, 128, 1, 16, 1),
+    (40, 6, 1, 2100, 4),
 ])
 def test_cuda_sched_dense_on_edge_shapes(cuda, days, emps, p, n_rand, n_off):
-    """One day, two days, no diagonal, one employee, the most employees and
-    the most days the kernels take, more random swaps than a block's threads,
-    more lanes than a wave; ``cur_score`` and the draws as strided views: every
-    output equal to the plain version's."""
+    """Each branch of the launch plan (``sched_dense._launch_plan`` on 132
+    SMs): one day (a cluster of 1 block), two days (2 blocks: D below the
+    cluster the SMs ask for), no diagonal, one employee, the most employees,
+    the most days the kernel takes (4 chunks of 128 days a block), more random
+    swaps than a block's threads and two batches of them (2,100 at P = 1),
+    clusters of 2 blocks at P = 200, one block a lane with diagonals at P =
+    1,100, the window flags, the plane and the holiday rows in global memory
+    (4096 x 256), only the holiday rows there (2048 x 128); ``cur_score`` and
+    the draws as strided views: every output equal to the plain version's."""
     from constraint_solver_tpu_torch.models.scheduling import make_tables
     from constraint_solver_tpu_torch.ops import sched_dense as sd
 
@@ -1251,7 +1257,7 @@ def test_cuda_sched_dense_on_edge_shapes(cuda, days, emps, p, n_rand, n_off):
 
 @pytest.mark.cuda
 def test_cuda_sched_dense_counts_through_graph_replays_and_raises(cuda, tmp_path, monkeypatch):
-    """A capture of K5 counts no launch, a replay counts both kernels and
+    """A capture of K5 counts no launch, a replay counts its one launch and
     writes every output; a graphed dense roster solve launches K5 as often as
     the eager one, in both tabu modes; an operand on another device, a shape
     the kernels do not take and a failed build raise: no plain version on the

@@ -2,7 +2,7 @@
 ``csrc/sched_dense.cu``), on the CPU: the wrapper (its plain version on CPU
 tensors) against the JAX package's ``neighborhood_dense`` on every output, its
 launch plan, its work, its input checks, its roofline count and its library's
-build (a faked compiler and ``ctypes``).  The kernels themselves run only on
+build (a faked compiler and ``ctypes``).  The kernel itself runs only on
 the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 2g).
 
 Assignments come from ``numpy.random.default_rng(seed)``; both sides draw from
@@ -67,37 +67,61 @@ def test_wrapper_matches_jax_on_every_output(name, p, n_rand):
 
 
 @pytest.mark.parametrize("sms", [132, 114])
-@pytest.mark.parametrize("shape", [(64, 365, 20, 256, 4), (128, 730, 40, 256, 4), (8, 31, 7, 16, 4)])
+@pytest.mark.parametrize("shape", [(64, 365, 20, 256, 4), (128, 730, 40, 256, 4), (8, 31, 7, 16, 4),
+                                   (200, 31, 7, 16, 4), (1100, 15, 3, 4, 2), (3, 2, 2, 5, 0), (2, 1, 3, 0, 0),
+                                   (1, 4096, 2, 16, 1), (1, 4096, 256, 16, 2), (2, 50, 256, 300, 2),
+                                   (1, 40, 6, 2100, 4)])
 def test_launch_plan_covers_every_candidate_once(shape, sms):
-    """The plan's blocks, walked as ``csrc/sched_dense.cu`` walks them, write
-    each candidate of each lane once; tiles stay within the shared memory's
-    counts; the grid fills the card where a tile can be halved."""
+    """The plan's clusters, walked as ``csrc/sched_dense.cu`` walks them
+    (block r of a lane: its days [D·r/S, D·(r+1)/S) chunk by chunk, its
+    random swaps [R·r/S, R·(r+1)/S) a batch at a time, the diagonal slots of
+    its days, its words [N·r/S, N·(r+1)/S) of the lane's days), write each
+    candidate of each lane once, build each membership word and window flag
+    word once, and find each diagonal's far day in the block that owns it;
+    the cluster is as large as one wave allows, within the portable size and
+    D; shared memory is the layout's, within 227 KB, the flags, the plane and
+    the holiday rows in it as far as they fit, in that order.  Shapes: the
+    roster's, 730 x 40, the reference CLI's, clusters of 2 and of 1 (many
+    lanes), D smaller than the cluster the SMs ask for, one day, several
+    chunks a block, flags, plane and holidays in global memory, the most
+    employees, several batches of swaps."""
     p, d, e, n_rand, n_off = shape
     plan = sd._launch_plan(p, d, e, n_rand, n_off, sms)
     assert plan is sd._launch_plan(p, d, e, n_rand, n_off, sms)  # a pure function, cached
-    assert 1 <= plan.tile <= sd.MAX_TILE and (plan.tile + 13) * e <= sd.MAX_COUNTS
-    assert plan.grid == p * (plan.swap_blocks + plan.tiles) and plan.diag_grid == p * plan.diag_blocks
+    s = plan.slices
+    assert s == max(1, min(sd.MAX_SLICES, d, int(sd.WAVE_FILL * sd.BLOCKS_PER_SM * sms) // p)) and plan.grid == p * s
+    assert plan.span == -(-d // s) and plan.chunk == min(plan.span, sd.MAX_CHUNK)
+    assert plan.swap_batch == min(sd.THREADS, -(-n_rand // s))
+    fits = lambda *where: sd._smem_bytes(d, e, s, plan.chunk, plan.span, n_off, plan.swap_batch, *where)  # noqa: E731
+    assert plan.smem == fits(plan.flags_shared, plan.hol_shared, plan.plane_shared) <= sd.SMEM_MAX
+    assert plan.flags_shared == (fits(True, False, False) <= sd.SMEM_MAX)
+    assert plan.plane_shared == (fits(plan.flags_shared, False, True) <= sd.SMEM_MAX)
+    assert plan.hol_shared == (fits(plan.flags_shared, True, plan.plane_shared) <= sd.SMEM_MAX)
     written = np.zeros((p, d * e + n_rand + n_off * d), np.int64)
-    swaps = p * plan.swap_blocks
-    for b in range(plan.grid):
-        if b < swaps:
-            lane, chunk = divmod(b, plan.swap_blocks)
-            ks = np.arange(chunk * sd.THREADS, min(n_rand, (chunk + 1) * sd.THREADS))
-            written[lane, d * e + ks] += 1
-        else:
-            lane, tile = divmod(b - swaps, plan.tiles)
-            days = np.arange(tile * plan.tile, min(d, (tile + 1) * plan.tile))
-            written[lane, (days[:, None] * e + np.arange(e)).ravel()] += 1
-    for b in range(plan.diag_grid):
-        lane, chunk = divmod(b, plan.diag_blocks)
-        slots = np.arange(chunk * sd.THREADS, min(n_off * d, (chunk + 1) * sd.THREADS))
-        written[lane, d * e + n_rand + slots] += 1
-    assert (written == 1).all()
-    if plan.tile > 1 and -(-plan.tile // 2) * e >= sd.MIN_CELLS:
-        assert p * plan.tiles >= 2 * sms
-    want = {(64, 365, 20, 256, 4): (26, 15, 1, 6), (128, 730, 40, 256, 4): (13, 57, 1, 12),
-            (8, 31, 7, 16, 4): (31, 1, 1, 1)}[shape]
-    assert (plan.tile, plan.tiles, plan.swap_blocks, plan.diag_blocks) == want
+    nw = -(-d // 32)
+    words = np.zeros(nw, np.int64)
+    for rank in range(s):  # every lane's cluster walks the same ranges
+        lo, hi = d * rank // s, d * (rank + 1) // s
+        assert 1 <= hi - lo <= plan.span
+        for c0 in range(lo, hi, plan.chunk):
+            written[:, c0 * e:min(hi, c0 + plan.chunk) * e] += 1
+        r0, r1 = n_rand * rank // s, n_rand * (rank + 1) // s
+        for b0 in range(r0, r1, max(1, plan.swap_batch)):  # no batch without swaps
+            written[:, d * e + b0:d * e + min(r1, b0 + plan.swap_batch)] += 1
+        for j in range(n_off):
+            written[:, d * e + n_rand + j * d + lo:d * e + n_rand + j * d + hi] += 1
+        k0, k1 = nw * rank // s, nw * (rank + 1) // s
+        assert k1 - k0 + 1 <= -(-nw // s) + 1  # its membership words and the next fit its rows
+        words[k0:k1] += 1
+    assert (written == 1).all() and (words == 1).all()
+    far = np.arange(d)
+    owner = ((far + 1) * s - 1) // d  # the block a diagonal reads day far's plane from
+    assert ((d * owner // s <= far) & (far < d * (owner + 1) // s)).all()
+    want = {(64, 365, 20, 256, 4): (7, 53, 53, 37, 17968, True, True, True),
+            (1, 4096, 256, 16, 2): (8, 512, 128, 2, 52416, False, False, False)}
+    if sms == 132 and shape in want:
+        assert (plan.slices, plan.span, plan.chunk, plan.swap_batch, plan.smem, plan.flags_shared,
+                plan.plane_shared, plan.hol_shared) == want[shape]
 
 
 @pytest.mark.parametrize("name, p, n_rand", [("365d20e", 2, 32), ("14d2e", 3, 16), ("42d5e", 2, 0)])
@@ -171,6 +195,7 @@ def fake_toolchain(tmp_path, monkeypatch):
         def __init__(self, path):
             loaded.append(path)
             self.sched_dense_launch = type("Entry", (), {})()
+            self.sched_dense_occupancy = type("Entry", (), {})()
 
     monkeypatch.setattr(nk, "_nvcc", lambda: "nvcc")
     monkeypatch.setattr(nk.subprocess, "run", run)
@@ -190,10 +215,17 @@ def test_the_library_builds_once_with_the_c_entry_it_declares(fake_toolchain):
     src = sd._SRC.read_text()
     assert re.search(r'extern "C" int sched_dense_launch\(const long long\* plan, void\* stream\)', src)
     assert sd._LIB_PATH == nk._BUILD_DIR / f"lib{sd.KERNEL_NAME}.so"
+    assert sd._LIBRARY.entry("sched_dense_occupancy").argtypes == sd._OCCUPANCY_ARGS
     consts = {name: int(re.search(rf"{name} = (\d+);", src).group(1))
-              for name in ("kThreads", "kMaxDays", "kMaxEmps", "kMaxTile", "kMaxCounts", "kPlanLen")}
-    assert consts == {"kThreads": sd.THREADS, "kMaxDays": sd.MAX_DAYS, "kMaxEmps": sd.MAX_EMPS,
-                      "kMaxTile": sd.MAX_TILE, "kMaxCounts": sd.MAX_COUNTS, "kPlanLen": sd.PLAN_LEN}
+              for name in ("kThreads", "kMinBlocks", "kMaxDays", "kMaxEmps", "kMaxSlices", "kMaxChunk", "kSmemMax",
+                           "kPlanLen", "kDayFields", "kSwapFields")}
+    assert consts == {"kThreads": sd.THREADS, "kMinBlocks": sd.BLOCKS_PER_SM, "kMaxDays": sd.MAX_DAYS,
+                      "kMaxEmps": sd.MAX_EMPS, "kMaxSlices": sd.MAX_SLICES, "kMaxChunk": sd.MAX_CHUNK,
+                      "kSmemMax": sd.SMEM_MAX, "kPlanLen": sd.PLAN_LEN, "kDayFields": sd.DAY_FIELDS,
+                      "kSwapFields": sd.SWAP_FIELDS}
+    assert "kListWords = kNp + 6" in src and "kNp = 3 * kLists" in src and "kLists = 9" in src
+    assert "hMix0, hMix1, hOwn0, hOwn1, kHashFields" in src and "kF3 = 0, kG4 = 1, kF2 = 2, kG3 = 3, kFlags = 4" in src
+    assert (sd.LIST_WORDS, sd.HASH_FIELDS, sd.FLAGS) == (3 * 9 + 6, 4, 4)
 
 
 def test_the_library_is_rebuilt_when_the_shared_header_is_newer(fake_toolchain):
