@@ -2,15 +2,15 @@
 """Smoke run of the PyTorch port (``constraint_solver_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py                # every phase
-    python3 chip_smoke.py --kernel-only  # phases 1 and 2 to 2g, no result line
+    python3 chip_smoke.py --kernel-only  # phases 1 and 2 to 2h, no result line
     python3 chip_smoke.py --k3-solves    # phase 1, then K3's launches over a solve of each N-Queens cell
 
 Phases, each printing its own lines; any failure raises and exits nonzero:
 
-1. builds the seven CUDA libraries from ``constraint_solver_tpu_torch/csrc``
+1. builds the eight CUDA libraries from ``constraint_solver_tpu_torch/csrc``
    (``nqueens_scores.cu``, ``nqueens_probes.cu``, ``qap_row_min.cu``,
-   ``fingerprint.cu``, ``block_pick.cu``, ``nqueens_move.cu`` and
-   ``sched_dense.cu``, one ``nvcc`` each, started together) and prints the card's name and power limit (``nvidia-smi``);
+   ``fingerprint.cu``, ``block_pick.cu``, ``nqueens_move.cu``,
+   ``sched_dense.cu`` and ``nqueens_sample.cu``, one ``nvcc`` each, started together) and prints the card's name and power limit (``nvidia-smi``);
    without a CUDA device it stops before printing any result;
 2. holds the kernel against its plain PyTorch version on the card, bit for bit,
    at the shapes the solvers give it (phase 13's sharded (128, 25, 1000) and
@@ -97,6 +97,21 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    its device-only time (its events in a profiler trace), the wrapper's host
    us, the wrapper and the plain version by CUDA events, the plain version's
    kernels a call, and the bound (bytes over 3.35 TB/s) with the share;
+2h. K6, the N-Queens column sample and the block's inputs
+   (``ops/nqueens_sample.py``, ``csrc/nqueens_sample.cu``), at both N-Queens
+   cells' (P, n, A) on random and near-solved boards, keys that tie
+   everywhere, no conflicted column, A = n, a ragged n and each branch of
+   its plan (survivors placed by rank or by the bitonic sort, the keys and
+   the survivors in global memory): every output equal to its plain
+   version's (the stable sort and the gathers); K7, the fingerprints of
+   N-Queens candidates (``nqueens_move_fp`` in ``ops/fingerprint.py``), at a
+   pick of both cells, the exact filter's [256, 50000] and [8, 192], int32
+   candidates through a stride and the last candidate: equal to its plain
+   version and to the chain it replaced (the decode, then K2a); both
+   replayed once in a CUDA graph; at the cells' shapes each one's
+   device-only time (its events in a profiler trace), the wrapper's host
+   us, the wrapper, the plain version and (K6) ``torch.topk`` or (K7) the
+   replaced chain by CUDA events, and the bound with the share;
 3. runs a few rounds of nqueens-64 with 8 lanes on the card and on the CPU from
    the same host-side draws, in both tabu modes: the states must be equal;
 4. drives the main path, ``PopulationSolver(make_nqueens_problem(1000), ...,
@@ -104,16 +119,16 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    best board has zero conflicts (cancelled at ``WALL_CAP_S``), then checks the
    board with an independent numpy count, every lane's carried counters against
    a rebuild from its board, the carried fingerprints against a full
-   recomputation by K2b and by the plain version, and that the kernel, K2a,
-   K2a's ring form, K2b, K3 and K4 were launched in the run;
+   recomputation by K2b and by the plain version, and that the kernel, K2a's
+   ring form, K2b, K3, K4, K6 and K7 were launched in the run;
 4b. the descent replayed as CUDA graphs (``core/graphed.py``, the solvers'
    default on the card) against the eager loop (the solvers' private
    ``_graphed=False``), from one seed, drawing on the card: nqueens-64 with 8
    lanes in both tabu modes, 3 chunks of 2 rounds, and the main path's
    ``run(chunk=2)`` to zero after a warm-up of each: the final state trees,
    the traces, ``stats()``, the generator's state and the launches of the
-   kernel, of K2a, its ring form and K2b, of K3 and of K4 must be equal, and
-   each must have launched; nqueens-512 P=8 with its retries in clusters;
+   kernel, of K2a, its ring form and K2b, of K3, K4, K6 and K7 must be
+   equal, and each but K2a must have launched; nqueens-512 P=8 with its retries in clusters;
    then nqueens-512 P=8 with its move written in place (K4) against the same
    problem with ``in_place`` stripped, both graphed: state bits, traces and
    ``stats()`` equal; it prints both walls, the capture time and both peak
@@ -191,8 +206,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
     random window until round 16: each program runs exactly in its rounds and
     the best equals the date-based rescore; (b) checkpoints on the card:
     2 rounds, save, load into a fresh solver, 2 rounds == 4 rounds straight,
-    for qap-1024 compact (K1 launched) and for the nqueens main path (K2a
-    and K2b launched in both);
+    for qap-1024 compact (K1, K2a and K2b launched) and for the nqueens main
+    path (K2b and K2's ring form launched, K6 and K7 counted on the path);
 12. the user surface on the card: the five CLIs run in this process with
     ``--device cuda``, each printed result checked apart (the nqueens board at
     n = 1000, P = 256 and PMC's board by the numpy attacking-pair count, the
@@ -203,12 +218,13 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
     request step their solvers at the same time (checked likewise), then a
     64-box diagram and its SVG; one main-path round under
     ``utils/profiling.trace``, whose Chrome trace must hold the kernel's
-    and K2's events (K2a, its ring form and K2b); and ``roofline()`` of the
+    and K6's, K7's, K2b's and K2a's ring form's events; and ``roofline()`` of the
     main path's solver, of a main-path solver after one round and of qap-4096
     incremental with 4 lanes: every share at most 1.05, the state unchanged,
     each kernel's counted bytes its bytes per call times its launches (B1
-    ``kernel_bytes``, K1 ``kernel_work``, K2 each launch plan's ``work``); the
-    nqueens and qap CLIs must launch K2a, its ring form and K2b;
+    ``kernel_bytes``, K1 ``kernel_work``, K6 ``kernel_work``, K2 and K7 each
+    launch plan's ``work``); the nqueens CLI must launch K7, K2's ring form
+    and K2b, the qap CLI K2a, its ring form and K2b;
 13. multi-device solving (``parallel/``): four ranks, spawned processes on the
     one card with the gloo backend, every mesh over all four, each sub-phase
     timed on every rank with its kernel launches (per shape), collectives and
@@ -239,8 +255,9 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
 
 Each path's kernel launches are counted from 0 just before it runs: B1's on the
 N-Queens paths, K1's on phases 4c, 8, 11b and the QAP CLI, K2a's, its ring
-form's and K2b's on phases 4, 4b, 4c, 8, 11b and the nqueens and QAP CLIs,
-K3's and K4's on phases 4, 4b, 4d, 11b, 12 and 14, K5's on phases 4c, 6, 7,
+form's and K2b's on phases 4, 4b, 4c, 8, 11b and the nqueens and QAP CLIs
+(K2a's not on the N-Queens paths, whose moves K7 fingerprints), K3's, K4's,
+K6's and K7's on phases 4, 4b, 4d, 11b, 12 and 14, K5's on phases 4c, 6, 7,
 11a and 12 (the scheduling CLI and the service), each of which must launch it.  The line before the
 last is a JSON object with each kernel's measurements; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -323,6 +340,14 @@ K5_EVENT = "sched_d"  # the start of every K5 kernel's name (sched_dense_kernel)
 K5_CALLS = 20  # timed calls of the wrapper (and of the plain version, a tenth as many)
 K5_REPLACES = ("constraint_solver_tpu/models/scheduling.py:594-884 (neighborhood_dense) with :454-555 "
                "(exact_move_deltas; XLA fusion, no Pallas call)")
+# Phase 2h: K6 (the N-Queens column sample and the block's inputs) and K7 (the
+# fingerprints of N-Queens candidates), their events in a profiler trace.
+K6_EVENT, K7_EVENT = "nqueens_sample", "fp_nq_move"
+K6_SHAPES = ((MAIN_P, MAIN_N, MAIN_A), (16, 16384, 64))  # (P, n, A) of the two N-Queens cells
+K6_REPLACES = ("constraint_solver_tpu/models/nqueens.py:196-238 (the Gumbel top-k sample around lax.top_k, "
+               "col_valid, r and removed) with :106-110 (_take_1d; XLA fusion, no Pallas call)")
+K7_REPLACES = ("constraint_solver_tpu/models/nqueens.py:365-373 (move_fp: the pick's decode and fp_update; "
+               "XLA fusion, no Pallas call)")
 
 
 def log(msg: str) -> None:
@@ -524,15 +549,19 @@ def phase_kernel(device) -> dict:
     }
 
 
+def bound_of(ops: int, nbytes: int) -> tuple[float, str]:
+    """The least ms on the card: bytes over 3.35 TB/s or operations over 67 T/s, the larger."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
 def probe_bound(name: str, shape) -> tuple[float, str]:
     """A probe's least time on the card, ms: the larger of its bytes over the
     HBM rate and its operations over the float32 rate (``probe_work``), and
     which of the two it is."""
     from constraint_solver_tpu_torch.ops import nqueens_probes as npr
 
-    ops, nbytes = npr.probe_work(name, *shape)
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+    return bound_of(*npr.probe_work(name, *shape))
 
 
 def assert_outputs_equal(want, got, what: str) -> None:
@@ -728,9 +757,7 @@ def k1_bound(p: int, n: int) -> tuple[float, str]:
     rate or its operations over the float32 rate, the larger), and which."""
     from constraint_solver_tpu_torch.ops import qap_row_min as qrm
 
-    ops, nbytes = qrm.kernel_work(p, n)
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+    return bound_of(*qrm.kernel_work(p, n))
 
 
 def assert_k1_equal(got, want, what: str) -> float:
@@ -826,11 +853,39 @@ def k2_launches() -> dict:
     return {name: wrapper.launches for name, wrapper in k2_wrappers().items()}
 
 
-def require_k2(launches: dict, what: str, kernels=("K2a", "K2b", "K2a-ring")) -> None:
-    """On the card, each of ``kernels`` must have launched."""
+def require_k2(launches: dict, what: str, kernels=None) -> None:
+    """On the card, each of ``kernels`` (by default K2a, K2b and K2a's ring form) must have launched."""
+    kernels = kernels or ("K2a", "K2b", "K2a-ring")
     missing = [k for k in kernels if launches[k] == 0]
     if missing:
         raise AssertionError(f"{what}: K2 ({', '.join(missing)}) never launched: {launches}")
+
+
+NQ_K2 = ("K2b", "K2a-ring")  # K2's kernels on the N-Queens paths, whose moves' fingerprints K7 writes
+
+
+def k67_wrappers() -> dict:
+    """K6's and K7's counted wrappers."""
+    from constraint_solver_tpu_torch.ops import fingerprint as fpk
+    from constraint_solver_tpu_torch.ops import nqueens_sample as ns
+
+    return {"K6": ns.nqueens_sample, "K7": fpk.nqueens_move_fp}
+
+
+def k67_reset() -> None:
+    for wrapper in k67_wrappers().values():
+        wrapper.launches = 0
+
+
+def k67_launches() -> dict:
+    return {name: wrapper.launches for name, wrapper in k67_wrappers().items()}
+
+
+def require_k67(launches: dict, what: str) -> None:
+    """On the card, K6 and K7 must have launched."""
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"{what}: {', '.join(missing)} never launched: {launches}")
 
 
 def require_k3(pair: dict, what: str) -> None:
@@ -1067,8 +1122,7 @@ def phase_k2(device, cases=None) -> list:
         with roofline.counting() as count:
             fn(*args)
         work = count.kernels[names[kernel]]
-        by_bytes, by_ops = work["bytes"] / HBM_BYTES_PER_S * 1e3, work["flops"] / FP32_OPS_PER_S * 1e3
-        bound, by = max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+        bound, by = bound_of(work["flops"], work["bytes"])
         if not is_cuda(device):
             per[kernel][label] = {"bound_ms": bound, "bound_by": by, "bytes": work["bytes"], "operations": work["flops"]}
             continue
@@ -1319,8 +1373,7 @@ def phase_k3(device, cases=None) -> dict:
         p, r, c = args[0].shape
         e = 0 if args[4] is None else args[4].shape[1]
         ops, nbytes = bp.kernel_work(p, r, c, e, rescanned)
-        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-        bound, by = max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+        bound, by = bound_of(ops, nbytes)
         entry = {"bound_ms": bound, "bound_by": by, "bytes": nbytes, "operations": ops, "rescanned": rescanned,
                  "plan": plan}
         per[label] = entry
@@ -1578,8 +1631,7 @@ def phase_k4(device, cases=None) -> dict:
             label = case.label + (f" S={slices}" if slices else "")
             st, moves, idx, mask, best, save = case.state, case.moves, case.idx, case.mask, case.best, case.save
             ops, nbytes = nm.move_work(st, moves, idx, mask, best, save)
-            by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-            bound, by = max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+            bound, by = bound_of(ops, nbytes)
             use = nm._launch_plan(p, n, sms, slices)
             entry = per[label] = {"bound_ms": bound, "bound_by": by, "bytes": nbytes, "operations": ops,
                                   "masked": masked, "saved": max(saved, 0), "slices": use.slices,
@@ -1820,8 +1872,7 @@ def phase_k5(device, cases=None) -> dict:
         if not case.timed:
             continue
         ops, nbytes = sd.kernel_work(p, d, e, n_rand, n_off)
-        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-        bound, by = max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+        bound, by = bound_of(ops, nbytes)
         entry = per[case.label] = {"bound_ms": bound, "bound_by": by, "bytes": nbytes, "operations": ops,
                                    "plan": plan}
         if not is_cuda(device):
@@ -1866,6 +1917,277 @@ def phase_k5(device, cases=None) -> dict:
         "plan": plans,
         "shapes": per,
     }
+
+
+class K6Case(NamedTuple):
+    label: str
+    args: tuple  # nqueens_sample's: (cs, table, gumbel, num_cols, n_conflicted, rows, rc, dc, ac, a)
+    timed: bool
+
+
+def near_solved(rng, p: int, n: int, moved: int):
+    """Solved boards (the even-n construction, valid for n % 6 in {0, 4}) with
+    ``moved`` queens a lane put on random rows: a few conflicted columns, as
+    late in a solve."""
+    sol = np.array([2 * i + 1 for i in range(n // 2)] + [2 * i for i in range(n // 2)])
+    boards = np.tile(sol, (p, 1))
+    for b in boards:
+        b[rng.choice(n, moved, replace=False)] = rng.integers(0, n, moved)
+    return boards
+
+
+def k6_args(rng, boards, a: int, device, kind: str = "gumbel") -> tuple:
+    """K6's arguments for the boards [P, n]: their counters, the default log
+    table, Gumbel draws (or, with ``kind="ties"``, small integers as draws and
+    column scores in {0, 1, 2}: keys tie everywhere, at the threshold too) and
+    num_cols uniform in [1, clamp(n_conflicted, 1, A)], as the draws make them."""
+    import torch
+
+    from constraint_solver_tpu_torch.models.nqueens import build_state, default_log_weights
+
+    p, n = boards.shape
+    st = build_state(torch.as_tensor(boards, device=device))
+    cs = st.cs
+    if kind == "ties":
+        gumbel = torch.as_tensor(rng.integers(-2, 3, size=(p, n)), dtype=torch.float32, device=device)
+        cs = torch.as_tensor(rng.integers(0, 3, size=(p, n)), dtype=torch.float32, device=device)
+    else:
+        gumbel = torch.as_tensor(-np.log(-np.log(rng.random((p, n)).clip(1e-38))), dtype=torch.float32,
+                                 device=device)
+    n_conflicted = (cs > 0).sum(dim=-1)
+    hi = n_conflicted.clamp(1, a).cpu().numpy()
+    num_cols = torch.as_tensor(rng.integers(1, hi + 1), device=device)
+    return (cs, default_log_weights(n).to(device), gumbel, num_cols, n_conflicted, st.rows, st.rc, st.dc, st.ac, a)
+
+
+def k6_cases(device) -> list:
+    """``K6Case``s: both N-Queens cells' (P, n, A) on random boards (nearly
+    every column conflicted) and on near-solved ones (fewer conflicted columns
+    than A: the -inf tail ties at the threshold), keys that tie everywhere,
+    boards with no conflicted column, A = n, n not a multiple of 32, and each
+    branch of the plan at shapes where the plan takes it: the survivors
+    placed by rank (A up to 256) or by the bitonic sort (above), the keys in
+    global memory (n = 60,000), the survivors too (A = 20,000)."""
+    rng = np.random.default_rng(26)
+    cases = []
+    for p, n, a in K6_SHAPES:
+        cases.append(K6Case(f"random {(p, n, a)}", k6_args(rng, rng.integers(0, n, (p, n)), a, device), True))
+        cases.append(K6Case(f"near solved {(p, n, a)}", k6_args(rng, near_solved(rng, p, n, 8), a, device), True))
+    for label, (p, n, a), kind in (
+        ("ties", (64, 1000, 50), "ties"),
+        ("ties", (4, 16384, 64), "ties"),
+        ("no conflicted column", (8, 1000, 50), "solved"),
+        ("A = n", (4, 64, 64), "gumbel"),
+        ("ragged", (5, 1003, 50), "gumbel"),
+        ("bitonic sort", (64, 1000, 300), "gumbel"),
+        ("bitonic sort, ties", (4, 16384, 300), "ties"),
+        ("keys in global memory", (2, 60000, 50), "gumbel"),
+        ("keys in global memory, bitonic sort", (2, 60000, 3000), "gumbel"),
+        ("survivors in global memory", (1, 40000, 20000), "gumbel"),
+        ("keys and survivors in global memory, ties", (1, 60000, 20000), "ties"),
+    ):
+        boards = near_solved(rng, p, n, 0) if kind == "solved" else rng.integers(0, n, (p, n))
+        cases.append(K6Case(f"{label} {(p, n, a)}", k6_args(rng, boards, a, device, kind), False))
+    return cases
+
+
+def k6_equal(got, want) -> bool:
+    """Every output of two ``Sample``s equal with its dtype."""
+    import torch
+
+    return all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(got, want, strict=True))
+
+
+class K7Case(NamedTuple):
+    label: str
+    args: tuple  # nqueens_move_fp's: (cur_fp, cols, rows, idx)
+    timed: bool
+
+
+def k7_cases(device) -> list:
+    """``K7Case``s: a pick [P] at both N-Queens cells' (P, A, n), the exact
+    filter's [P, A·n] (an expanded iota) at the headline's and at nqueens-64's
+    (8, 3, 64), int32 candidates read through a stride, and picks of the last
+    candidate of every lane."""
+    import torch
+
+    rng = np.random.default_rng(27)
+    cases = []
+
+    def lane_args(p, a, n):
+        cur = torch.as_tensor(rng.integers(0, 2**32, (p, 2)), device=device)
+        cols = torch.as_tensor(np.argsort(rng.random((p, n)), axis=1)[:, :a], device=device).contiguous()
+        rows = torch.as_tensor(rng.integers(0, n, (p, n)), device=device)
+        return cur, cols, rows
+
+    for p, n, a in K6_SHAPES:
+        cur, cols, rows = lane_args(p, a, n)
+        idx = torch.as_tensor(rng.integers(0, a * n, p), device=device)
+        cases.append(K7Case(f"pick [{p}] at {(p, a, n)}", (cur, cols, rows, idx), True))
+    for p, a, n, timed in ((MAIN_P, MAIN_A, MAIN_N, True), (8, 3, 64, False)):
+        cur, cols, rows = lane_args(p, a, n)
+        idx = torch.arange(a * n, device=device).expand(p, a * n)
+        cases.append(K7Case(f"exact filter [{p}, {a * n}] at {(p, a, n)}", (cur, cols, rows, idx), timed))
+    cur, cols, rows = lane_args(6, 5, 37)
+    idx = torch.as_tensor(rng.integers(0, 5 * 37, (6, 22)), dtype=torch.int32, device=device)[:, ::2]
+    cases.append(K7Case("int32 candidates through a stride [6, 11] at (6, 5, 37)", (cur, cols, rows, idx), False))
+    cur, cols, rows = lane_args(3, 4, 9)
+    cases.append(K7Case("the last candidate [3] at (3, 4, 9)",
+                        (cur, cols, rows, torch.full((3,), 4 * 9 - 1, device=device)), False))
+    return cases
+
+
+def k7_chain(cur_fp, cols, rows, idx):
+    """What the N-Queens model ran for a pick's fingerprint before K7: the
+    decode (two divisions, two gathers) and ``fp_update`` (K2a on the card)."""
+    from constraint_solver_tpu_torch.ops import fingerprint as fpk
+
+    return fpk.nqueens_move_fp_ref(cur_fp, cols, rows, idx, update=fpk.fp_update)
+
+
+def k67_graph_replay(device, k6: K6Case, k7: K7Case) -> None:
+    """K6 and K7 captured in one CUDA graph and replayed once: one launch of
+    each counted at the replay, none at the capture, and both outputs written
+    as the plain versions write them."""
+    import torch
+
+    from constraint_solver_tpu_torch.core import graphed
+    from constraint_solver_tpu_torch.ops import fingerprint as fpk
+    from constraint_solver_tpu_torch.ops import nqueens_sample as ns
+
+    want6, want7 = ns.nqueens_sample_ref(*k6.args), fpk.nqueens_move_fp_ref(*k7.args)
+    before = (ns.nqueens_sample.launches, fpk.nqueens_move_fp.launches)
+    seg = graphed.capture(lambda: (ns.nqueens_sample(*k6.args), fpk.nqueens_move_fp(*k7.args)),
+                          torch.cuda.CUDAGraph(), torch.cuda.Stream(device))
+    captured = sum(seg.launches.values())
+    got6, got7 = seg.out
+    for t in (*got6, got7):
+        t.zero_()
+    seg.replay()
+    sync(device)
+    after = (ns.nqueens_sample.launches - before[0], fpk.nqueens_move_fp.launches - before[1])
+    if captured != 2 or after != (1, 1) or not k6_equal(got6, want6) or not torch.equal(got7, want7):
+        raise AssertionError(f"phase 2h: K6 and K7 in a CUDA graph: {captured} launches captured, {after} counted "
+                             f"for 1 replay, equal {k6_equal(got6, want6)} and {torch.equal(got7, want7)}")
+
+
+def time_pair(kernel, plain, args, event: str, calls: int = TIMED_LAUNCHES, yardsticks=None) -> dict:
+    """The wrapper ``kernel`` against ``plain`` on ``args``: the kernel's
+    device-only ms per launch (its events in a profiler trace), the wrapper's
+    host us, the wrapper and the plain version by CUDA events in turns (plain,
+    kernel, kernel, plain), the plain version's device work in a trace of one
+    call, and each of ``yardsticks`` (name -> (fn, args)) by CUDA events."""
+    for f in (kernel, plain):
+        time_ms(f, args, 2)  # warm-up
+    dev, how = device_ms(kernel, args, calls, event)
+    plain_ms = [time_ms(plain, args, calls)]
+    kern = [time_ms(kernel, args, calls) for _ in range(2)]
+    plain_ms.append(time_ms(plain, args, calls))
+    out = {"ms": sum(kern) / 2, "ms_runs": kern, "device_ms": dev, "device_ms_from": how,
+           "host_us": min(host_us(kernel, args, calls) for _ in range(2)), "plain_ms": sum(plain_ms) / 2,
+           "plain_ms_runs": plain_ms, "plain_device_work": eager_chain_kernels(plain, args)}
+    for name, (fn, fn_args) in (yardsticks or {}).items():
+        time_ms(fn, fn_args, 2)
+        out[f"{name}_ms"] = sum(time_ms(fn, fn_args, calls) for _ in range(2)) / 2
+        out[f"{name}_device_work"] = eager_chain_kernels(fn, fn_args)
+    return out
+
+
+def phase_k67(device) -> tuple[dict, dict]:
+    """2h. K6, the N-Queens column sample and the block's inputs, against its
+    plain version (the eager chain with its stable sort) bit for bit at
+    ``k6_cases``, which take every branch of its plan; K7, the fingerprints of
+    N-Queens candidates, against its plain version (the decode, then
+    ``fp_update``) bit for bit at ``k7_cases``; both captured in one CUDA
+    graph and replayed once.  Then at the timed cases each one's device-only
+    ms per launch (its events in a ``torch.profiler`` trace), the wrapper's
+    host us, the wrapper and the plain version by CUDA events, the plain
+    version's device work a call, and the bound (``kernel_work`` / the plan's
+    ``work``: bytes over 3.35 TB/s or operations over 67 T/s, the larger) with
+    the share; for K6 also ``torch.topk(keys, A, sorted=True)`` on the keys
+    (the library call that computes the same top A, though it promises no
+    order among ties), and for K7 the chain the model ran before it (the
+    decode, then K2a).  Returns K6's and K7's entries of the kernels line
+    (main cases: random boards at the headline, and the headline's pick;
+    launches filled in by the paths)."""
+    import torch
+
+    from constraint_solver_tpu_torch.ops import fingerprint as fpk
+    from constraint_solver_tpu_torch.ops import nqueens_sample as ns
+
+    t0 = time.time()
+    card = card_line() if is_cuda(device) else "cpu"
+    k6, k7 = k6_cases(device), k7_cases(device)
+    per6, per7, plans, err6 = {}, {}, {}, 0.0
+    for case in k6:
+        cs, *_, a = case.args
+        p, n = cs.shape
+        want = ns.nqueens_sample_ref(*case.args)
+        got = ns.nqueens_sample(*case.args)
+        sync(device)
+        if not k6_equal(got, want):
+            bad = [f for f, x, y in zip(ns.Sample._fields, got, want) if not torch.equal(x, y)]
+            raise AssertionError(f"phase 2h: K6 != its plain version ({case.label}): {bad}")
+        err6 = max(err6, *(float((x.double() - y.double()).abs().max()) for x, y in zip(got, want)))
+        plan = plans[case.label] = ns._launch_plan(p, n, a)._asdict()
+        conflicted = int(case.args[4].min()), int(case.args[4].max())
+        log(f"phase 2h: K6 == plain version bit for bit at {case.label} (conflicted columns a lane "
+            f"{conflicted[0]}-{conflicted[1]}); plan {plan}")
+        if not case.timed:
+            continue
+        bound, by = bound_of(*ns.kernel_work(p, n, a))
+        entry = per6[case.label] = {"bound_ms": bound, "bound_by": by, "plan": plan}
+        if not is_cuda(device):
+            continue
+        table, gumbel = case.args[1], case.args[2]
+        keys = torch.where(cs > 0, table[cs.long()], -torch.inf) + gumbel
+        entry.update(time_pair(ns.nqueens_sample, ns.nqueens_sample_ref, case.args, K6_EVENT,
+                               yardsticks={"library": (lambda k: torch.topk(k, a, dim=-1, sorted=True), (keys,))}))
+        entry["bound_share"] = bound / entry["device_ms"]
+        log(f"phase 2h: K6 at {case.label}: {entry['ms_runs']} ms by CUDA events, plain version "
+            f"{entry['plain_ms_runs']} ms ({entry['plain_device_work']} a call), torch.topk {entry['library_ms']} ms; "
+            f"device-only {entry['device_ms'] * 1e3:.3f} us ({entry['device_ms_from']}); host "
+            f"{entry['host_us']:.1f} us; bound {bound * 1e3:.4f} us ({by}), share {entry['bound_share']:.3f}; {card}")
+    branches = {(plan["keys_shared"], plan["cands_shared"], plan["rank_sort"]) for plan in plans.values()}
+    if len(branches) != 6:
+        raise AssertionError(f"phase 2h: K6's cases take {len(branches)} of its plan's six branches: {branches}")
+    err7 = 0.0
+    for case in k7:
+        want = fpk.nqueens_move_fp_ref(*case.args)
+        got = fpk.nqueens_move_fp(*case.args)
+        sync(device)
+        if got.dtype != torch.int64 or not torch.equal(got, want):
+            raise AssertionError(f"phase 2h: K7 != its plain version ({case.label})")
+        if not torch.equal(k7_chain(*case.args), want):
+            raise AssertionError(f"phase 2h: K7's plain version != the chain it replaces ({case.label})")
+        err7 = max(err7, float((got - want).abs().max()))
+        log(f"phase 2h: K7 == plain version == the decode and K2a bit for bit at {case.label}")
+        if not case.timed:
+            continue
+        cur, cols, rows, idx = case.args
+        flat = idx[:, None] if idx.dim() == 1 else idx
+        work = fpk._nq_move_plan(*((t.shape, t.stride(), t.dtype) for t in (cur, cols, rows, flat))).work
+        bound, by = bound_of(*work)
+        entry = per7[case.label] = {"bound_ms": bound, "bound_by": by}
+        if not is_cuda(device):
+            continue
+        entry.update(time_pair(fpk.nqueens_move_fp, fpk.nqueens_move_fp_ref, case.args, K7_EVENT,
+                               yardsticks={"chain": (k7_chain, case.args)}))
+        entry["bound_share"] = bound / entry["device_ms"]
+        log(f"phase 2h: K7 at {case.label}: {entry['ms_runs']} ms by CUDA events, plain version "
+            f"{entry['plain_ms_runs']} ms, the decode and K2a {entry['chain_ms']} ms ({entry['chain_device_work']} "
+            f"a call); device-only {entry['device_ms'] * 1e3:.3f} us ({entry['device_ms_from']}); host "
+            f"{entry['host_us']:.1f} us; bound {bound * 1e3:.4f} us ({by}), share {entry['bound_share']:.3f}; {card}")
+    if is_cuda(device):
+        k67_graph_replay(device, k6[0], k7[0])
+        log(f"phase 2h: K6 at {k6[0].label} and K7 at {k7[0].label} replayed once in a CUDA graph: one launch "
+            f"of each counted at the replay, both outputs bit for bit")
+    log(f"phase 2h: {time.time() - t0:.1f} s")
+    six = {"name": ns.KERNEL_NAME, "route": "cuda", "source": "constraint_solver_tpu_torch/csrc/nqueens_sample.cu",
+           "replaces": K6_REPLACES, "max_abs_err": err6, **per6[k6[0].label], "plan": plans, "shapes": per6}
+    seven = {"name": fpk.NQ_MOVE_KERNEL, "route": "cuda", "source": "constraint_solver_tpu_torch/csrc/fingerprint.cu",
+             "replaces": K7_REPLACES, "max_abs_err": err7, **per7[k7[0].label], "library_ms": None, "shapes": per7}
+    return six, seven
 
 
 def run_rounds(device, exact, chunks=3):
@@ -1954,6 +2276,7 @@ def phase_main(device, n=MAIN_N, population=MAIN_P, wall_cap=WALL_CAP_S):
 
     nk.nqueens_neighborhood_scores.launches = bp.block_pick.launches = nm.nqueens_move.launches = 0
     k2_reset()
+    k67_reset()
     s = solver()
     timer = threading.Timer(wall_cap, s.cancel)
     timer.start()
@@ -1966,7 +2289,7 @@ def phase_main(device, n=MAIN_N, population=MAIN_P, wall_cap=WALL_CAP_S):
         timer.cancel()
         timer.join()
     launches, k3, k4 = nk.nqueens_neighborhood_scores.launches, bp.block_pick.launches, nm.nqueens_move.launches
-    k2 = k2_launches()
+    k2, k67 = k2_launches(), k67_launches()
     stats = s.stats()
     (hard, soft), best = s.get_best_solution()
     if hard != 0:
@@ -1978,7 +2301,7 @@ def phase_main(device, n=MAIN_N, population=MAIN_P, wall_cap=WALL_CAP_S):
     for name, want in zip(("rc", "dc", "ac", "cs"), numpy_counts(cur.rows.cpu().numpy())):
         if not np.array_equal(getattr(cur, name).cpu().numpy(), want):
             raise AssertionError(f"carried {name} differs from a rebuild from the boards")
-    # Carried fingerprints (K2a's updates) against a full recomputation by K2b and by the plain version.
+    # Carried fingerprints (K7's updates) against a full recomputation by K2b and by the plain version.
     for full in (fingerprint_i32, fingerprint_i32_ref):
         if not torch.equal(s.state.current_fp, full(cur.rows)):
             raise AssertionError(f"carried fingerprints differ from a full recomputation ({full.__name__})")
@@ -1988,7 +2311,8 @@ def phase_main(device, n=MAIN_N, population=MAIN_P, wall_cap=WALL_CAP_S):
     if torch.device(device).type == "cuda":
         if launches == 0:
             raise AssertionError("the main path never launched the kernel")
-        require_k2(k2, "phase 4: the main path")
+        require_k2(k2, "phase 4: the main path", NQ_K2)
+        require_k67(k67, "phase 4: the main path")
         if k3 == 0:
             raise AssertionError("the main path never launched K3 (block_pick)")
         if k4 == 0:
@@ -1997,9 +2321,10 @@ def phase_main(device, n=MAIN_N, population=MAIN_P, wall_cap=WALL_CAP_S):
         f"phase 4: nqueens-{n} P={population} solved: time to zero {ttz:.3f} s, "
         f"{stats['rounds']} rounds, {stats['ls_iterations']} descent iterations, "
         f"moves/s {stats.get('moves_per_sec')}, kernel launches {launches}, K2 launches {k2}, K3 launches {k3}, "
-        f"K4 launches {k4}"
+        f"K4 launches {k4}, K6 and K7 launches {k67}"
     )
-    return {"ttz_s": ttz, "launches": launches, "k2_launches": k2, "k3_launches": k3, "k4_launches": k4, **stats}, s
+    return {"ttz_s": ttz, "launches": launches, "k2_launches": k2, "k3_launches": k3, "k4_launches": k4,
+            "k67_launches": k67, **stats}, s
 
 
 def card_line() -> str:
@@ -2014,7 +2339,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
     """4b's and 4c's comparison: ``drive`` on an eager solver (``_graphed=False``)
     and on a graphed one, each from ``make(graphed)``; the final state trees,
     what ``drive`` returns (the traces), ``stats()``, the generator's state and
-    the launches of B1, of K1, of K2a and K2b, of K3, of K4 and of K5 must be equal.  Each side's wall, its peak
+    the launches of B1, of K1, of K2a and K2b, of K3, of K4, of K5, of K6 and of K7 must be equal.  Each side's wall, its peak
     memory, and the graphed side's capture time."""
     import torch
 
@@ -2034,7 +2359,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
             torch.cuda.reset_peak_memory_stats(device)
         launches0, k1_launches0 = nk.nqueens_neighborhood_scores.launches, qrm.qap_swap_row_min.launches
         k2_0, k3_0, k3_shapes0 = k2_launches(), bp.block_pick.launches, Counter(bp.block_pick.shapes)
-        k4_0, k5_0 = nm.nqueens_move.launches, sd.sched_dense.launches
+        k4_0, k5_0, k67_0 = nm.nqueens_move.launches, sd.sched_dense.launches, k67_launches()
         s = make(graphed)
         sync(device)
         t0 = time.time()
@@ -2054,6 +2379,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
                           if v != k3_shapes0[k]},
             "k4_launches": nm.nqueens_move.launches - k4_0,
             "k5_launches": sd.sched_dense.launches - k5_0,
+            "k67_launches": {k: v - k67_0[k] for k, v in k67_launches().items()},
             "peak_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
             "reserved_bytes": torch.cuda.memory_reserved(device) if cuda else None,
             "capture_s": graphs.capture_s if graphs is not None else None,
@@ -2064,7 +2390,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
     if not np.array_equal(np.asarray(graph["result"]), np.asarray(eager["result"])):
         raise AssertionError(f"phase {label}: graphed and eager traces differ")
     for key in ("stats", "launches", "k1_launches", "k2_launches", "k3_launches", "k3_shapes", "k4_launches",
-                "k5_launches"):
+                "k5_launches", "k67_launches"):
         if graph[key] != eager[key]:
             raise AssertionError(f"phase {label}: graphed and eager {key} differ: {graph[key]} != {eager[key]}")
     if not torch.equal(graph["generator"], eager["generator"]):
@@ -2073,6 +2399,7 @@ def graphs_pair(device, make, drive, label="4b") -> dict:
         raise AssertionError(f"phase {label}: the graphed solver made {graph['units']} graphed descents, not 1")
     return {side: {k: v[k] for k in ("wall_s", "peak_bytes", "reserved_bytes", "capture_s", "launches", "k1_launches",
                                      "k2_launches", "k3_launches", "k3_shapes", "k4_launches", "k5_launches",
+                                     "k67_launches",
                                      "stats")}
             for side, v in (("eager", eager), ("graphed", graph))}
 
@@ -2115,7 +2442,8 @@ def phase_graphs(device, n=MAIN_N, population=MAIN_P, small_n=64, small_p=8, clu
             lambda s: np.concatenate([s.execute_chunk_traced(2) for _ in range(3)]),
         )
         if is_cuda(device):
-            require_k2(out[mode]["graphed"]["k2_launches"], f"phase 4b: nqueens-{small_n} ({mode})")
+            require_k2(out[mode]["graphed"]["k2_launches"], f"phase 4b: nqueens-{small_n} ({mode})", NQ_K2)
+            require_k67(out[mode]["graphed"]["k67_launches"], f"phase 4b: nqueens-{small_n} ({mode})")
             require_k3(out[mode], f"phase 4b: nqueens-{small_n} ({mode})")
             require_k4(out[mode], f"phase 4b: nqueens-{small_n} ({mode})")
         log(f"phase 4b: nqueens-{small_n} P={small_p} ({mode}): graphed == eager (state, traces, stats, "
@@ -2148,7 +2476,8 @@ def phase_graphs(device, n=MAIN_N, population=MAIN_P, small_n=64, small_p=8, clu
     main = out["main"] = graphs_pair(device, make, solve)
     eager, graph = main["eager"], main["graphed"]
     if is_cuda(device):
-        require_k2(graph["k2_launches"], f"phase 4b: nqueens-{n}")
+        require_k2(graph["k2_launches"], f"phase 4b: nqueens-{n}", NQ_K2)
+        require_k67(graph["k67_launches"], f"phase 4b: nqueens-{n}")
         require_k3(main, f"phase 4b: nqueens-{n}")
         require_k4(main, f"phase 4b: nqueens-{n}")
     log(f"phase 4b: nqueens-{n} P={population} run(chunk=2) to zero: graphed == eager (state, stats, generator, "
@@ -2555,8 +2884,8 @@ def phase_pmc(device, n=PMC_N, max_steps=5000, check_n=64, small=(64, 4), sample
     (the eager loop, by the rule), then graphed against eager, drawing on the
     device: nqueens-``small[0]`` with ``small[1]`` lanes, the nqueens-n solve
     after a warm-up and nqueens-n with ``sampled[0]`` columns for
-    ``sampled[1]`` steps, each with a profiled stretch of ``stretch`` steps on
-    the card."""
+    ``sampled[1]`` steps (its column sample one K6 launch a step), each with
+    a profiled stretch of ``stretch`` steps on the card."""
     import torch
 
     from constraint_solver_tpu_torch.models.nqueens_parallel import pmc_solve
@@ -3342,7 +3671,7 @@ def phase_checkpoint(device, qap_n=1024, qap_p=16, nq_n=MAIN_N, nq_p=MAIN_P) -> 
         raise AssertionError(f"phase 11b: a checkpoint run never launched its kernel: {out}")
     if is_cuda(device):
         for name in out:
-            require_k2(out[name]["k2_launches"], f"phase 11b: {name}")
+            require_k2(out[name]["k2_launches"], f"phase 11b: {name}", NQ_K2 if name == "nqueens" else None)
     return out
 
 
@@ -3397,8 +3726,9 @@ def parse_board(text: str, n: int) -> np.ndarray:
 def cli_nqueens(device, argv, n, label) -> dict:
     from constraint_solver_tpu_torch.cli import nqueens
 
+    k7_0 = k67_launches()["K7"]
     rc, text, wall, launches = run_cli(nqueens, argv, device)
-    k2 = k2_launches()
+    k2, k7 = k2_launches(), k67_launches()["K7"] - k7_0
     rows = parse_board(text, n)
     score = int(printed(text, "result.score:"))
     pairs = attacking_pairs(rows)
@@ -3407,10 +3737,12 @@ def cli_nqueens(device, argv, n, label) -> dict:
     if is_cuda(device) and launches == 0:
         raise AssertionError(f"phase 12 {label}: the CLI never launched the kernel")
     if is_cuda(device) and "pmc" not in argv:  # min-conflicts keeps no fingerprints
-        require_k2(k2, f"phase 12 {label}")
+        require_k2(k2, f"phase 12 {label}", NQ_K2)
+        require_k67({"K7": k7}, f"phase 12 {label}")
     log(f"phase 12 {label}: {' '.join(argv)}: score {score} == 2 x numpy attacking pairs; wall {wall:.3f} s; "
-        f"kernel launches {launches}, K2 {k2}; {printed(text, 'stats:')}")
-    return {"score": score, "wall_s": wall, "launches": launches, "k2_launches": k2, "stats": printed(text, "stats:")}
+        f"kernel launches {launches}, K2 {k2}, K7 {k7}; {printed(text, 'stats:')}")
+    return {"score": score, "wall_s": wall, "launches": launches, "k2_launches": k2, "k7_launches": k7,
+            "stats": printed(text, "stats:")}
 
 
 def cli_scheduling(device, days=31, emps=7, population=64, rounds=5) -> dict:
@@ -3597,7 +3929,8 @@ def phase_serve(device, nq_n=MAIN_N, rounds=3, boxes=64, edges=96, grid=32, max_
 
 def phase_trace(device, n=MAIN_N, population=MAIN_P) -> dict:
     """One nqueens-n round under ``utils/profiling.trace``: the Chrome trace
-    holds the kernel's events and the ``annotate`` span."""
+    holds the kernel's events, K6's, K7's, K2b's and K2a's ring form's, and the
+    ``annotate`` span."""
     import glob
     import os
 
@@ -3621,12 +3954,12 @@ def phase_trace(device, n=MAIN_N, population=MAIN_P) -> dict:
     os.remove(path)  # some 200 MB for a main-path round
     kernel_events = sum(c for name, c in names.items() if KERNEL_EVENT in name)
     k2_events = {event: sum(c for name, c in names.items() if event in name)
-                 for event in (K2A_EVENT, K2B_EVENT, K2P_EVENT)}
+                 for event in (K6_EVENT, K7_EVENT, K2B_EVENT, K2P_EVENT)}
     if (is_cuda(device) and (kernel_events == 0 or 0 in k2_events.values())) or names["smoke-round"] == 0:
-        raise AssertionError(f"phase 12 trace: {kernel_events} kernel events, K2 {k2_events}, "
+        raise AssertionError(f"phase 12 trace: {kernel_events} kernel events, K2, K6 and K7 {k2_events}, "
                              f"{names['smoke-round']} spans in {path}")
     log(f"phase 12 trace: one nqueens-{n} P={population} round traced in {wall:.3f} s: {kernel_events} "
-        f"{KERNEL_EVENT} events, K2 {k2_events}, {sum(names.values())} events in all, {size} bytes")
+        f"{KERNEL_EVENT} events, K2, K6 and K7 {k2_events}, {sum(names.values())} events in all, {size} bytes")
     return {"kernel_events": kernel_events, "k2_events": k2_events, "events": sum(names.values()), "wall_s": wall}
 
 
@@ -3634,24 +3967,30 @@ def checked_roofline(solver, label, kernel_shape=None, k1_shape=None) -> dict:
     """``solver.roofline()`` with every share at most 1.05, the solver's state
     unchanged, and each kernel's counted calls equal to its launches in the
     chunk and its counted bytes to its bytes per call (B1 ``kernel_bytes(
-    *kernel_shape)``, K1 ``kernel_work(*k1_shape)``) times them; K2a's, its
-    ring form's and K2b's to the sum of each launch plan's ``work`` bytes times
-    its launches.
+    *kernel_shape)``, K1 ``kernel_work(*k1_shape)``, K6 ``kernel_work`` at
+    the N-Queens shape) times them; K2a's, its ring form's, K2b's and K7's to
+    the sum of each launch plan's ``work`` bytes times its launches.  An
+    N-Queens solver (``kernel_shape`` given) must count K6, K7, K2b and the
+    ring form, any other K2a, K2b and the ring form.
     A solved solver's chunk runs from a fresh initial state, made outside the
     count, whose fingerprint launches K2b: there K2's counted calls and bytes
     may fall short of the launched ones, never exceed them."""
     from constraint_solver_tpu_torch.ops import fingerprint as fpk
     from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
+    from constraint_solver_tpu_torch.ops import nqueens_sample as ns
     from constraint_solver_tpu_torch.ops import qap_row_min as qrm
     from constraint_solver_tpu_torch.utils.convert import to_reference
     from constraint_solver_tpu_torch.utils.roofline import format_roofline
 
     before = to_reference(solver.state)
+    k6_bytes = kernel_shape and ns.kernel_work(kernel_shape[0], kernel_shape[2], kernel_shape[1])[1]
     kernels = {nk.KERNEL_NAME: (nk.nqueens_neighborhood_scores, kernel_shape and kernel_bytes(*kernel_shape)),
                qrm.KERNEL_NAME: (qrm.qap_swap_row_min, k1_shape and qrm.kernel_work(*k1_shape)[1])}
     for wrapper, _ in kernels.values():
         wrapper.launches = 0
     k2_reset()
+    # K6's and K7's counters are the paths' (not reset): their launches in the chunk are differences.
+    k6_0, k7_0 = ns.nqueens_sample.launches, (fpk.nqueens_move_fp.launches, Counter(fpk.nqueens_move_fp.shapes))
     r = solver.roofline()
     assert_tree_equal(before, to_reference(solver.state))
     shares = {k: r[k] for k in ("mfu_bf16", "mfu_f32", "hbm_frac")}
@@ -3666,19 +4005,30 @@ def checked_roofline(solver, label, kernel_shape=None, k1_shape=None) -> dict:
         if kern["calls"] and kern["bytes"] != per_call * kern["calls"]:
             raise AssertionError(f"phase 12 roofline {label}: {name} bytes {kern['bytes']} != "
                                  f"{per_call} x {kern['calls']}")
+    kern = counted[ns.KERNEL_NAME] = r["kernels"].get(ns.KERNEL_NAME, {"calls": 0, "bytes": 0})
+    k6 = ns.nqueens_sample.launches - k6_0
+    if is_cuda(solver.device) and ((kernel_shape and kern["calls"] == 0) or kern["calls"] != k6
+                                   or (kern["calls"] and kern["bytes"] != k6_bytes * kern["calls"])):
+        raise AssertionError(f"phase 12 roofline {label}: K6 counted {kern['calls']} calls and {kern['bytes']} "
+                             f"bytes, launched {k6} of {k6_bytes} bytes each")
+    required = {fpk.NQ_MOVE_KERNEL} if kernel_shape else {fpk.HASH_KERNEL}
+    required |= {fpk.ROWS_KERNEL, fpk.PROBE_KERNEL}
     for name, wrapper in ((fpk.HASH_KERNEL, fpk.hash_xor), (fpk.ROWS_KERNEL, fpk.fingerprint_i32),
-                          (fpk.PROBE_KERNEL, fpk.hash_probe)):
+                          (fpk.PROBE_KERNEL, fpk.hash_probe), (fpk.NQ_MOVE_KERNEL, fpk.nqueens_move_fp)):
         kern = counted[name] = r["kernels"].get(name, {"calls": 0, "bytes": 0})
         if not is_cuda(solver.device):
             continue
-        launched = sum(plan.work[1] * k for plan, k in wrapper.shapes.items())  # each plan's bytes x its launches
+        launches, shapes = wrapper.launches, wrapper.shapes
+        if wrapper is fpk.nqueens_move_fp:
+            launches, shapes = launches - k7_0[0], shapes - k7_0[1]
+        launched = sum(plan.work[1] * k for plan, k in shapes.items())  # each plan's bytes x its launches
         if r["counted_from"] == "current":
-            ok = (kern["calls"], kern["bytes"]) == (wrapper.launches, launched)
+            ok = (kern["calls"], kern["bytes"]) == (launches, launched)
         else:
-            ok = kern["calls"] <= wrapper.launches and kern["bytes"] <= launched
-        if kern["calls"] == 0 or not ok:
-            raise AssertionError(f"phase 12 roofline {label}: K2 {name} counted {kern['calls']} calls and "
-                                 f"{kern['bytes']} bytes, launched {wrapper.launches} moving {launched}")
+            ok = kern["calls"] <= launches and kern["bytes"] <= launched
+        if (name in required and kern["calls"] == 0) or not ok:
+            raise AssertionError(f"phase 12 roofline {label}: {name} counted {kern['calls']} calls and "
+                                 f"{kern['bytes']} bytes, launched {launches} moving {launched}")
     log(f"phase 12 roofline {label}: {format_roofline(r)}; per round {r['flops_per_round']:.4g} operations, "
         f"{r['hbm_bytes_per_round']:.4g} bytes; kernels {counted}; state unchanged")
     return r
@@ -4172,7 +4522,7 @@ def phase_k3_solves(device, cells=("nqueens1000_p256", "nqueens16384_p16"), sets
 
 
 def build_kernels() -> None:
-    """Phase 1: compile the seven kernel libraries from the checkout's sources,
+    """Phase 1: compile the eight kernel libraries from the checkout's sources,
     one ``nvcc`` each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -4181,6 +4531,7 @@ def build_kernels() -> None:
     from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
     from constraint_solver_tpu_torch.ops import nqueens_move as nm
     from constraint_solver_tpu_torch.ops import nqueens_probes as npr
+    from constraint_solver_tpu_torch.ops import nqueens_sample as ns
     from constraint_solver_tpu_torch.ops import qap_row_min as qrm
     from constraint_solver_tpu_torch.ops import sched_dense as sd
 
@@ -4190,7 +4541,7 @@ def build_kernels() -> None:
         return module._LIB_PATH.name, report, time.time() - t
 
     t0 = time.time()
-    modules = (nk, npr, qrm, fpk, bp, nm, sd)
+    modules = (nk, npr, qrm, fpk, bp, nm, sd, ns)
     with ThreadPoolExecutor(max_workers=len(modules)) as pool:
         built = [f.result() for f in [pool.submit(build, m) for m in modules]]
     for name, report, secs in built:
@@ -4215,7 +4566,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--kernel-only", action="store_true",
-        help="run phases 1 and 2 to 2g only, print the kernels' measurements and stop (no result line)",
+        help="run phases 1 and 2 to 2h only, print the kernels' measurements and stop (no result line)",
     )
     parser.add_argument(
         "--k3-solves", action="store_true",
@@ -4244,22 +4595,26 @@ def main() -> None:
     k3 = phase_k3(device)
     k4 = phase_k4(device)
     k5 = phase_k5(device)
+    k6, k7 = phase_k67(device)
     if args.kernel_only:
         log(card)
-        log(json.dumps({"kernels": [kernel, *probe_entries, k1, *k2, k3, k4, k5]}))
+        log(json.dumps({"kernels": [kernel, *probe_entries, k1, *k2, k3, k4, k5, k6, k7]}))
         return
     phase_cross_device(device)
     main_run, main_solver = phase_main(device)
     k2_paths = {"nqueens_population": main_run["k2_launches"]}  # counted from 0 inside phase 4
     k3_paths = {"nqueens_population": main_run["k3_launches"]}
     k4_paths = {"nqueens_population": main_run["k4_launches"]}
+    k67_paths = {"nqueens_population": main_run["k67_launches"]}
     nk.nqueens_neighborhood_scores.launches = bp.block_pick.launches = nm.nqueens_move.launches = 0
     k2_reset()
+    k67_reset()
     graphs = phase_graphs(device, card=card)
     graphs_launches = nk.nqueens_neighborhood_scores.launches
     k2_paths["graphs_vs_eager"] = k2_launches()
     k3_paths["graphs_vs_eager"] = bp.block_pick.launches
     k4_paths["graphs_vs_eager"] = nm.nqueens_move.launches
+    k67_paths["graphs_vs_eager"] = k67_launches()
     qrm.qap_swap_row_min.launches = sd.sched_dense.launches = 0
     k2_reset()
     graphs_domains = phase_graphs_domains(device, card=card)
@@ -4267,10 +4622,14 @@ def main() -> None:
     k2_paths["graphs_domains"] = k2_launches()
     k5_paths = {"graphs_domains": sd.sched_dense.launches}
     bp.block_pick.launches = nm.nqueens_move.launches = 0
+    k67_reset()
     matrix_forms = phase_matrix_forms(device, card=card)
     k3_paths["matrix_forms"] = bp.block_pick.launches
     k4_paths["matrix_forms"] = nm.nqueens_move.launches
+    k67_paths["matrix_forms"] = k67_launches()
+    k67_reset()
     pmc_run = phase_pmc(device, card=card)
+    k67_paths["pmc"] = k67_launches()  # K6 in the sampled-column runs; PMC keeps no fingerprints
     sd.sched_dense.launches = 0
     phase_schedule_cross_device(device)
     k5_paths["schedule_cross_device"] = sd.sched_dense.launches
@@ -4288,22 +4647,30 @@ def main() -> None:
     phased = phase_phased(device)
     k5_paths["phased"] = sd.sched_dense.launches
     bp.block_pick.launches = nm.nqueens_move.launches = 0
+    k67_reset()
     ckpt = phase_checkpoint(device)
     k3_paths["checkpoint_resume"] = bp.block_pick.launches
     k4_paths["checkpoint_resume"] = nm.nqueens_move.launches
+    k67_paths["checkpoint_resume"] = k67_launches()
     bp.block_pick.launches = nm.nqueens_move.launches = sd.sched_dense.launches = 0
+    k67_reset()
     surface = phase_surface(device, main_solver)
     k3_paths["surface"] = bp.block_pick.launches  # the nqueens CLI, the service, the trace and the roofline
     k4_paths["surface"] = nm.nqueens_move.launches
+    k67_paths["surface"] = k67_launches()
     k5_paths["surface"] = sd.sched_dense.launches  # the scheduling CLI and the service's scheduling request
     missing = [path for path, n in k5_paths.items() if n == 0]
     if missing:
         raise AssertionError(f"K5 (sched_dense) never launched on the roster's paths {missing}: {k5_paths}")
     multi = phase_multi(device)
     bp.block_pick.launches = nm.nqueens_move.launches = 0
+    k67_reset()
     bench = phase_bench(device)
     k3_paths["bench_nqueens"] = bp.block_pick.launches
     k4_paths["bench_nqueens"] = nm.nqueens_move.launches
+    k67_paths["bench_nqueens"] = k67_launches()
+    for path, launches in k67_paths.items():
+        require_k67({k: v for k, v in launches.items() if path != "pmc" or k == "K6"}, f"the N-Queens path {path}")
     paths = {
         "nqueens_population": main_run["launches"],
         "graphs_vs_eager": graphs_launches,
@@ -4334,6 +4701,9 @@ def main() -> None:
     k4["launches_by_path"] = k4_paths
     k5["launches"] = sum(k5_paths.values())
     k5["launches_by_path"] = k5_paths
+    for entry, key in ((k6, "K6"), (k7, "K7")):
+        entry["launches_by_path"] = {path: counts[key] for path, counts in k67_paths.items()}
+        entry["launches"] = sum(entry["launches_by_path"].values())
 
     log(json.dumps({
         "main_path": main_run, "graphs": graphs, "graphs_domains": graphs_domains, "matrix_forms": matrix_forms,
@@ -4342,7 +4712,7 @@ def main() -> None:
         "bench": bench, "card": card,
     }, default=str))
     log(card)
-    log(json.dumps({"kernels": [kernel, *probe_entries, k1, *k2, k3, k4, k5]}))
+    log(json.dumps({"kernels": [kernel, *probe_entries, k1, *k2, k3, k4, k5, k6, k7]}))
     log(json.dumps({
         "ok": True,
         "device": {

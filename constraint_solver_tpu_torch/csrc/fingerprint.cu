@@ -1,5 +1,5 @@
 // The fingerprint hash on Hopper (sm_90a): K2, `fp_hash_xor` (K2a), its ring form `fp_hash_probe`
-// and `fingerprint_rows` (K2b).
+// and `fingerprint_rows` (K2b); and K7, `fp_nq_move`, the fingerprints of N-Queens candidates.
 //
 // Replaces no Pallas kernel.  It stands for the fusions that XLA makes of the
 // JAX package's fingerprint arithmetic (constraint_solver_tpu/ops/fingerprint.py:30-95:
@@ -45,6 +45,17 @@
 //   captures the launch as it captures K2a.  Fingerprints are compared on their
 //   low 32 bits: the port's fingerprints hold values in [0, 2^32), on which
 //   that is the plain version's int64 equality.
+// - K7 `fp_nq_move`: the fingerprint after each N-Queens candidate move,
+//   out[p, w] = fp[p] ^ h(col, old) ^ h(col, new) for the flat candidate
+//   f = idx[p, w] of a lane whose sampled columns are cols[p, :A] and whose
+//   board is rows[p, :n]: col = cols[p, f / n], new = f % n, old = rows[p,
+//   col].  It stands for the fusion XLA makes of the JAX package's move_fp
+//   (constraint_solver_tpu/models/nqueens.py:365-373), which the port ran as
+//   five launches a pick (two divisions, two gathers, then K2a).  One thread
+//   an output, both lanes; idx any strides (the exact filter's [P, A·n] is an
+//   expanded iota, read with a lane stride of 0).  Candidates are flat indices
+//   in [0, A·n): the plain version's floor division and remainder are C's
+//   there.
 //
 // Inputs are taken modulo 2^32 (their low 32 bits, so a negative int32 hashes as
 // its bit pattern, as the JAX package's astype(uint32) does), and outputs are
@@ -60,7 +71,8 @@
 // a term and output (36 M, 0.5 us at 67 T/s).  Most calls move a few KB, so
 // what they cost is a launch: the design's aim is one launch for each use,
 // in place of the plain version's 34-96 eager int64 passes, and nothing copied
-// to get there.
+// to get there.  K7 likewise: a pick moves some 50 bytes a lane; the exact
+// filter's [256, 50000] writes 205 MB (61 us at 3.35 TB/s).
 //
 // Each C entry takes its whole plan as one array of int64 (the layouts below,
 // written by ops/fingerprint.py `_hash_plan` / `_rows_plan` with the pointers
@@ -89,6 +101,7 @@ constexpr int kHashPlanLen = 16 + 2 * kOperandLen * kMaxTerms;  // 64
 constexpr int kRowsPlanLen = 16;
 constexpr int kProbePlanLen = 36;
 constexpr int kProbeTile = 1024;          // ring slots a block stages in shared memory at once
+constexpr int kNqMovePlanLen = 18;
 
 struct Operand {
   const void* ptr;
@@ -149,6 +162,23 @@ struct ProbeArgs {
   int* out_iters;
   int* out_head;
   int* out_count;
+};
+
+struct NqMoveArgs {
+  long long lanes;          // P
+  long long width;          // W candidates a lane
+  long long n;              // the board's columns
+  long long a;              // sampled columns a lane
+  const long long* fp;      // int64 [P, 2]
+  long long fp_stride[2];
+  const long long* cols;    // int64 [P, A]
+  long long cols_stride[2];
+  const long long* rows;    // int64 [P, n]
+  long long rows_stride[2];
+  const void* idx;          // int32 or int64 [P, W]
+  long long idx_stride[2];
+  int idx_wide;             // 1: int64, 0: int32
+  long long* out;           // int64 [P, W, 2], contiguous
 };
 
 __device__ __forceinline__ uint32_t load_bits(const Operand& o, long long off) {
@@ -386,6 +416,26 @@ __global__ void __launch_bounds__(kThreads) fp_hash_probe_kernel(const ProbeArgs
   }
 }
 
+__global__ void __launch_bounds__(kThreads) fp_nq_move_kernel(const NqMoveArgs a) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= a.lanes * a.width) return;
+  const long long p = i / a.width, w = i - p * a.width;
+  const long long at = p * a.idx_stride[0] + w * a.idx_stride[1];
+  const long long flat = a.idx_wide ? static_cast<const long long*>(a.idx)[at]
+                                    : static_cast<long long>(static_cast<const int*>(a.idx)[at]);
+  const long long j = flat / a.n;
+  const long long col = a.cols[p * a.cols_stride[0] + j * a.cols_stride[1]];
+  const uint32_t pos = static_cast<uint32_t>(col);
+  const uint32_t old = static_cast<uint32_t>(a.rows[p * a.rows_stride[0] + col * a.rows_stride[1]]);
+  const uint32_t nw = static_cast<uint32_t>(flat - j * a.n);
+  const long long* f = a.fp + p * a.fp_stride[0];
+  uint32_t h0 = static_cast<uint32_t>(f[0]), h1 = static_cast<uint32_t>(f[a.fp_stride[1]]);
+  h0 ^= mix32(old ^ mix32(pos ^ kSalt0)) ^ mix32(nw ^ mix32(pos ^ kSalt0));
+  h1 ^= mix32(old ^ mix32(pos ^ kSalt1)) ^ mix32(nw ^ mix32(pos ^ kSalt1));
+  a.out[2 * i] = h0;
+  a.out[2 * i + 1] = h1;
+}
+
 Operand read_operand(const long long* p) {
   Operand o;
   o.ptr = reinterpret_cast<const void*>(p[0]);
@@ -541,6 +591,42 @@ extern "C" int fp_hash_probe_launch(const long long* plan, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// K7.  plan[0] P, [1] W, [2] n, [3] A, then (pointer, 2 element strides):
+// [4:7] fp (p, word), [7:10] cols (p, sample), [10:13] rows (p, column),
+// [13:16] idx (p, candidate); [16] idx's width (1: int64, 0: int32), [17] the
+// output (int64 [P, W, 2], contiguous).  ceil(P·W / 256) blocks of 256 threads.
+extern "C" int fp_nq_move_launch(const long long* plan, void* stream) {
+  NqMoveArgs a;
+  a.lanes = plan[0];
+  a.width = plan[1];
+  a.n = plan[2];
+  a.a = plan[3];
+  a.fp = reinterpret_cast<const long long*>(plan[4]);
+  a.fp_stride[0] = plan[5];
+  a.fp_stride[1] = plan[6];
+  a.cols = reinterpret_cast<const long long*>(plan[7]);
+  a.cols_stride[0] = plan[8];
+  a.cols_stride[1] = plan[9];
+  a.rows = reinterpret_cast<const long long*>(plan[10]);
+  a.rows_stride[0] = plan[11];
+  a.rows_stride[1] = plan[12];
+  a.idx = reinterpret_cast<const void*>(plan[13]);
+  a.idx_stride[0] = plan[14];
+  a.idx_stride[1] = plan[15];
+  a.idx_wide = static_cast<int>(plan[16]);
+  a.out = reinterpret_cast<long long*>(plan[17]);
+  const long long total = a.lanes * a.width;
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  if (a.lanes < 1 || a.width < 1 || a.n < 1 || a.a < 1 || a.fp == nullptr || a.cols == nullptr ||
+      a.rows == nullptr || a.idx == nullptr || a.out == nullptr || !(a.idx_wide == 0 || a.idx_wide == 1) ||
+      blocks > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  fp_nq_move_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 static_assert(kHashPlanLen == 64, "ops/fingerprint.py writes 64 entries for K2a");
 static_assert(kRowsPlanLen == 16, "ops/fingerprint.py writes 16 entries for K2b");
 static_assert(kProbePlanLen == 36, "ops/fingerprint.py writes 36 entries for K2a's ring form");
+static_assert(kNqMovePlanLen == 18, "ops/fingerprint.py writes 18 entries for K7");

@@ -64,6 +64,17 @@ Divergences from the JAX package:
   carried counters bit for bit and the trajectories are the same.
   ``apply_move`` stays, the JAX package's interface: the sharded neighborhood
   (``NQPairs``) and the tests use it.
+- **The sample and a pick's fingerprint as kernels.** The JAX package's
+  neighborhood is one XLA fusion around ``lax.top_k``; here the Gumbel
+  column sample, its ``col_valid`` and ``n_valid``, and the block's inputs
+  (each sampled column's row and removed term) are one call,
+  ``ops/nqueens_sample.py`` (K6: one launch on the card), and ``move_fp``
+  for ``NQMoves`` is one call, ``nqueens_move_fp`` in ``ops/fingerprint.py``
+  (K7: the pick's decode and hash in one launch on the card, at a pick or a
+  retry and over the exact filter's [P, A·n]).  On the CPU their plain
+  versions run: the stable sort and the gathers, the decode and
+  ``fp_update``, bit for bit what the card computes.  ``NQPairs`` keeps the
+  decode and ``fp_update``.
 - **``col_sampling="approx"``** samples exactly, as ``"exact"`` does.  The JAX
   package's ``jax.lax.approx_max_k`` is approximate (recall ~0.95) only on the
   TPU; on the CPU, where the reference runs, it returns ``lax.top_k``'s indices,
@@ -92,10 +103,11 @@ import torch
 
 from constraint_solver_tpu_torch.core.problem import InPlace, Neighborhood, Problem, RowBlock, replayable
 from constraint_solver_tpu_torch.ops.block_pick import block_pick
-from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32, fp_update
+from constraint_solver_tpu_torch.ops.fingerprint import fingerprint_i32, fp_update, nqueens_move_fp
 from constraint_solver_tpu_torch.ops.lex import make_score
 from constraint_solver_tpu_torch.ops.nqueens_kernel import block_from_windows, nqueens_neighborhood_scores
 from constraint_solver_tpu_torch.ops.nqueens_move import nqueens_move
+from constraint_solver_tpu_torch.ops.nqueens_sample import nqueens_sample
 from constraint_solver_tpu_torch.parallel.mesh import active_axis, gather_best
 
 
@@ -273,52 +285,46 @@ def make_nqueens_problem(
 
     def neighborhood(state, cur_score, draws, active):
         rows, rc, dc, ac, cs = state
-        device = rows.device
-        conflicted = cs > 0
-        n_conflicted = conflicted.sum(dim=-1)
-
-        # Weighted sample of A columns without replacement: Gumbel top-k.  A
-        # stable descending sort takes ties, the -inf tail of unconflicted
-        # columns included, in index order, as lax.top_k does.
-        logits = torch.where(conflicted, log_table(device)[cs.long()], -torch.inf)
+        n_conflicted = (cs > 0).sum(dim=-1)
         amount = n_conflicted.clamp(1, a_max)
         gumbel, num_cols = draws.neighborhood(n, amount, active)
-        c = torch.sort(logits + gumbel, dim=-1, descending=True, stable=True).indices[:, :a_max]
-        col_valid = torch.arange(a_max, device=device) < torch.minimum(num_cols, n_conflicted)[:, None]
+        # Weighted sample of A columns without replacement: Gumbel top-k, ties
+        # (the -inf tail of unconflicted columns included) in index order, as
+        # lax.top_k takes them; with each column's row and removed term (K6).
+        s = nqueens_sample(cs, log_table(rows.device), gumbel, num_cols, n_conflicted, rows, rc, dc, ac, a_max)
 
         if nbr_axis is not None:
-            return sharded(state, cur_score, c, col_valid)
+            return sharded(state, cur_score, s)
         # The block as the kernel wrote it, with no [P, A·n, 2] scores and no
         # [P, A·n] mask; the first pick (``hint_idx``) is K3's from its row minima.
-        cand_hard, row_min, row_arg = block(state, cur_score, c)
-        row_block = RowBlock(cand_hard, col_valid, row_min, row_arg)
+        cand_hard, row_min, row_arg = block(state, cur_score, s.c, s.r, s.removed)
+        row_block = RowBlock(cand_hard, s.col_valid, row_min, row_arg)
         return Neighborhood(
             scores=None,
-            moves=NQMoves(c, n),
+            moves=NQMoves(s.cols, n),
             valid=None,
             hint_idx=block_pick(*row_block),
-            n_valid=col_valid.sum(dim=-1) * n,
+            n_valid=s.n_valid,
             block=row_block,
         )
 
-    def block(state, cur_score, c):
-        """The block's (scores [P, A', n], row_min, row_arg) for sampled columns c [P, A']."""
-        rows, rc, dc, ac, _ = state
-        r = rows.gather(1, c)
-        removed = (rc.gather(1, r) - 1) + (dc.gather(1, r - c + (n - 1)) - 1) + (ac.gather(1, r + c) - 1)
-        args = (rc, dc, ac, c.to(torch.int32), r.to(torch.int32), removed, cur_score[:, 0].contiguous())
+    def block(state, cur_score, c, r, removed):
+        """The block's (scores [P, A', n], row_min, row_arg) for sampled columns
+        c [P, A'] (int32) on rows r with their removed terms."""
+        args = (state.rc, state.dc, state.ac, c, r, removed, cur_score[:, 0].contiguous())
         if use_kernel:
             return nqueens_neighborhood_scores(*args)
         return matrix_block(block_impl, *args)
 
-    def sharded(state, cur_score, c, col_valid):
-        """This rank's A/shards columns, its ``nbr_keep`` best candidates, and
-        every rank's gathered over the axis."""
+    def sharded(state, cur_score, s):
+        """This rank's A/shards columns of the sample ``s``, its ``nbr_keep``
+        best candidates, and every rank's gathered over the axis."""
         axis = active_axis(nbr_axis, nbr_shards)
-        p = c.shape[0]
+        p = s.cols.shape[0]
         mine = slice(axis.index * a_local, (axis.index + 1) * a_local)
-        c, col_valid = c[:, mine].contiguous(), col_valid[:, mine]
-        hard = block(state, cur_score, c)[0].reshape(p, a_local * n)
+        c, col_valid = s.cols[:, mine], s.col_valid[:, mine]
+        hard = block(state, cur_score, *(t[:, mine].contiguous() for t in (s.c, s.r, s.removed)))[0]
+        hard = hard.reshape(p, a_local * n)
         valid = col_valid[:, :, None].expand(p, a_local, n).reshape(p, a_local * n)
         hard, valid, cols, new_rows = gather_best(
             hard, valid, min(nbr_keep, a_local * n), lambda keep: (c.gather(1, keep // n), keep % n), axis
@@ -336,6 +342,8 @@ def make_nqueens_problem(
         return col.view(idx.shape), old.view(idx.shape), new.view(idx.shape)
 
     def move_fp(state, cur_fp, moves, idx):
+        if isinstance(moves, NQMoves):  # the decode and the hash in one call (K7)
+            return nqueens_move_fp(cur_fp, moves.cols, state.rows, idx)
         col, old, new = _decode(state, moves, idx)
         fp = cur_fp.view(cur_fp.shape[0], *(1,) * (idx.dim() - 1), 2)
         return fp_update(fp, col, old, new)

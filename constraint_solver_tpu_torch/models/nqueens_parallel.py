@@ -26,7 +26,9 @@ Divergences from the JAX package:
   rebuilds behind ``lax.cond``; here ``build_state`` is an O(n) scatter, so the
   select costs one more rebuild and no host read.
 - **Log weights from a table** for the sampled-column mode, as in
-  ``models/nqueens.py`` (``log_weights``).
+  ``models/nqueens.py`` (``log_weights``), and the sample with each column's
+  row and removed term in one call of ``ops/nqueens_sample.nqueens_sample``
+  (K6 on the card; on the CPU its plain version, the stable sort and gathers).
 - **One step as a CUDA graph** where the JAX package compiles the whole
   ``while_loop`` into one device program.  ``pmc_run`` and ``pmc_solve`` take
   a ``PMCGraphs`` holder (None: a fresh one for the call), which keeps one
@@ -59,6 +61,7 @@ import torch
 from constraint_solver_tpu_torch.core.graphed import Captured, cuda_capturer, eager_reason
 from constraint_solver_tpu_torch.models.nqueens import NQState, build_state, default_log_weights, state_conflicts
 from constraint_solver_tpu_torch.ops.nqueens_kernel import nqueens_neighborhood_scores
+from constraint_solver_tpu_torch.ops.nqueens_sample import nqueens_sample
 from constraint_solver_tpu_torch.utils.draws import TorchDraws
 from constraint_solver_tpu_torch.utils.tree import lane_where, tree_leaves, tree_map, tree_where
 
@@ -93,19 +96,22 @@ def pmc_step(
     rows = st.rows
     p, n = rows.shape
     a = n if sample_cols is None else sample_cols
-    dr = draws.pmc_step(n, a, st.cs > 0, active, sample_cols is not None)
+    conflicted = st.cs > 0
+    dr = draws.pmc_step(n, a, conflicted, active, sample_cols is not None)
 
     if sample_cols is None:
         cols = torch.arange(n, device=rows.device).expand(p, n).contiguous()
-        r, removed = rows, st.cs
+        c, r, removed = cols.to(torch.int32), rows.to(torch.int32), st.cs
     else:
-        # Gumbel top-A of the conflicted columns weighted by conflict count; a
-        # stable descending sort takes ties in index order, as lax.top_k does.
-        logits = torch.where(st.cs > 0, log_table[st.cs.long()], -torch.inf)
-        cols = torch.sort(logits + dr.gumbel, dim=-1, descending=True, stable=True).indices[:, :a]
-        r, removed = rows.gather(1, cols), st.cs.gather(1, cols).contiguous()
+        # Gumbel top-A of the conflicted columns weighted by conflict count,
+        # ties in index order as lax.top_k takes them, with each column's row
+        # and removed term (its column score): one K6 call.  The sample's
+        # col_valid and n_valid are not read.
+        n_conflicted = conflicted.sum(dim=-1)
+        s = nqueens_sample(st.cs, log_table, dr.gumbel, n_conflicted, n_conflicted, rows, st.rc, st.dc, st.ac, a)
+        cols, c, r, removed = s.cols, s.c, s.r, s.removed
     _, best_score, best_row = nqueens_neighborhood_scores(
-        st.rc, st.dc, st.ac, cols.to(torch.int32), r.to(torch.int32).contiguous(), removed, state_conflicts(st)
+        st.rc, st.dc, st.ac, c, r, removed, state_conflicts(st)
     )
     best_row = best_row.long()
 

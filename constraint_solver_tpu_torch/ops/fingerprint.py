@@ -37,10 +37,21 @@ it as 34-96 int64 passes a use, so the port has a kernel for it:
   ``hash_probe_ref``, is the ring's own ``push`` and ``is_tabu``.  The kernel
   compares fingerprints on their low 32 bits, which is the plain version's
   int64 equality for the port's fingerprints, values in [0, 2^32).
+- ``nqueens_move_fp(cur_fp, cols, rows, idx)`` is K7's wrapper: the
+  fingerprint after each N-Queens candidate move, ``cur_fp ^ h(col, old) ^
+  h(col, new)`` for flat candidates ``idx`` [P] or [P, W] (int32 or int64,
+  any strides) of a lane whose sampled columns are ``cols`` int64 [P, A] and
+  whose board is ``rows`` int64 [P, n]: col = cols[idx // n], new = idx % n,
+  old = rows[col]; ``cur_fp`` int64 [P, 2].  Returns int64 [*idx.shape, 2].
+  Its plain version, ``nqueens_move_fp_ref``, is the decode the N-Queens
+  model ran before K7 (two divisions, two gathers) and ``fp_update``; the
+  candidates are flat indices in [0, A·n), as the descent's picks are.
+  ``models/nqueens.py``'s ``move_fp`` calls it for ``NQMoves``: one launch a
+  pick or retry, and one over the exact filter's [P, A·n].
 - Each wrapper checks its operands (int32 or int64; the base int64 [..., 2]; at
   most 4 dimensions; the ring form's as its docstring says) through a plan
   that is a pure function of shapes, strides and dtypes (``_hash_plan``,
-  ``_rows_plan``, ``_probe_plan``), takes the plain version for
+  ``_rows_plan``, ``_probe_plan``, ``_nq_move_plan``), takes the plain version for
   tensors on the CPU, and for tensors on a CUDA device launches its kernel or
   raises: there is no fallback.  The kernel reads every operand by the plan's
   strides (0 on a broadcast dimension) and width, so expanded views and int32
@@ -80,16 +91,19 @@ _SRC = Path(__file__).resolve().parent.parent / "csrc" / "fingerprint.cu"
 HASH_KERNEL = "fp_hash_xor"  # K2a
 PROBE_KERNEL = "fp_hash_probe"  # K2a's ring form
 ROWS_KERNEL = "fingerprint_rows"  # K2b
+NQ_MOVE_KERNEL = "fp_nq_move"  # K7
 _PLAN_ARGS = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]  # (const long long* plan, void* stream)
 _LIB_PATH = nk._BUILD_DIR / "libfingerprint.so"
 _LIBRARY = nk.KernelLibrary(_SRC, _LIB_PATH, {"fp_hash_xor_launch": _PLAN_ARGS, "fingerprint_rows_launch": _PLAN_ARGS,
-                                             "fp_hash_probe_launch": _PLAN_ARGS})
+                                             "fp_hash_probe_launch": _PLAN_ARGS,
+                                             "fp_nq_move_launch": _PLAN_ARGS})
 
 MAX_DIMS = 4  # dimensions of an operand or of K2a's output (csrc kDims)
 MAX_TERMS = 4  # (position, value) terms of K2a (csrc kMaxTerms)
 HASH_PLAN_LEN = 64  # csrc kHashPlanLen
 ROWS_PLAN_LEN = 16  # csrc kRowsPlanLen
 PROBE_PLAN_LEN = 36  # csrc kProbePlanLen
+NQ_MOVE_PLAN_LEN = 18  # csrc kNqMovePlanLen
 THREADS = 256  # threads of a block (csrc kThreads)
 WARPS = THREADS // 32
 PROBE_TILE = 1024  # ring slots a block stages in shared memory at once (csrc kProbeTile)
@@ -147,6 +161,19 @@ def fp_update_ref(
     """O(1) update of ``fp`` [..., 2] for position ``idx`` changed old → new
     (``idx``/``old_bits``/``new_bits`` broadcastable [...])."""
     return fp ^ position_hash_ref(idx, old_bits) ^ position_hash_ref(idx, new_bits)
+
+
+def nqueens_move_fp_ref(cur_fp, cols, rows, idx, update=fp_update_ref) -> torch.Tensor:
+    """K7's plain version: the decode of flat candidates ``idx`` [P, ...]
+    (column ``cols[idx // n]``, new row ``idx % n``, old row ``rows[col]``),
+    then ``update`` of ``cur_fp`` [P, 2]: ``fp_update_ref``, or ``fp_update``
+    for the chain the N-Queens model ran before K7 (K2a on the card)."""
+    n = rows.shape[1]
+    flat = idx.reshape(idx.shape[0], -1)
+    col = cols.gather(1, flat // n)
+    new, old = flat % n, rows.gather(1, col)
+    fp = cur_fp.view(cur_fp.shape[0], *(1,) * (idx.dim() - 1), 2)
+    return update(fp, col.view(idx.shape), old.view(idx.shape), new.view(idx.shape))
 
 
 def hash_xor_ref(base, terms, planes: bool = False) -> torch.Tensor:
@@ -297,6 +324,42 @@ def _rows_plan(shape, strides, dtype) -> RowsPlan:
     chunk = -(-n // min(-(-nk._SMS // rows), n // SPLIT_MIN))
     splits = -(-n // chunk)
     return RowsPlan(lead, rows, n, strides4, wide, wpr, rows * splits, work, splits, chunk)
+
+
+class NqMovePlan(NamedTuple):
+    lanes: int  # P
+    width: int  # W candidates a lane
+    template: tuple  # the C entry's 18 int64 entries, every pointer 0
+    work: tuple[int, int]  # (operations, bytes) of one call
+
+
+@functools.lru_cache(maxsize=256)
+def _nq_move_plan(fp, cols, rows, idx) -> NqMovePlan:
+    """K7's plan from its operands' (shape, strides, dtype): ``fp`` int64 [P,
+    2], ``cols`` int64 [P, A], ``rows`` int64 [P, n], ``idx`` int32 or int64
+    [P, W]."""
+    (f_shape, f_strides, f_dtype), (c_shape, c_strides, c_dtype) = fp, cols
+    (r_shape, r_strides, r_dtype), (i_shape, i_strides, i_dtype) = rows, idx
+    if c_dtype != torch.int64 or r_dtype != torch.int64 or len(c_shape) != 2 or len(r_shape) != 2:
+        raise ValueError(f"nqueens_move_fp: cols and rows must be int64 [P, A] and [P, n], got {c_dtype} "
+                         f"{tuple(c_shape)} and {r_dtype} {tuple(r_shape)}")
+    p, a = c_shape
+    n = r_shape[1]
+    if r_shape[0] != p or a < 1 or n < 1:
+        raise ValueError(f"nqueens_move_fp: cols {tuple(c_shape)} and rows {tuple(r_shape)} of one lane each")
+    if f_dtype != torch.int64 or tuple(f_shape) != (p, 2):
+        raise ValueError(f"nqueens_move_fp: cur_fp must be int64 [{p}, 2], got {f_dtype} {tuple(f_shape)}")
+    if len(i_shape) != 2 or i_shape[0] != p:
+        raise ValueError(f"nqueens_move_fp: idx must be [{p}] or [{p}, W], got {tuple(i_shape)}")
+    wide = _wide(i_dtype)
+    w = i_shape[1]
+    i_strides = tuple(0 if size == 1 else st for size, st in zip(i_shape, i_strides))
+    template = (p, w, n, a, 0, *f_strides, 0, *c_strides, 0, *r_strides, 0, *i_strides, wide, 0)
+    # Bytes: cur_fp, idx's distinct elements, the sampled columns and their
+    # rows that the candidates read (at most A a lane), the output.
+    sampled = p * min(w, a)
+    nbytes = 16 * p + (8 if wide else 4) * _distinct(i_shape, i_strides) + 16 * sampled + 16 * p * w
+    return NqMovePlan(p, w, template, ((2 * OPS_PER_HASH + 4) * p * w, nbytes))
 
 
 def _probe_strides(shape, strides, want, name) -> tuple:
@@ -553,7 +616,39 @@ def _probe(ring, push_fp, fps, base, deltas, valid, device, plan, ptrs):
     return ring, out
 
 
+def nqueens_move_fp(cur_fp, cols, rows, idx) -> torch.Tensor:
+    """K7: the fingerprint after each N-Queens candidate move (see the module
+    docstring).  ``idx`` [P] or [P, W]; returns int64 [*idx.shape, 2]."""
+    if idx.dim() not in (1, 2):
+        raise ValueError(f"nqueens_move_fp: idx must be [P] or [P, W], got {tuple(idx.shape)}")
+    device = _check_device([cur_fp, cols, rows, idx])
+    flat = idx[:, None] if idx.dim() == 1 else idx
+    meta = lambda t: (t.shape, t.stride(), t.dtype)  # noqa: E731
+    plan = _nq_move_plan(meta(cur_fp), meta(cols), meta(rows), meta(flat))
+    shape = (*idx.shape, 2)
+    if plan.lanes * plan.width == 0:
+        return torch.empty(shape, dtype=torch.int64, device=device)
+    count = roofline.active_count()
+    if count is not None:
+        with count.kernel(NQ_MOVE_KERNEL, *plan.work):
+            return _nq_move(cur_fp, cols, rows, idx, flat, device, plan, shape)
+    return _nq_move(cur_fp, cols, rows, idx, flat, device, plan, shape)
+
+
+def _nq_move(cur_fp, cols, rows, idx, flat, device, plan, shape):
+    if device.type == "cpu":
+        return nqueens_move_fp_ref(cur_fp, cols, rows, idx)
+    out = torch.empty(shape, dtype=torch.int64, device=device)
+    values = list(plan.template)
+    values[4], values[7], values[10], values[13], values[17] = (
+        cur_fp.data_ptr(), cols.data_ptr(), rows.data_ptr(), flat.data_ptr(), out.data_ptr())
+    _launch("fp_nq_move_launch", values, device, f"{plan.width} N-Queens candidates a lane over {plan.lanes} lanes")
+    launch_count.count(nqueens_move_fp, plan)
+    return out
+
+
 # .launches, and .shapes per launch plan (its ``work`` is one launch's operations and bytes).
+launch_count.counted(nqueens_move_fp)
 launch_count.counted(hash_xor)
 launch_count.counted(fingerprint_i32)
 launch_count.counted(hash_probe)

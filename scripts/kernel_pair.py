@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""K4 (the masked N-Queens move) or K5 (the roster's dense neighborhood) of two
+"""K4 (the masked N-Queens move), K5 (the roster's dense neighborhood), K6 (the
+N-Queens column sample) or K7 (the fingerprints of N-Queens candidates) of two
 checkouts on one card and on the same inputs, in alternating runs (parent,
 change, change, parent, ...), one process each.
 
@@ -20,6 +21,16 @@ both versions share:
   256, 4) and 730 x 40 at P = 128), through ``sched_dense``; device-only us
   per call (``k5_device_ms``: every K5 kernel's events in a trace, summed)
   and each kernel's part, and the launches a call.
+- ``k6``: phase 2h's timed K6 cases (``k6_cases``: random and near-solved
+  boards at (256, 1000, 50) and (16, 16384, 64)), through ``nqueens_sample``
+  where the checkout has it, else through the chain its N-Queens
+  neighborhood runs (the stable sort and the gathers, as
+  ``nqueens_sample_ref`` has them); ``k7``: phase 2h's timed K7 cases (a
+  pick at both cells' shapes, the exact filter's [256, 50000]), through
+  ``nqueens_move_fp``, else the decode and ``fp_update``.  For each: the
+  device work of one call (its kernels and their device us in a
+  ``torch.profiler`` trace, ``eager_chain_kernels``) and us per call by
+  CUDA events over ``TIMED_LAUNCHES`` calls.
 
 Each run also gives the wrapper's host us per call (``host_us``, the less of
 two runs).  Standard output gets the card, one line per run and shape, then
@@ -83,6 +94,56 @@ for case in c.k5_cases(torch.device("cuda", 0)):
                        "host_us": host, "launches_a_call": launches}
 print(json.dumps(out))
 """,
+    "k6": PRELUDE + """try:
+    from constraint_solver_tpu_torch.ops import nqueens_sample as ns
+    fn, what = ns.nqueens_sample, "K6"
+except ImportError:  # a checkout from before K6: the neighborhood's chain
+    def fn(cs, table, gumbel, num_cols, n_conflicted, rows, rc, dc, ac, a):
+        n = cs.shape[1]
+        logits = torch.where(cs > 0, table[cs.long()], -torch.inf)
+        c = torch.sort(logits + gumbel, dim=-1, descending=True, stable=True).indices[:, :a]
+        col_valid = torch.arange(a, device=cs.device) < torch.minimum(num_cols, n_conflicted)[:, None]
+        r = rows.gather(1, c)
+        removed = (rc.gather(1, r) - 1) + (dc.gather(1, r - c + (n - 1)) - 1) + (ac.gather(1, r + c) - 1)
+        return c, c.to(torch.int32), r.to(torch.int32), removed, col_valid, col_valid.sum(dim=-1) * n
+    what = "eager chain"
+
+out = {"package": c.__file__, "what": what}
+for case in c.k6_cases(torch.device("cuda", 0)):
+    if not case.timed:
+        continue
+    c.time_ms(fn, case.args, 3)  # warm-up (and the build)
+    work = c.eager_chain_kernels(fn, case.args)
+    us = [c.time_ms(fn, case.args, c.TIMED_LAUNCHES) * 1e3 for _ in range(2)]
+    out[case.label] = {"what": what, "device_us": work["device_ms"] * 1e3, "kernels": work.get("kernels", 0),
+                       "copies": work.get("copies", 0), "us": sum(us) / 2}
+print(json.dumps(out))
+""",
+    "k7": PRELUDE + """from constraint_solver_tpu_torch.ops import fingerprint as fpk
+
+fn, what = getattr(fpk, "nqueens_move_fp", None), "K7"
+if fn is None:  # a checkout from before K7: its model's move_fp, the decode then fp_update
+    import functools
+
+    from constraint_solver_tpu_torch.models.nqueens import NQMoves, NQState, make_nqueens_problem
+
+    problem = functools.lru_cache(make_nqueens_problem)
+
+    def fn(cur_fp, cols, rows, idx):
+        n = rows.shape[1]
+        return problem(n).move_fp(NQState(rows, None, None, None, None), cur_fp, NQMoves(cols, n), idx)
+    what = "decode and K2a"
+out = {"package": fpk.__file__, "what": what}
+for case in c.k7_cases(torch.device("cuda", 0)):
+    if not case.timed:
+        continue
+    c.time_ms(fn, case.args, 3)  # warm-up (and the build)
+    work = c.eager_chain_kernels(fn, case.args)
+    us = [c.time_ms(fn, case.args, c.TIMED_LAUNCHES) * 1e3 for _ in range(2)]
+    out[case.label] = {"what": what, "device_us": work["device_ms"] * 1e3, "kernels": work.get("kernels", 0),
+                       "copies": work.get("copies", 0), "us": sum(us) / 2}
+print(json.dumps(out))
+""",
 }
 
 
@@ -97,6 +158,9 @@ def run_side(kernel: str, root: Path, out: Path, tag: str) -> dict:
 
 
 def describe(kernel: str, r: dict) -> str:
+    if kernel in ("k6", "k7"):
+        return (f"{r['what']}: {r['kernels']} kernels and {r['copies']} copies a call, device {r['device_us']:.3f} us, "
+                f"{r['us']:.3f} us a call by CUDA events")
     if kernel == "k4":
         return (f"device-only {r['device_us']:.3f} us ({r['how']}), host {r['host_us']:.1f} us, "
                 f"{r['state_copies']} state copies")
@@ -128,7 +192,7 @@ def main(argv=None) -> int:
                 print(f"pair {i} {side}: rc {run['rc']}, see {args.out}/{args.kernel}-{i}-{side}.err", flush=True)
                 continue
             for label, r in run["result"].items():
-                if label != "package":
+                if label not in ("package", "what"):
                     print(f"pair {i} {side:6} {label:44} {describe(args.kernel, r)}", flush=True)
     print(json.dumps({"card": card, "kernel": args.kernel, "runs": runs}))
     return 0 if ok else 1

@@ -32,7 +32,11 @@ reduction (its SASS), counts through graph replays and raises.  K5, the
 roster's dense neighborhood, equals its plain version on every output at phase
 2g's cases and on edge shapes, counts through graph replays and raises.  QAP's
 incremental move written in place, with the best carried by its permutation,
-equals the select form bit for bit.  Two gloo
+equals the select form bit for bit.  K6, the N-Queens column sample, and
+K7, the N-Queens candidates' fingerprints, equal their plain versions bit for
+bit at phase 2h's cases, at every placement of K6's plan and through graph
+replays, raise instead of falling back, and a graphed headline solve keeps
+the eager one's trajectory.  Two gloo
 ranks sharing the card run the pop- and nbr-sharded N-Queens solves, equal to
 the same sharded solves on the CPU (the rank bodies are in
 ``tests/torch_ranks.py``)."""
@@ -1290,3 +1294,124 @@ def test_cuda_sched_dense_counts_through_graph_replays_and_raises(cuda, tmp_path
     with pytest.raises(RuntimeError, match="nvcc failed"):
         sd.sched_dense(*case.args)
     assert sd.sched_dense.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_nqueens_sample_matches_plain_version_at_the_smoke_cases(cuda):
+    """K6 at ``chip_smoke.py`` phase 2h's cases (both N-Queens cells' (P, n, A)
+    on random and near-solved boards, keys that tie everywhere, no conflicted
+    column, A = n, a ragged n, and every branch of the plan at shapes where
+    the plan takes it): every output equal to the plain version's."""
+    import chip_smoke
+
+    from constraint_solver_tpu_torch.ops import nqueens_sample as ns
+
+    for case in chip_smoke.k6_cases(cuda):
+        got = ns.nqueens_sample(*case.args)
+        torch.cuda.synchronize()
+        assert chip_smoke.k6_equal(got, ns.nqueens_sample_ref(*case.args)), case.label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p, n, a, kind, branch", [
+    (256, 1000, 50, "gumbel", (True, True, True)), (16, 16384, 64, "ties", (True, True, True)),
+    (3, 1, 1, "gumbel", (True, True, True)), (1, 2, 2, "ties", (True, True, True)),
+    (5, 300, 129, "gumbel", (True, True, True)), (2, 4097, 4097, "ties", (True, True, False)),
+    (5, 1000, 257, "gumbel", (True, True, False)), (2, 57000, 64, "ties", (False, True, True)),
+    (2, 60000, 300, "gumbel", (False, True, False)), (1, 16385, 16385, "ties", (True, False, False)),
+    (1, 60001, 16385, "gumbel", (False, False, False)),
+])
+def test_cuda_nqueens_sample_at_every_placement(cuda, p, n, a, kind, branch):
+    """Each branch of the plan (keys and survivors in shared memory or a
+    global scratch, the survivors placed by rank or by the bitonic sort) at
+    shapes where the plan takes it, at the cells' shapes and at edges: one
+    column, A = n on 4,097 (threads of 1,024 and a sort of 8,192), A just
+    above a power of two and just above 256, the keys just past shared memory,
+    the survivors just past it (A = 16,385, a sort of 32,768)."""
+    import chip_smoke
+
+    from constraint_solver_tpu_torch.ops import nqueens_sample as ns
+
+    plan = ns._launch_plan(p, n, a)
+    assert (plan.keys_shared, plan.cands_shared, plan.rank_sort) == branch
+    rng = np.random.default_rng(n + a)
+    args = chip_smoke.k6_args(rng, rng.integers(0, n, (p, n)), a, cuda, kind)
+    got = ns.nqueens_sample(*args)
+    torch.cuda.synchronize()
+    assert chip_smoke.k6_equal(got, ns.nqueens_sample_ref(*args))
+
+
+@pytest.mark.cuda
+def test_cuda_nqueens_move_fp_matches_plain_version_at_the_smoke_cases(cuda):
+    """K7 at phase 2h's cases (a pick at both cells' shapes, the exact filter's
+    [P, A·n], int32 candidates through a stride, the last candidate): equal to
+    its plain version and to the chain it replaces (the decode, then K2a)."""
+    import chip_smoke
+
+    from constraint_solver_tpu_torch.ops import fingerprint as fpk
+
+    for case in chip_smoke.k7_cases(cuda):
+        got = fpk.nqueens_move_fp(*case.args)
+        torch.cuda.synchronize()
+        want = fpk.nqueens_move_fp_ref(*case.args)
+        assert torch.equal(got, want) and torch.equal(chip_smoke.k7_chain(*case.args), want), case.label
+
+
+@pytest.mark.cuda
+def test_cuda_nqueens_sample_and_move_fp_count_through_graph_replays_and_raise(cuda, tmp_path, monkeypatch):
+    """A capture of K6 and K7 counts no launch and a replay one of each; a
+    graphed N-Queens solve launches each as often as the eager one, in both
+    tabu modes; operands on two devices and a failed build raise: no plain
+    version on the card."""
+    import chip_smoke
+
+    from constraint_solver_tpu_torch.ops import fingerprint as fpk
+    from constraint_solver_tpu_torch.ops import nqueens_sample as ns
+
+    k6, k7 = chip_smoke.k6_cases(cuda)[0], chip_smoke.k7_cases(cuda)[0]
+    ns.nqueens_sample(*k6.args)  # built and loaded before the capture
+    fpk.nqueens_move_fp(*k7.args)
+    chip_smoke.k67_graph_replay(cuda, k6, k7)
+    for exact in (None, False):
+        counts = {}
+        for graphed_run in (False, True):
+            before = chip_smoke.k67_launches()
+            _graphs_run(_graphs_solver(cuda, exact, graphed_run))
+            counts[graphed_run] = {k: v - before[k] for k, v in chip_smoke.k67_launches().items()}
+        assert counts[True] == counts[False] and min(counts[True].values()) > 0, (exact, counts)
+    with pytest.raises(ValueError):
+        ns.nqueens_sample(k6.args[0].cpu(), *k6.args[1:])
+    with pytest.raises(ValueError):
+        fpk.nqueens_move_fp(k7.args[0].cpu(), *k7.args[1:])
+    monkeypatch.setattr(ns, "_LIBRARY", nk.KernelLibrary(ns._SRC, tmp_path / "libnqueens_sample.so",
+                                                         ns._LIBRARY.argtypes))
+    monkeypatch.setattr(nk.subprocess, "run",
+                        lambda cmd, **kw: nk.subprocess.CompletedProcess(cmd, 1, "", "error: planted"))
+    before = ns.nqueens_sample.launches
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ns.nqueens_sample(*k6.args)
+    assert ns.nqueens_sample.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_headline_solve_keeps_its_trajectory(cuda):
+    """The headline configuration (nqueens-1000, 256 lanes, the benchmark's
+    solver settings), 4 rounds graphed against eager from one seed: the state
+    trees, stats, the generator's state and the launches of K6 and K7 equal."""
+    import chip_smoke
+
+    out = {}
+    for graphed in (False, True):
+        before = chip_smoke.k67_launches()
+        s = PopulationSolver(make_nqueens_problem(1000), chip_smoke.main_config(), population=256, exchange_every=2,
+                             device=cuda, _graphed=graphed)
+        s.run(max_rounds=4, chunk=2)
+        torch.cuda.synchronize()
+        launches = {k: v - before[k] for k, v in chip_smoke.k67_launches().items()}
+        out[graphed] = (to_reference(s.state), s.stats(), s.draws.state_dict()["generator"], launches)
+    (state_e, stats_e, gen_e, k67_e), (state_g, stats_g, gen_g, k67_g) = out[False], out[True]
+    compare(state_g, state_e)
+    stats_e.pop("moves_per_sec", None)
+    stats_g.pop("moves_per_sec", None)
+    assert stats_g == stats_e and torch.equal(gen_g, gen_e)
+    assert k67_g == k67_e and min(k67_g.values()) > 0, (k67_e, k67_g)

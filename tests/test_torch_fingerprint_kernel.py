@@ -41,7 +41,7 @@ from constraint_solver_tpu_torch.models import ackley as ta
 from constraint_solver_tpu_torch.models import diagram_layout as td
 from constraint_solver_tpu_torch.models import qap as tq
 from constraint_solver_tpu_torch.models import scheduling as ts
-from constraint_solver_tpu_torch.models.nqueens import make_nqueens_problem
+from constraint_solver_tpu_torch.models.nqueens import NQMoves, make_nqueens_problem
 from constraint_solver_tpu_torch.ops import fingerprint as fp
 from constraint_solver_tpu_torch.ops import nqueens_kernel as nk
 from constraint_solver_tpu_torch.parallel import population as tpop
@@ -287,6 +287,8 @@ def test_plan_layouts_match_the_cuda_source():
         assert re.search(rf"constexpr int {name} = (\d+);", src).group(1) == str(value), name
     assert f"kHashPlanLen == {fp.HASH_PLAN_LEN}" in src and f"kRowsPlanLen == {fp.ROWS_PLAN_LEN}" in src
     assert f"kProbePlanLen == {fp.PROBE_PLAN_LEN}" in src
+    assert re.search(r"constexpr int kNqMovePlanLen = (\d+);", src).group(1) == str(fp.NQ_MOVE_PLAN_LEN)
+    assert f"kNqMovePlanLen == {fp.NQ_MOVE_PLAN_LEN}" in src
     assert len(fp._rows_values(fp._rows_plan((2, 3), (3, 1), torch.int32), torch.zeros((2, 3), dtype=torch.int32),
                                torch.zeros((2, 2), dtype=torch.int64))) == fp.ROWS_PLAN_LEN
     hashed = (fp._SRC.parent / "fp_hash.cuh").read_text()  # the hash and its salts, shared with K5
@@ -419,6 +421,7 @@ def fake_toolchain(tmp_path, monkeypatch):
             self.fp_hash_xor_launch = type("Entry", (), {})()
             self.fingerprint_rows_launch = type("Entry", (), {})()
             self.fp_hash_probe_launch = type("Entry", (), {})()
+            self.fp_nq_move_launch = type("Entry", (), {})()
 
     monkeypatch.setattr(nk, "_nvcc", lambda: "nvcc")
     monkeypatch.setattr(nk.subprocess, "run", run)
@@ -460,7 +463,7 @@ def test_concurrent_first_use_builds_and_loads_once(fake_toolchain):
     assert cmd[cmd.index("-o") + 1].endswith(f"libfingerprint.so.{os.getpid()}.{ident}.tmp")
     # Every C entry takes (const long long* plan, void* stream) and returns an int.
     src = fp._SRC.read_text()
-    for name in ("fp_hash_xor_launch", "fingerprint_rows_launch", "fp_hash_probe_launch"):
+    for name in ("fp_hash_xor_launch", "fingerprint_rows_launch", "fp_hash_probe_launch", "fp_nq_move_launch"):
         params = re.search(rf'extern "C" int {name}\(([^)]*)\)', src).group(1)
         assert [q.strip() for q in params.split(",")] == ["const long long* plan", "void* stream"]
         fn = fp._LIBRARY.entry(name)
@@ -473,7 +476,8 @@ def test_the_library_is_built_where_the_smoke_names_it():
     assert fp._LIBRARY.lib == fp._LIB_PATH == nk._BUILD_DIR / "libfingerprint.so"
     assert fp._LIBRARY.src == fp._SRC and set(fp._LIBRARY.argtypes) == {"fp_hash_xor_launch",
                                                                         "fingerprint_rows_launch",
-                                                                        "fp_hash_probe_launch"}
+                                                                        "fp_hash_probe_launch",
+                                                                        "fp_nq_move_launch"}
 
 
 def test_a_failed_build_raises(fake_toolchain, monkeypatch):
@@ -518,3 +522,95 @@ def test_qap64_trajectory_is_unchanged():
         exchange_every=2, draws=JaxKeyDraws(jax.random.split(seed_string_to_key(seed), p)), device="cpu",
     )
     _trajectory(jsolver, tsolver)
+
+
+# ---------------------------------------------------------------- K7, the fingerprints of N-Queens candidates
+
+
+def _k7_args(rng, p, a, n, w, dtype=torch.int64):
+    """(cur_fp, cols, rows, idx): idx [P] when ``w`` is None, the exact
+    filter's expanded iota [P, A·n] when it is "all", else [P, w]."""
+    cur = torch.as_tensor(rng.integers(0, 2**32, (p, 2)))
+    cols = torch.as_tensor(np.stack([rng.choice(n, a, replace=False) for _ in range(p)]))
+    rows = torch.as_tensor(rng.integers(0, n, (p, n)))
+    if w is None:
+        idx = torch.as_tensor(rng.integers(0, a * n, p))
+    elif w == "all":
+        idx = torch.arange(a * n).expand(p, a * n)
+    else:
+        idx = torch.as_tensor(rng.integers(0, a * n, (p, w)))
+    return cur, cols, rows, idx.to(dtype)
+
+
+def _decode_then_fp_update(cur_fp, cols, rows, idx):
+    """The N-Queens model's move_fp before K7: the decode, then ``fp_update``."""
+    return fp.nqueens_move_fp_ref(cur_fp, cols, rows, idx, update=fp.fp_update)
+
+
+@pytest.mark.parametrize("p, a, n, w, dtype", [
+    (6, 3, 16, None, torch.int64), (6, 3, 16, "all", torch.int64), (4, 50, 1000, None, torch.int64),
+    (3, 5, 37, "all", torch.int32), (5, 2, 8, 7, torch.int32), (1, 1, 1, None, torch.int64),
+])
+def test_nqueens_move_fp_equals_the_decode_then_fp_update(p, a, n, w, dtype):
+    """K7's plain version (what the wrapper runs on the CPU) against the chain
+    the model ran before it, at a pick (W = 1), under the exact filter (W = A·n)
+    and on int32 candidates; and the model's move_fp against both."""
+    rng = np.random.default_rng(p * 100 + n)
+    args = _k7_args(rng, p, a, n, w, dtype)
+    got = fp.nqueens_move_fp(*args)
+    want = _decode_then_fp_update(*args)
+    assert got.dtype == torch.int64 and got.shape == (*args[3].shape, 2) and torch.equal(got, want)
+    assert torch.equal(fp.nqueens_move_fp_ref(*args), want)
+    problem = make_nqueens_problem(n, sample_cols=a)
+    cur, cols, rows, idx = args
+    state = problem.init(JaxKeyDraws(jax.random.split(jax.random.key(0), p)))._replace(rows=rows)
+    assert torch.equal(problem.move_fp(state, cur, NQMoves(cols, n), idx), want)
+
+
+def test_nqueens_move_fp_takes_strided_candidates_and_counts_no_launch_on_the_cpu():
+    rng = np.random.default_rng(9)
+    cur, cols, rows, idx = _k7_args(rng, 4, 5, 21, 14, torch.int32)
+    strided = idx[:, ::2]
+    before = fp.nqueens_move_fp.launches
+    got = fp.nqueens_move_fp(cur, cols, rows, strided)
+    assert fp.nqueens_move_fp.launches == before
+    assert torch.equal(got, _decode_then_fp_update(cur, cols, rows, strided.contiguous()))
+
+
+def test_nqueens_move_plan_layout_and_work():
+    """K7's C plan: P, W, n, A, then (pointer, 2 strides) of cur_fp, cols,
+    rows and idx, idx's width and the output pointer; stride 0 on idx's
+    broadcast dimensions (the exact filter's expanded iota, a pick's [P, 1]);
+    the work counts idx's distinct elements once."""
+    meta = lambda t: (t.shape, t.stride(), t.dtype)  # noqa: E731
+    cur, cols, rows = torch.zeros((8, 2), dtype=torch.int64), torch.zeros((8, 3), dtype=torch.int64), \
+        torch.zeros((8, 64), dtype=torch.int64)
+    iota = torch.arange(192).expand(8, 192)
+    plan = fp._nq_move_plan(meta(cur), meta(cols), meta(rows), meta(iota))
+    assert plan.template == (8, 192, 64, 3, 0, 2, 1, 0, 3, 1, 0, 64, 1, 0, 0, 1, 1, 0)
+    assert len(plan.template) == fp.NQ_MOVE_PLAN_LEN
+    assert plan.work == ((2 * fp.OPS_PER_HASH + 4) * 8 * 192, 16 * 8 + 8 * 192 + 16 * 8 * 3 + 16 * 8 * 192)
+    pick = torch.zeros(8, dtype=torch.int32)[:, None]
+    plan = fp._nq_move_plan(meta(cur), meta(cols), meta(rows), meta(pick))
+    assert plan.template[13:17] == (0, 1, 0, 0)  # int32, a lane stride of 1, the one candidate's 0
+    assert plan.work == ((2 * fp.OPS_PER_HASH + 4) * 8, 16 * 8 + 4 * 8 + 16 * 8 + 16 * 8)
+    for bad in ((meta(cur.int()), meta(cols), meta(rows), meta(iota)),
+                (meta(cur), meta(cols.int()), meta(rows), meta(iota)),
+                (meta(cur), meta(cols), meta(rows[:4]), meta(iota)),
+                (meta(cur), meta(cols), meta(rows), meta(iota[:4]))):
+        with pytest.raises(ValueError):
+            fp._nq_move_plan(*bad)
+    with pytest.raises(TypeError):
+        fp._nq_move_plan(meta(cur), meta(cols), meta(rows), meta(iota.to(torch.int16)))
+    with pytest.raises(ValueError):
+        fp.nqueens_move_fp(cur, cols, rows, torch.zeros((8, 2, 2), dtype=torch.int64))
+
+
+def test_roofline_counts_k7_by_its_plan():
+    rng = np.random.default_rng(11)
+    cur, cols, rows, idx = _k7_args(rng, 4, 3, 16, "all")
+    with rl.counting() as count:
+        fp.nqueens_move_fp(cur, cols, rows, idx)
+    plan = fp._nq_move_plan(*((t.shape, t.stride(), t.dtype) for t in (cur, cols, rows, idx)))
+    assert dict(count.kernels[fp.NQ_MOVE_KERNEL]) == {"calls": 1, "flops": plan.work[0], "bytes": plan.work[1]}
+    assert (count.flops, count.bytes) == plan.work
